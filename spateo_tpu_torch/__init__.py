@@ -1,0 +1,16 @@
+"""Spateo on PyTorch and CUDA: the port of `spateo_tpu` to NVIDIA Hopper.
+
+Mirrors `spateo_tpu`'s module paths and function names; plain tensor code is
+PyTorch and each TPU kernel on a ported path is a hand-written CUDA kernel
+(`csrc/`, built at first use). Public entry points take ``device=``, which
+defaults to ``"cuda"``. It never imports JAX.
+
+    import spateo_tpu_torch as stt
+    stt.cs.score_and_mask_pixels(adata, "X", k=5, method="EM+BP")
+"""
+
+from . import segmentation as cs
+from .configuration import SKM
+from .core.anndata import AnnData, concat, read_h5ad
+from .errors import ConfigurationError, SegmentationError, SpateoError
+from .logging import logger_manager

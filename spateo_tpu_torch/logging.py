@@ -1,0 +1,83 @@
+"""Leveled logger and a device-honest timer.
+
+Counterpart of `spateo_tpu.logging`: the same `logger_manager.main_*` surface,
+and `log_time`, which waits for the card (`torch.cuda.synchronize()`) where
+the JAX package waited on `jax.effects_barrier()`.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+import time
+from contextlib import contextmanager
+from typing import Optional
+
+import torch
+
+
+class Logger:
+    FORMAT = "|-----> %(message)s"
+
+    def __init__(self, namespace: str = "spateo", level: Optional[int] = None):
+        self.namespace = namespace
+        self.logger = logging.getLogger(namespace)
+        if not self.logger.handlers:
+            handler = logging.StreamHandler(sys.stderr)
+            handler.setFormatter(logging.Formatter(self.FORMAT))
+            self.logger.addHandler(handler)
+        self.logger.propagate = False
+        self.logger.setLevel(logging.INFO if level is None else level)
+
+    def setLevel(self, level):
+        self.logger.setLevel(level)
+
+    def debug(self, msg, *args, **kwargs):
+        self.logger.debug(msg, *args, **kwargs)
+
+    def info(self, msg, *args, **kwargs):
+        self.logger.info(msg, *args, **kwargs)
+
+    def warning(self, msg, *args, **kwargs):
+        self.logger.warning(msg, *args, **kwargs)
+
+
+class LoggerManager:
+    """The `lm.main_*` surface the slice uses."""
+
+    def __init__(self, namespace: str = "spateo"):
+        self.main_logger = Logger(namespace)
+
+    def main_set_level(self, level):
+        self.main_logger.setLevel(level)
+
+    def main_info(self, msg, indent_level: int = 1):
+        self.main_logger.info(msg)
+
+    def main_debug(self, msg, indent_level: int = 1):
+        self.main_logger.debug(msg)
+
+    def main_warning(self, msg, indent_level: int = 1):
+        self.main_logger.warning(msg)
+
+    def main_info_insert_adata(self, key, adata_attr: str = "obsm", indent_level: int = 1):
+        self.main_debug(f"<insert> {key} to {adata_attr} in AnnData Object.")
+
+    def main_info_insert_adata_layer(self, key, indent_level: int = 1):
+        self.main_info_insert_adata(key, "layers")
+
+
+logger_manager = LoggerManager()
+lm = logger_manager
+
+
+@contextmanager
+def log_time(name: str, logger: Optional[Logger] = None, sync: bool = True):
+    """Time a block. With `sync`, waits for queued CUDA work first, since
+    PyTorch returns before the card has finished."""
+    logger = logger or logger_manager.main_logger
+    t0 = time.perf_counter()
+    yield
+    if sync and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    logger.info(f"{name}: {time.perf_counter() - t0:.4f}s")

@@ -1,0 +1,140 @@
+"""Sum-product belief propagation on a binary 2D grid MRF.
+
+Counterpart of `spateo_tpu.ops.bp`. Binary states {background, cell}; node
+potentials are the NB conditionals; the edge potential is Potts
+[[p, q], [q, p]]. The standard 4-neighbourhood on a CUDA tensor runs the
+hand-written fused iteration (`ops.bp_cuda`); any other neighbourhood, and
+any CPU tensor, runs `_bp_kernel`, the generic version in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .bp_cuda import OFFSETS4, bp_kernel
+from .image import circle
+
+
+def create_neighbor_offsets(neighborhood: np.ndarray) -> np.ndarray:
+    """Neighbourhood mask -> (D, 2) array of (dy, dx) offsets (centre removed)."""
+    for s in neighborhood.shape:
+        if s % 2 == 0:
+            raise ValueError("`neighborhood` must have odd dimension sizes")
+    neighborhood = np.asarray(neighborhood).astype(bool).copy()
+    center = tuple((np.array(neighborhood.shape) - 1) // 2)
+    neighborhood[center] = False
+    coords = np.argwhere(neighborhood)
+    return (coords - np.array(center)).astype(np.int16)
+
+
+def _use_cuda_bp(offsets, tensor: torch.Tensor) -> bool:
+    """True for a CUDA tensor with the standard 4-neighbourhood: the fused
+    kernel then runs, and a failure to build or launch it raises. False for
+    a CPU tensor or any other neighbourhood."""
+    return tensor.device.type == "cuda" and set(map(tuple, offsets)) == set(OFFSETS4)
+
+
+def _shift2d(arr: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
+    """Shift a [H, W, C] array by (dy, dx): out[y, x] = arr[y - dy, x - dx],
+    with `fill` where that falls outside."""
+    H, W = arr.shape[0], arr.shape[1]
+    out = torch.full_like(arr, fill)
+    ys, yd = (slice(0, H - dy), slice(dy, H)) if dy >= 0 else (slice(-dy, H), slice(0, H + dy))
+    xs, xd = (slice(0, W - dx), slice(dx, W)) if dx >= 0 else (slice(-dx, W), slice(0, W + dx))
+    out[yd, xd] = arr[ys, xs]
+    return out
+
+
+def _bp_kernel(
+    phi: torch.Tensor,  # [H, W, 2] node potentials (normalised)
+    offsets: Tuple[Tuple[int, int], ...],
+    p: float,
+    q: float,
+    precision: float,
+    max_iter: int,
+) -> torch.Tensor:
+    """Loopy-BP marginals for any neighbourhood, with the L2 delta checked
+    after every iteration."""
+    H, W, _ = phi.shape
+    D = len(offsets)
+    rev = tuple(offsets.index((-dy, -dx)) for (dy, dx) in offsets)
+    psi = torch.tensor([[p, q], [q, p]], dtype=torch.float32, device=phi.device)
+
+    # M[d] = incoming message INTO each pixel from its neighbour at -offsets[d]
+    M = torch.full((D, H, W, 2), 0.5, dtype=torch.float32, device=phi.device)
+
+    def one_iter(M):
+        prod = phi * torch.prod(M, dim=0)  # [H,W,2]
+        new_msgs = []
+        for d, (dy, dx) in enumerate(offsets):
+            # message from pixel i to neighbour j = i + (dy, dx), excluding
+            # j's own previous message into i (direction rev[d])
+            excl = prod / torch.clamp_min(M[rev[d]], 1e-30)
+            out = excl @ psi
+            out = out / torch.clamp_min(torch.sum(out, dim=-1, keepdim=True), 1e-30)
+            new_msgs.append(_shift2d(out, dy, dx, 0.5))
+        return torch.stack(new_msgs)
+
+    i, delta = 0, float("inf")
+    while i < max_iter and delta >= precision:
+        M_new = one_iter(M)
+        delta = float(torch.sqrt(torch.sum((M_new - M) ** 2)))
+        M = M_new
+        i += 1
+    belief = phi * torch.prod(M, dim=0)
+    belief = belief / torch.clamp_min(torch.sum(belief, dim=-1, keepdim=True), 1e-30)
+    return belief[..., 1]
+
+
+def cell_marginals(
+    background_probs: np.ndarray,
+    cell_probs: np.ndarray,
+    neighborhood: Optional[np.ndarray] = None,
+    p: float = 0.6,
+    q: float = 0.4,
+    precision: float = 1e-5,
+    max_iter: int = 100,
+    device="cuda",
+) -> np.ndarray:
+    """Marginal P(cell) per pixel by loopy BP on `device`; a host array."""
+    if cell_probs.shape != background_probs.shape:
+        raise ValueError("`cell_probs` and `background_probs` must have the same shape")
+    neighborhood = (neighborhood > 0) if neighborhood is not None else circle(3).astype(bool)
+    if np.asarray(cell_probs).ndim != neighborhood.ndim:
+        raise ValueError("`neighborhood` and `cell_probs` must have the same number of dimensions")
+    offsets = tuple(map(tuple, create_neighbor_offsets(neighborhood).tolist()))
+    phi = torch.stack(
+        [
+            torch.as_tensor(np.asarray(background_probs, np.float32), device=device),
+            torch.as_tensor(np.asarray(cell_probs, np.float32), device=device),
+        ],
+        dim=-1,
+    )
+    phi = phi / torch.clamp_min(torch.sum(phi, dim=-1, keepdim=True), 1e-30)
+    if _use_cuda_bp(offsets, phi):
+        marginals = bp_kernel(phi, float(p), float(q), float(precision), int(max_iter))
+    else:
+        marginals = _bp_kernel(phi, offsets, float(p), float(q), float(precision), int(max_iter))
+    return marginals.cpu().numpy()
+
+
+def run_bp(
+    background_cond: np.ndarray,
+    cell_cond: np.ndarray,
+    k: int = 3,
+    square: bool = False,
+    p: float = 0.6,
+    q: float = 0.4,
+    precision: float = 1e-6,
+    max_iter: int = 100,
+    device="cuda",
+) -> np.ndarray:
+    """Marginal P(cell) with a size-k circular/square neighbourhood."""
+    neighborhood = np.ones((k, k)) if square else circle(k)
+    return cell_marginals(
+        background_cond, cell_cond, neighborhood=neighborhood, p=p, q=q, precision=precision, max_iter=max_iter,
+        device=device,
+    )

@@ -1,0 +1,12 @@
+"""NB-mixture EM (public module; compute in spateo_tpu_torch.ops.em)."""
+
+from ..ops.em import (
+    conditionals,
+    lamtheta_to_muvar,
+    lamtheta_to_r,
+    muvar_to_lamtheta,
+    nb_logpmf,
+    nbn_em,
+)
+
+__all__ = ["conditionals", "lamtheta_to_muvar", "lamtheta_to_r", "muvar_to_lamtheta", "nb_logpmf", "nbn_em"]

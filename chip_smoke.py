@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's Starro EM+BP slice on one NVIDIA GPU and
-check it. Run from the repository root, with no arguments:
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
+EM+BP slice and the Morpho alignment slice. Run from the repository root,
+with no arguments:
 
     python3 chip_smoke.py
 
@@ -8,17 +9,34 @@ final ``ok`` line:
 
 0. environment: a CUDA device is required; prints the card's name and power
    limit, the torch and CUDA versions; TF32 off for matmul and cuDNN.
-1. build: compiles the CUDA kernels from `spateo_tpu_torch/csrc`.
+1. build: compiles every CUDA source of `spateo_tpu_torch/csrc`, one nvcc
+   each, all started together.
 2. kernel vs plain version: `bp_step` (the kernel) against
    `bp_step_reference` on the card at 2048x2048 and 1000x1500, in f32 and
    bf16, and full 50-iteration `bp_kernel` runs against the plain loop on
    the CPU; per-iteration times of both at 2048x2048.
-3. main path: `cs.score_and_mask_pixels` on a 2048x2048 AGG raster (k=5, BP
-   50 iterations, bf16 messages), then four tiles through
+3. Starro main path: `cs.score_and_mask_pixels` on a 2048x2048 AGG raster
+   (k=5, BP 50 iterations, bf16 messages), then four tiles through
    `starro_em_bp_stream`; the launch counts of that run prove the kernel ran.
    A per-stage breakdown of one tile is timed first.
-4. CUDA vs CPU: one 512x512 density raster and one NB fit scored on the card
-   (kernel) and on the CPU (plain); mask IoU >= 0.999.
+4. Starro CUDA vs CPU: one 512x512 density raster and one NB fit scored on
+   the card (kernel) and on the CPU (plain); mask IoU >= 0.999.
+5. E-step kernels vs plain versions: `colnorm` and `rowred` (the kernels of
+   `csrc/estep.cu`) against `colnorm_reference` and `rowred_reference`, and
+   the whole `estep_cuda` against `estep_reference`, at the benchmark's
+   20,000 x 2,000 (kl factors, G' = 51), at 100,000 x 10,000 Morton-ordered
+   at the solver's sigma2 floor (most tiles skip) and at a ragged shape;
+   CUDA-event times of each kernel and plain sweep, and the share of tiles
+   skipped. Then the coarse-init fit `inlier_fit` (the kernel of
+   `csrc/inlier.cu`, all 100 iterations in one launch) against
+   `inlier_reference` at the 20k pair's 20,480 NN matches.
+6. Morpho main path: `align.morpho_align([fixed, moving])` on the benchmark's
+   20,000-cell pair (`bench._make_slice_pair`, 50 genes, kl, SVI batch 2,000,
+   200 iterations); warm-up on seed 1, seeds 2-4 timed; pairs per minute,
+   stage times, peak memory; each E-step kernel launched 200 times per pair
+   and the inlier kernel once; the rotation recovered.
+7. Morpho CUDA vs CPU: one 2,000-cell pair aligned on the card (kernels) and
+   on the CPU (plain dense E-step), same seed.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error and times, and the ``ok`` JSON line.
@@ -28,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -147,6 +166,258 @@ def phase_stages(X, ts, em, bp_cuda, report):
     return bp_iters, mask.cpu().numpy()
 
 
+ESTEP_KEYS = ("K_NA", "K_NA_spatial", "K_NA_sigma2", "K_NB", "Sp", "sigma2_related", "PXB", "M1")
+
+
+def scaled_err(ref, out):
+    return float((out.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-30))
+
+
+def estep_case(NA, B, sigma2, seed):
+    """E-step inputs as the solver builds them: both slices normalised
+    together, the moving slice's rows and the batch Morton-ordered, kl
+    factors of 50 Poisson genes (G' = 51), the probability parameter from
+    the solver's order statistic."""
+    from bench import _make_slice_pair
+    from spateo_tpu_torch.alignment.methods import math as tm
+
+    pts, ptsA, X = _make_slice_pair(NA, seed=seed)
+    rng = np.random.default_rng(seed)
+    bidx = rng.choice(NA, B, replace=False)
+    (cA, cB), _, _ = tm.normalize_coords([ptsA, pts])
+    oA = np.argsort(tm.morton_code(cA), kind="stable")
+    bidx = bidx[np.argsort(tm.morton_code(cB)[bidx], kind="stable")]
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to("cuda")
+    XA, XB = T(X[oA]), T(X[bidx])
+    a, b, A, Bf = tm.factorize_distance(XA, XB, "kl")
+    p = torch.clamp_min(tm.min_dist_order_stat(XA[:20000], XB, int(min(NA, 20000) * 0.05)) / 5, 0.01)
+    s = lambda v: torch.tensor(v, dtype=torch.float32, device="cuda")
+    mm = T(rng.uniform(0.5, 1.0, NA).astype(np.float32))
+    coordsA = T(cA[oA])
+    return (coordsA, coordsA, T(cB[bidx]), a, b, A, Bf, mm, s(sigma2), s(0.5), s(11.0), s(2.0), p)
+
+
+def tile_compute_share(xa, cb, sigma2, skip):
+    """Share of 64 x 64 tiles the kernels compute: not flagged by the bbox
+    mask and with some pair at d < 80 sigma2 (the kernels' own test)."""
+    from spateo_tpu_torch.ops import estep_cuda as ec
+
+    NA, B = xa.shape[0], cb.shape[0]
+    n_ta, n_tb = -(-NA // ec.TM), -(-B // ec.TN)
+    cbp = torch.cat([cb, torch.full((n_tb * ec.TN - B, 2), 1e6, device=cb.device)])
+    xap = torch.cat([xa, torch.full((n_ta * ec.TM - NA, 2), -1e6, device=xa.device)])
+    live = torch.empty((n_ta, n_tb), dtype=torch.bool, device=xa.device)
+    step = 64
+    for i in range(0, n_ta, step):
+        rows = xap[i * ec.TM:(i + step) * ec.TM]
+        d = (rows[:, None, :] - cbp[None, :, :]).pow(2).sum(-1)
+        live[i:i + step] = d.reshape(-1, ec.TM, n_tb, ec.TN).amin((1, 3)) < ec._SKIP_MULT * sigma2
+    live &= skip.reshape(n_ta, n_tb) == 0
+    return float(live.float().mean())
+
+
+def phase_estep_kernels():
+    """Phase 5. Returns each E-step kernel's error and times at 20k x 2k."""
+    from spateo_tpu_torch.ops import estep_cuda as ec
+
+    # scaled-error bars: 1e-4 at sigma2 >= 0.05; 2e-3 at the solver's floor
+    # 1e-3, where one ulp of |a|^2 in the distance expansion moves
+    # exp(-d s2v / (2 sigma2)) by ~1e-4 relative and the kernel and the plain
+    # version round the expansion differently
+    cases = (("20000x2000", 20000, 2000, 0.05, 1, 1e-4), ("100000x10000", 100000, 10000, 1e-3, 2, 2e-3),
+             ("1000x333", 1000, 333, 0.05, 3, 1e-4))
+    result = {}
+    for name, NA, B, sigma2, seed, tol in cases:
+        args = estep_case(NA, B, sigma2, seed)
+        xa, cb, fat, fbt, bt, mm, scal, skip = ec.prepare(*args[:1], *args[2:])
+        before = (ec.colnorm.launches, ec.rowred.launches)
+        col_k = ec.colnorm(xa, cb, fat, fbt, bt, mm, scal, skip)
+        torch.cuda.synchronize()
+        check((ec.colnorm.launches, ec.rowred.launches) == (before[0] + 1, before[1]), "colnorm did not count")
+        col_r = ec.colnorm_reference(xa, cb, fat, fbt, bt, mm, scal)
+        row_k = ec.rowred(xa, cb, fat, fbt, bt, col_r, scal, skip)
+        torch.cuda.synchronize()
+        check(ec.rowred.launches == before[1] + 1, "rowred did not count")
+        row_r = ec.rowred_reference(xa, cb, fat, fbt, bt, col_r, scal)
+        col_errs = [scaled_err(col_r[q], col_k[q]) for q in range(5)]
+        row_errs = [scaled_err(row_r[q], row_k[q]) for q in range(6)]
+        check(max(col_errs) <= tol, f"colnorm vs plain at {name}: {col_errs} > {tol}")
+        check(max(row_errs) <= tol, f"rowred vs plain at {name}: {row_errs} > {tol}")
+        out_k, out_r = ec.estep_cuda(*args), ec.estep_reference(*args)
+        whole = {k: scaled_err(out_r[k], out_k[k]) for k in ESTEP_KEYS}
+        check(all(bool(torch.isfinite(out_k[k]).all()) for k in ESTEP_KEYS), f"estep_cuda not finite at {name}")
+        check(max(whole.values()) <= tol, f"estep_cuda vs estep_reference at {name}: {whole} > {tol}")
+        again = ec.estep_cuda(*args)
+        same = all(torch.equal(again[k], out_k[k]) for k in ESTEP_KEYS)
+        check(same, f"estep_cuda is not deterministic at {name}")
+        knb_err = float((col_k[4] - col_r[4]).abs().max())
+        kna_err = float((row_k[0] - row_r[0]).abs().max())
+        col_abs = float((col_k - col_r).abs().max())
+        row_abs = float((row_k - row_r).abs().max())
+        print(
+            f"phase 5: E-step {name}, sigma2 {sigma2}: colnorm scaled errs {col_errs!r}, rowred scaled errs "
+            f"{row_errs!r} (tol {tol}); estep_cuda vs estep_reference {json.dumps(whole)}; same bits twice {same}; "
+            f"max_abs_err over the outputs: colnorm {col_abs!r}, rowred {row_abs!r}; K_NB {knb_err!r}, row sums of "
+            f"P3 {kna_err!r}"
+        )
+        if name == "1000x333":
+            continue
+        bbox_share = float(skip.float().mean())
+        live = tile_compute_share(xa, cb, float(args[8]), skip)
+        n = 20 if NA <= 20000 else 5
+        t = dict(
+            colnorm=cuda_ms(lambda: ec.colnorm(xa, cb, fat, fbt, bt, mm, scal, skip), n),
+            colnorm_plain=cuda_ms(lambda: ec.colnorm_reference(xa, cb, fat, fbt, bt, mm, scal), n),
+            rowred=cuda_ms(lambda: ec.rowred(xa, cb, fat, fbt, bt, col_r, scal, skip), n),
+            rowred_plain=cuda_ms(lambda: ec.rowred_reference(xa, cb, fat, fbt, bt, col_r, scal), n),
+            estep_cuda=cuda_ms(lambda: ec.estep_cuda(*args), n),
+            estep_reference=cuda_ms(lambda: ec.estep_reference(*args), n),
+        )
+        print(
+            f"phase 5: E-step {name} times (ms, CUDA events): " + ", ".join(f"{k}={v!r}" for k, v in t.items())
+            + f"; tiles flagged by the bbox mask {bbox_share!r}, tiles computed {live!r}"
+        )
+        if name == "20000x2000":
+            result = dict(
+                colnorm=dict(max_abs_err=col_abs, ms=t["colnorm"], plain_ms=t["colnorm_plain"]),
+                rowred=dict(max_abs_err=row_abs, ms=t["rowred"], plain_ms=t["rowred_plain"]),
+            )
+    return result
+
+
+def phase_inlier_kernel():
+    """Phase 5, the coarse fit: the kernel against the plain loop at the
+    row count the 20k pair gives it (two voxel sets of 1,024 rows, 10
+    matches each way). Returns its error and times."""
+    from spateo_tpu_torch.ops import inlier_cuda
+
+    n, N = 20000, 20480
+    rng = np.random.default_rng(0)
+    th = 0.4
+    R_true = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    tx = rng.uniform(0, 5, (N, 2)).astype(np.float32)
+    ty = (tx @ R_true.T + np.array([1.0, -2.0], np.float32)).astype(np.float32)
+    ty[: n // 3] += rng.normal(0, 2.0, (n // 3, 2)).astype(np.float32)
+    dist = rng.uniform(0, 3, (N, 1)).astype(np.float32)
+    tx[n:], ty[n:], dist[n:] = tx[0], ty[0], dist[0]
+    mask = np.zeros((N, 1), np.float32)
+    mask[:n] = 1.0
+    T = lambda x: torch.from_numpy(x).to("cuda")
+    args = (T(tx), T(ty), T(dist), T(mask), float(n))
+    before = inlier_cuda.inlier_fit.launches
+    P, R, t, w, s2, g = inlier_cuda.inlier_fit(*args)
+    torch.cuda.synchronize()
+    check(inlier_cuda.inlier_fit.launches == before + 1, "inlier_fit did not count its launch")
+    Pr, Rr, tr, wr, s2r, gr = inlier_cuda.inlier_reference(*args)
+    errs = dict(R=float((R - Rr).abs().max()), t=float((t - tr).abs().max()), P=float((P - Pr).abs().max()),
+                weight0=float((w - wr).abs().max()), sigma2_rel=abs(float(s2) - float(s2r)) / max(float(s2r), 1e-3),
+                gamma=abs(float(g) - float(gr)))
+    # the bars tests/test_ops.py:319-324 hold the TPU kernel to
+    bars = dict(R=2e-5, t=2e-4, P=1e-3, weight0=1e-5, sigma2_rel=1e-3, gamma=1e-3)
+    check(all(errs[k] <= bars[k] for k in bars), f"inlier_fit vs plain: {errs} (bars {bars})")
+    check(float(np.abs(R.cpu().numpy() - R_true).max()) < 0.05, "inlier_fit did not recover the rotation")
+    ms_k = cuda_ms(lambda: inlier_cuda.inlier_fit(*args), 10)
+    ms_r = cuda_ms(lambda: inlier_cuda.inlier_reference(*args), 3)
+    print(f"phase 5: inlier_fit {N} rows, 100 iterations: errors {json.dumps(errs)} (bars {json.dumps(bars)}); "
+          f"kernel {ms_k!r} ms, plain loop {ms_r!r} ms (CUDA events)")
+    return dict(max_abs_err=errs["P"], ms=ms_k, plain_ms=ms_r)
+
+
+def phase_morpho_main():
+    """Phase 6. Returns each E-step kernel's launches over the timed pairs."""
+    import bench
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.alignment.methods import morpho as tmorpho
+    from spateo_tpu_torch.ops import estep_cuda as ec
+    from spateo_tpu_torch.ops import inlier_cuda
+
+    runs = []
+    real_run = tmorpho.Morpho_pairwise.run
+
+    def run_and_record(self):
+        out = real_run(self)
+        runs.append(self)
+        return out
+
+    tmorpho.Morpho_pairwise.run = run_and_record
+    try:
+        pairs = {s: bench._make_slice_pair(20000, seed=s) for s in (1, 2, 3, 4)}
+
+        def align(s):
+            pts, ptsA, X = pairs[s]
+            fixed, moving = bench._mk_adata(stt, pts, X), bench._mk_adata(stt, ptsA, X)
+            return stt.align.morpho_align([fixed, moving], spatial_key="spatial", key_added="align", max_iter=200,
+                                          verbose=False)
+
+        align(1)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        ec.colnorm.launches = ec.rowred.launches = inlier_cuda.inlier_fit.launches = 0
+        times, per_pair = [], []
+        for s in (2, 3, 4):
+            before = (ec.colnorm.launches, ec.rowred.launches, inlier_cuda.inlier_fit.launches)
+            t, (out, pis) = host_ms(lambda: align(s))
+            times.append(t)
+            per_pair.append((ec.colnorm.launches - before[0], ec.rowred.launches - before[1],
+                             inlier_cuda.inlier_fit.launches - before[2]))
+            pts = pairs[s][0]
+            aligned = out[1].obsm["align"]
+            rms = float(np.sqrt(((aligned - pts) ** 2).sum(1).mean()))
+            check(aligned.shape == pts.shape and bool(np.isfinite(aligned).all()), "aligned coordinates")
+            check(rms < 0.1, f"seed {s}: rigid result RMS {rms} >= 0.1 (1% of the 10-unit box)")
+            n = len(pts)
+            check(tuple(pis[0].shape) == (min(max(n // 10, 1000), n), n) and bool(torch.isfinite(pis[0]).all()),
+                  f"assignment P.T {tuple(pis[0].shape)}")
+            R = out[1].uns["VecFld_morpho"]
+            print(f"phase 6: seed {s}: {t!r} ms, RMS to the truth {rms!r}, optimal_R {R['optimal_R'].tolist()}, "
+                  f"sigma2 {R['sigma2']!r}, gamma {R['gamma']!r}")
+        launches = dict(colnorm=ec.colnorm.launches, rowred=ec.rowred.launches,
+                        inlier=inlier_cuda.inlier_fit.launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        tmorpho.Morpho_pairwise.run = real_run
+    check(all(pp == (200, 200, 1) for pp in per_pair),
+          f"kernel launches per pair (colnorm, rowred, inlier) {per_pair}, expected (200, 200, 1)")
+    check(launches == dict(colnorm=600, rowred=600, inlier=3), f"Morpho launches in the main path {launches}")
+    marks = ("start", "initp_done", "sigma2_samples_done", "U_guidance_done", "factorize_done", "preem_done",
+             "em_dispatched", "pull_done", "P_done")
+    names = ("coarse_init", "prob_params_sigma2", "U", "factorise", "pre_em", "em", "pull", "P")
+    for m in runs[1:]:
+        pt = m._phase_times
+        stages = {n: (pt[b] - pt[a]) * 1e3 for n, a, b in zip(names, marks[:-1], marks[1:])}
+        print("phase 6: stages of one pair (ms, synchronised): " + ", ".join(f"{k}={v!r}" for k, v in stages.items()))
+    best = min(times)
+    print(f"phase 6: morpho_align 20000-cell pair: {times!r} ms; {60e3 / best!r} pairs/min (best of 3), "
+          f"{60e3 * 3 / sum(times)!r} pairs/min (mean); peak device memory {peak_gb!r} GB; "
+          f"kernel launches per pair (colnorm, rowred, inlier) {per_pair}, in the main path {launches}")
+    return launches
+
+
+def phase_morpho_cuda_vs_cpu():
+    """Phase 7: one 2,000-cell pair on the card and on the CPU."""
+    import bench
+    import spateo_tpu_torch as stt
+
+    pts, ptsA, X = bench._make_slice_pair(2000, seed=7)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, X), bench._mk_adata(stt, ptsA, X)],
+                                        spatial_key="spatial", key_added="align", max_iter=200, verbose=False,
+                                        device=dev)
+        res[dev] = (out[1], time.perf_counter() - t0)
+    (g, tg), (c, tc) = res["cuda"], res["cpu"]
+    r_err = float(np.abs(g.uns["VecFld_morpho"]["optimal_R"] - c.uns["VecFld_morpho"]["optimal_R"]).max())
+    x_err = float(np.abs(g.obsm["align"] - c.obsm["align"]).max())
+    nr_err = float(np.abs(g.obsm["align_nonrigid"] - c.obsm["align_nonrigid"]).max())
+    # bars: rotations 1e-3, coordinates 1e-2 on the 10-unit box (0.1%): the
+    # card's kernels and the CPU's dense E-step sum in other orders over
+    # 200 iterations
+    check(r_err <= 1e-3, f"CUDA vs CPU optimal_R differs by {r_err}")
+    check(x_err <= 1e-2 and nr_err <= 1e-2, f"CUDA vs CPU aligned coordinates differ by {x_err} / {nr_err}")
+    print(f"phase 7: 2000-cell pair, CUDA (kernels) vs CPU (plain): optimal_R max_abs_err {r_err!r}, rigid coords "
+          f"max_abs_err {x_err!r}, non-rigid coords max_abs_err {nr_err!r}; {tg!r} s on the card, {tc!r} s on the CPU")
+
+
 def main():
     # -- phase 0: environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -166,9 +437,13 @@ def main():
 
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
-    lib = _build.build("bp_step")
-    _build.load("bp_step")
-    print(f"phase 1: built {lib.name} in {time.perf_counter() - t0:.2f} s")
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    check({"bp_step", "estep", "inlier"} <= set(sources), f"CUDA sources missing: {sources}")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = [f.result() for f in [pool.submit(_build.build, name) for name in sources]]
+    for name in sources:
+        _build.load(name)
+    print(f"phase 1: built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
 
     # -- phase 2: kernel vs plain version ----------------------------------------
     kstats = phase_kernel_vs_plain(bp_cuda)
@@ -229,15 +504,47 @@ def main():
     check(iou4 >= 0.999, f"512x512 CUDA vs CPU mask IoU {iou4} < 0.999")
     print(f"phase 4: 512x512 CUDA (kernel, bf16) vs CPU (plain, f32): mask IoU {iou4!r}, scores max_abs_err {serr!r}")
 
+    # -- phases 5-7: Morpho ---------------------------------------------------------
+    estats = phase_estep_kernels()
+    istats = phase_inlier_kernel()
+    est_launches = phase_morpho_main()
+    phase_morpho_cuda_vs_cpu()
+
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "bp_step",
-        "route": "cuda",
-        "source": "spateo_tpu_torch/csrc/bp_step.cu",
-        "replaces": "spateo_tpu/ops/bp_pallas.py:63",
-        "launches": launches,
-        **kstats,
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "bp_step",
+            "route": "cuda",
+            "source": "spateo_tpu_torch/csrc/bp_step.cu",
+            "replaces": "spateo_tpu/ops/bp_pallas.py:63",
+            "launches": launches,
+            **kstats,
+        },
+        {
+            "name": "estep_colnorm",
+            "route": "cuda",
+            "source": "spateo_tpu_torch/csrc/estep.cu",
+            "replaces": "spateo_tpu/ops/estep_pallas.py:107",
+            "launches": est_launches["colnorm"],
+            **estats["colnorm"],
+        },
+        {
+            "name": "estep_rowred",
+            "route": "cuda",
+            "source": "spateo_tpu_torch/csrc/estep.cu",
+            "replaces": "spateo_tpu/ops/estep_pallas.py:149",
+            "launches": est_launches["rowred"],
+            **estats["rowred"],
+        },
+        {
+            "name": "inlier_fit",
+            "route": "cuda",
+            "source": "spateo_tpu_torch/csrc/inlier.cu",
+            "replaces": "spateo_tpu/ops/inlier_pallas.py:38",
+            "launches": est_launches["inlier"],
+            **istats,
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

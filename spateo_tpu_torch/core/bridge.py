@@ -4,7 +4,9 @@ JAX package.
 `to_device` uploads through pinned host memory with ``non_blocking=True``, so
 the copy is asynchronous on the current stream. `adata_from_reference` builds
 the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
-fields, duck-typed, so that this module never imports the JAX package.
+fields, and `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho
+solve's EM inputs over; both are duck-typed, so that this module never
+imports the JAX package.
 """
 
 from __future__ import annotations
@@ -46,3 +48,36 @@ def adata_from_reference(adata) -> AnnData:
         uns=_deepcopy_uns(dict(adata.uns)),
         layers={k: _copy(v) for k, v in adata.layers.items()},
     )
+
+
+#: Positional parameters of `_morpho_em`, in order (both packages).
+MORPHO_EM_ARGS = (
+    "coordsA", "coordsB", "exp_a_rows", "exp_b_cols", "exp_A_feats", "exp_B_feats", "U", "GammaSparse",
+    "batch_perm", "morton_rank_B", "inlier_A", "inlier_B", "inlier_P", "X_AI", "X_BI", "U_I",
+    "probability_parameters", "sigma2_init", "samples_s",
+)
+
+
+def morpho_inputs_from_reference(m, em_args, em_kwargs) -> dict:
+    """The state a `spateo_tpu` `Morpho_pairwise` solve hands its EM, as
+    numpy, for the port's `alignment.methods.morpho._morpho_em`.
+
+    `m` is the JAX package's solver after its pre-EM setup (coarse init,
+    probability parameters, sigma2, U and factorisation); `em_args` and
+    `em_kwargs` are the arguments its `run()` passed to the JAX `_morpho_em`
+    (Morton-sorted coordsA after the coarse transform, coordsB, the
+    expression factors, U, GammaSparse, the inlier arrays, the probability
+    parameters, sigma2_init, samples_s and the batch permutation). Returns
+    ``{"args": {name: array or tuple of arrays}, "static": {keyword: value},
+    "invA": the inverse Morton permutation of the moving slice's rows}``;
+    the JAX keyword `use_pallas_estep` becomes `use_kernel_estep`."""
+
+    def host(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(host(v) for v in x)
+        return np.array(x)
+
+    args = {name: host(v) for name, v in zip(MORPHO_EM_ARGS, em_args)}
+    static = dict(em_kwargs)
+    static["use_kernel_estep"] = bool(static.pop("use_pallas_estep", True))
+    return {"args": args, "static": static, "invA": np.asarray(m._invA)}

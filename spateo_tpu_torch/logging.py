@@ -60,6 +60,14 @@ class LoggerManager:
     def main_warning(self, msg, indent_level: int = 1):
         self.main_logger.warning(msg)
 
+    def progress_logger(self, generator, logger=None, progress_name: str = "", indent_level: int = 1):
+        """Log the start and end (with seconds) of a loop over `generator`."""
+        self.main_logger.info(f"<start> {progress_name}")
+        t0 = time.time()
+        for item in generator:
+            yield item
+        self.main_logger.info(f"<end> {progress_name} [{time.time() - t0:.4f}s]")
+
     def main_info_insert_adata(self, key, adata_attr: str = "obsm", indent_level: int = 1):
         self.main_debug(f"<insert> {key} to {adata_attr} in AnnData Object.")
 

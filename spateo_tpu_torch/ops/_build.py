@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into `spateo_tpu_torch/_build/lib<name>-<hash>.so`, where the hash covers
-the source and the flags: an edited source builds anew, an unchanged one
-loads the library already built. Nothing is compiled while a module is
-imported; `load(name)` compiles on its first call in a process. A missing
-`nvcc` or a failed build raises with the compiler's output.
+the source, every file beside it that it includes with `#include "..."`
+(recursively), and the flags: an edited source or header builds anew, an
+unchanged one loads the library already built. Nothing is compiled while a
+module is imported; `load(name)` compiles on its first call in a process. A
+missing `nvcc` or a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,11 +38,32 @@ def _nvcc() -> str:
     raise RuntimeError(f"nvcc not found on PATH or under {cuda_home}; the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(src: Path, flags=NVCC_FLAGS) -> str:
+    """Hash of `src`, of each file it includes with quotes (looked up beside
+    the including file, recursively, each once; a name not found there is a
+    header of the toolkit's include path) and of `flags`."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    Path(src).stat()  # a missing source raises here
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in seen or not path.is_file():
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(str(path.name).encode() + b"\0" + text)
+        todo.extend(path.parent / inc.decode() for inc in _LOCAL_INCLUDE.findall(text))
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless a library of the same source and
-    flags exists; return the library's path."""
+    """Compile `csrc/<name>.cu` unless a library of the same source,
+    headers and flags exists; return the library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib

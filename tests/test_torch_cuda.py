@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from spateo_tpu_torch.ops import bp_cuda, em
+from spateo_tpu_torch.alignment.methods import math as amath
+from spateo_tpu_torch.ops import bp_cuda, em, estep_cuda, inlier_cuda
 from spateo_tpu_torch.segmentation import starro
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +84,165 @@ def test_starro_score_mask_cuda_matches_cpu(cuda):
     s_cpu, m_cpu = starro._starro_score_mask(res, *args)
     a, b = m_gpu.cpu().numpy(), m_cpu.numpy()
     assert np.logical_and(a, b).sum() / max(np.logical_or(a, b).sum(), 1) >= 0.999
+
+
+ESTEP_KEYS = ("K_NA", "K_NA_spatial", "K_NA_sigma2", "K_NB", "Sp", "sigma2_related", "PXB", "M1")
+
+
+def _estep_args(NA, B, device, sigma2=0.05, morton=False, G=50, seed=0):
+    """E-step inputs on `device`: kl factors of Poisson counts over G genes,
+    coordinates in a unit-scale box (Morton-ordered when asked)."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1.7, 1.7, (NA, 2)).astype(np.float32)
+    b = rng.uniform(-1.7, 1.7, (B, 2)).astype(np.float32)
+    if morton:
+        a, b = a[np.argsort(amath.morton_code(a))], b[np.argsort(amath.morton_code(b))]
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    fac = amath.factorize_distance(T(rng.poisson(2.0, (NA, G)).astype(np.float32)),
+                                   T(rng.poisson(2.0, (B, G)).astype(np.float32)), "kl")
+    mm = T(rng.uniform(0.5, 1, NA).astype(np.float32))
+    s = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    return (T(a), T(a), T(b), *fac, mm, s(sigma2), s(0.7), s(3.0), s(2.0), s(0.05))
+
+
+def _scaled(ref, out):
+    return float((out - ref).abs().max() / (ref.abs().max() + 1e-30))
+
+
+@pytest.mark.parametrize("NA,B,sigma2,morton", [
+    (1000, 333, 0.05, False),   # ragged: neither is a multiple of 64
+    (777, 65, 0.3, False),
+    (20000, 2000, 0.05, False),
+    (30000, 3000, 1e-3, True),  # Morton-ordered at the solver's sigma2 floor: most tiles skip
+])
+def test_estep_kernels_match_plain(cuda, NA, B, sigma2, morton):
+    """Both kernels against `estep_reference` on the card: every reduction
+    within 1e-4 of its scale at sigma2 >= 0.05 and 2e-3 at 1e-3, where one
+    ulp of |a|^2 in the distance expansion moves exp(-d s2v / (2 sigma2))
+    by ~1e-4 relative and the two round the expansion differently; one
+    counted launch each."""
+    args = _estep_args(NA, B, cuda, sigma2, morton)
+    before = (estep_cuda.colnorm.launches, estep_cuda.rowred.launches)
+    out = estep_cuda.estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert (estep_cuda.colnorm.launches, estep_cuda.rowred.launches) == (before[0] + 1, before[1] + 1)
+    ref = estep_cuda.estep_reference(*args)
+    tol = 1e-4 if sigma2 >= 0.05 else 2e-3
+    for k in ESTEP_KEYS:
+        assert out[k].shape == ref[k].shape and bool(torch.isfinite(out[k]).all()), k
+        assert _scaled(ref[k], out[k]) < tol, (k, _scaled(ref[k], out[k]))
+    if morton:
+        skip = estep_cuda.tile_skip_mask(args[0], args[2], args[8])
+        assert float(skip.float().mean()) > 0.5
+
+
+def test_estep_kernels_skip_nothing_and_everything(cuda, monkeypatch):
+    """With skipping disabled the kernels give the same reductions to 1e-6
+    of scale (what a skip drops is below e^-40 per pair); with every tile
+    skipped every row output is 0, which shows the skip path is live."""
+    args = _estep_args(6000, 700, cuda, sigma2=1e-3, morton=True, seed=1)
+    with_skip = estep_cuda.estep_cuda(*args)
+    monkeypatch.setattr(estep_cuda, "_SKIP_MULT", 1e30)
+    no_skip = estep_cuda.estep_cuda(*args)
+    for k in ESTEP_KEYS:
+        assert _scaled(no_skip[k], with_skip[k]) < 1e-6, k
+    monkeypatch.setattr(estep_cuda, "_SKIP_MULT", 0.0)
+    all_skip = estep_cuda.estep_cuda(*args)
+    torch.cuda.synchronize()
+    assert float(all_skip["K_NA"].abs().max()) == 0.0 and float(all_skip["K_NB"].abs().max()) == 0.0
+
+
+def test_estep_kernels_are_deterministic(cuda):
+    """No float atomics: two runs give identical bits."""
+    args = _estep_args(20000, 2000, cuda, seed=2)
+    a, b = estep_cuda.estep_cuda(*args), estep_cuda.estep_cuda(*args)
+    for k in ESTEP_KEYS:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_estep_kernels_reject_bad_inputs(cuda):
+    args = _estep_args(200, 70, cuda)
+    xa, cb = args[0], args[2]
+    fat = torch.cat([args[5].T, args[3][None]]).contiguous()
+    fbt = torch.cat([args[6].T, torch.ones((1, 70), device=cuda)]).contiguous()
+    scal = torch.zeros(8, device=cuda)
+    skip = estep_cuda.tile_skip_mask(xa, cb, args[8])
+    with pytest.raises(ValueError):
+        estep_cuda.colnorm(xa, cb, fat[:, :100], fbt, args[4], args[7], scal, skip)
+    with pytest.raises(TypeError):
+        estep_cuda.colnorm(xa.double(), cb, fat, fbt, args[4], args[7], scal, skip)
+    with pytest.raises(ValueError):
+        estep_cuda.rowred(xa, cb.cpu(), fat, fbt, args[4], torch.zeros((5, 70), device=cuda), scal, skip)
+
+
+def test_morpho_pairwise_cuda_matches_cpu(cuda):
+    """One 1,500-cell pair solved on the card (E-step kernels) and on the
+    CPU (dense plain E-step), same seed: rotations within 1e-3, aligned
+    coordinates within 1e-2 on a 10-unit box."""
+    import pandas as pd
+    import spateo_tpu_torch as stt
+
+    rng = np.random.default_rng(6)
+    n = 1500
+    pts = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    X = rng.poisson(2.0, (n, 50)).astype(np.float32)
+    th = 0.3
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    ptsA = pts @ R.T + np.array([1.5, -0.8], np.float32)
+
+    def mk(p):
+        a = stt.AnnData(X=X.copy(), obs=pd.DataFrame(index=[f"c{i}" for i in range(n)]),
+                        var=pd.DataFrame(index=[f"g{j}" for j in range(50)]))
+        a.obsm["spatial"] = p.copy()
+        return a
+
+    before = estep_cuda.rowred.launches
+    out_g, _ = stt.align.morpho_align([mk(pts), mk(ptsA)], spatial_key="spatial", key_added="align", max_iter=100,
+                                      verbose=False, device="cuda")
+    assert estep_cuda.rowred.launches == before + 100
+    out_c, _ = stt.align.morpho_align([mk(pts), mk(ptsA)], spatial_key="spatial", key_added="align", max_iter=100,
+                                      verbose=False, device="cpu")
+    vg, vc = out_g[1].uns["VecFld_morpho"], out_c[1].uns["VecFld_morpho"]
+    np.testing.assert_allclose(vg["optimal_R"], vc["optimal_R"], atol=1e-3)
+    np.testing.assert_allclose(out_g[1].obsm["align"], out_c[1].obsm["align"], atol=1e-2)
+    assert np.sqrt(((out_g[1].obsm["align"] - pts) ** 2).sum(1).mean()) < 0.1
+
+
+def _inlier_args(n, N, device, seed=0):
+    """The case of tests/test_ops.py:307 at n valid of N rows: a rotation of
+    0.4 rad and a shift, a third of the matches outliers, row-0 padding."""
+    rng = np.random.default_rng(seed)
+    th = 0.4
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    tx = rng.uniform(0, 5, (N, 2)).astype(np.float32)
+    ty = (tx @ R.T + np.array([1.0, -2.0], np.float32)).astype(np.float32)
+    ty[: n // 3] += rng.normal(0, 2.0, (n // 3, 2)).astype(np.float32)
+    dist = rng.uniform(0, 3, (N, 1)).astype(np.float32)
+    tx[n:], ty[n:], dist[n:] = tx[0], ty[0], dist[0]
+    mask = np.zeros((N, 1), np.float32)
+    mask[:n] = 1.0
+    T = lambda x: torch.from_numpy(x).to(device)
+    return (T(tx), T(ty), T(dist), T(mask), float(n)), R
+
+
+@pytest.mark.parametrize("n,N", [(1900, 2048), (20000, 20480)])
+def test_inlier_kernel_matches_plain(cuda, n, N):
+    """The one-launch fit against `inlier_reference` on the card, at the
+    bars tests/test_ops.py:319-324 hold the TPU kernel to: R atol 2e-5, t
+    2e-4, P 1e-3, weight0 1e-5, sigma2 and gamma 1e-3; the planted rotation
+    is recovered; two runs give the same bits."""
+    args, R_true = _inlier_args(n, N, cuda)
+    before = inlier_cuda.inlier_fit.launches
+    P, R, t, w, s2, g = inlier_cuda.inlier_fit(*args)
+    torch.cuda.synchronize()
+    assert inlier_cuda.inlier_fit.launches == before + 1
+    Pr, Rr, tr, wr, s2r, gr = inlier_cuda.inlier_reference(*args)
+    torch.testing.assert_close(R, Rr, atol=2e-5, rtol=0)
+    torch.testing.assert_close(t, tr, atol=2e-4, rtol=0)
+    torch.testing.assert_close(P, Pr, atol=1e-3, rtol=0)
+    torch.testing.assert_close(w, wr, atol=1e-5, rtol=0)
+    assert abs(float(s2) - float(s2r)) < 1e-3 * max(float(s2r), 1e-3)
+    assert abs(float(g) - float(gr)) < 1e-3
+    np.testing.assert_allclose(R.cpu().numpy(), R_true, atol=0.05)
+    again = inlier_cuda.inlier_fit(*args)
+    assert torch.equal(again[0], P) and torch.equal(again[1], R)

@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
-EM+BP slice and the Morpho alignment slice. Run from the repository root,
-with no arguments:
+EM+BP slice, the Morpho alignment slice and the digitization slice with its
+labeling chain. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -37,9 +37,26 @@ final ``ok`` line:
    and the inlier kernel once; the rotation recovered.
 7. Morpho CUDA vs CPU: one 2,000-cell pair aligned on the card (kernels) and
    on the CPU (plain dense E-step), same seed.
+8. Jacobi kernel vs plain version: `jacobi_block` (the kernel of
+   `csrc/jacobi.cu`) against `jacobi_block_reference` on the card at
+   1024x1024, 2048x2048, 4096x4096 and 1000x1500, for 1, T, 100 and 2000
+   sweeps; CUDA-event times per sweep of both, in Mpixel-iters/s.
+9. Digitization main path: the JAX benchmark's PDE configuration (1024^2,
+   isolines, 100,000 iterations in blocks of 2,000, best of 3 after a
+   warm-up) and the atlas configuration (2048^2, Dirichlet stripes, max_err
+   1e-6, 20,000 iterations) through `ops.stencil.jacobi_solve`; then
+   `dd.digitize` and `dd.gridit` on a 2048x2048 quadrilateral domain with
+   262,144 cells on a 4-pixel grid (20,000 iterations for each heat solve),
+   stage by stage; then the labeling chain `label_cells_from_mask` on phase
+   3's Starro mask. The launch counts prove the kernel ran, ceil(block / T)
+   launches per block of each solve.
+10. Digitization CUDA vs CPU: a 256x256 solve (20,000 iterations), a
+   digitize on a 128x128 domain and a labeling chain on a 256x256 mask,
+   each on the card and on the CPU.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
-each kernel's launches, error and times, and the ``ok`` JSON line.
+each kernel's launches, error and times (for `jacobi_block`: the largest
+error of phase 8, and ms per sweep at 1024x1024), and the ``ok`` JSON line.
 """
 
 import json
@@ -418,6 +435,255 @@ def phase_morpho_cuda_vs_cpu():
           f"max_abs_err {x_err!r}, non-rigid coords max_abs_err {nr_err!r}; {tg!r} s on the card, {tc!r} s on the CPU")
 
 
+def jacobi_case(H, W, seed=0):
+    """A random field in [0, 100) and the solver's moving set: the interior
+    window minus 1% scattered Dirichlet pixels."""
+    rng = np.random.default_rng(seed)
+    f = torch.from_numpy(rng.uniform(0, 100, (H, W)).astype(np.float32)).to("cuda")
+    upd = torch.zeros((H, W), dtype=torch.uint8, device="cuda")
+    upd[1:-1, 1:-1] = 1
+    upd[torch.from_numpy(rng.uniform(size=(H, W)) < 0.01).to("cuda")] = 0
+    return f, upd
+
+
+def phase_jacobi_kernel():
+    """Phase 8. Returns the kernel's error and its and the plain version's
+    time per sweep (ms) at 1024^2, the PDE benchmark's raster."""
+    from spateo_tpu_torch.ops import jacobi_cuda as jc
+
+    T = jc.sweeps_per_launch()
+    # bar: a few ulp of the field's scale 100; the two do the same float32
+    # operations in the same order, so equal bits are expected
+    tol = 1e-4
+    result, worst = {}, 0.0
+    for H, W in ((1024, 1024), (2048, 2048), (4096, 4096), (1000, 1500)):
+        f, upd = jacobi_case(H, W, seed=H + W)
+        for n in (1, T, 100, 2000):
+            before = jc.jacobi_block.launches
+            out_k = jc.jacobi_block(f, upd, n)
+            torch.cuda.synchronize()
+            check(jc.jacobi_block.launches == before + -(-n // T), f"jacobi_block launches for n={n}")
+            out_r = jc.jacobi_block_reference(f, upd, n)
+            err = float((out_k - out_r).abs().max())
+            worst = max(worst, err)
+            check(err <= tol, f"jacobi_block vs plain at {H}x{W}, n={n}: {err} > {tol}")
+            print(f"phase 8: jacobi_block {H}x{W} n={n}: max_abs_err={err!r} (tol {tol}), "
+                  f"bit-identical={bool(torch.equal(out_k, out_r))}")
+        ms_k = cuda_ms(lambda: jc.jacobi_block(f, upd, 2000), 3) / 2000
+        ms_r = cuda_ms(lambda: jc.jacobi_block_reference(f, upd, 100), 3) / 100
+        print(f"phase 8: per-sweep time {H}x{W} (CUDA events): kernel {ms_k * 1e3!r} us "
+              f"({H * W / ms_k / 1e3!r} Mpixel-iters/s, blocks of 2000), plain {ms_r * 1e3!r} us "
+              f"({H * W / ms_r / 1e3!r} Mpixel-iters/s, blocks of 100)")
+        if H == 1024:
+            result = dict(ms=ms_k, plain_ms=ms_r)
+    print(f"phase 8: kernel config {jc.kernel_config()}")
+    return dict(max_abs_err=worst, **result)
+
+
+def phase_pde_configs():
+    """Phase 9a/9b: the JAX benchmark's PDE and atlas configurations through
+    `jacobi_solve` on the card. Returns the kernel's launches."""
+    from spateo_tpu_torch.ops import jacobi_cuda as jc
+    from spateo_tpu_torch.ops.stencil import jacobi_solve
+
+    T = jc.sweeps_per_launch()
+    H = W = 1024
+    field = np.zeros((H, W), np.float32)
+    border = np.zeros((H, W), bool)
+    mask = np.zeros((H, W), np.float32)
+    mask[1:-1, 1:-1] = 1
+    field[1, 1:-1], field[-2, 1:-1] = 1.0, 100.0
+    border[1, 1:-1] = border[-2, 1:-1] = True
+    kw = dict(max_err=0.0, max_itr=100_000, check_every=2000, device="cuda")
+    jacobi_solve(field, border, mask, **kw)  # warm-up
+    launches0 = jc.jacobi_block.launches
+    times = []
+    for _ in range(3):
+        before = jc.jacobi_block.launches
+        t, (sol, it, err) = host_ms(lambda: jacobi_solve(field, border, mask, **kw))
+        times.append(t)
+        check(it == 102_000, f"PDE configuration ran {it} iterations, expected 102,000 (51 blocks of 2,000)")
+        check(jc.jacobi_block.launches - before == -(-2000 // T) * 51, "jacobi_block launches per PDE solve")
+    # 102,000 sweeps do not reach the steady state of a 1024-row raster:
+    # heat spreads from both isolines into a middle still near 0
+    mid = sol[1:-1, W // 2]
+    check(sol.shape == (H, W) and bool(np.isfinite(sol).all()) and 0.0 <= sol.min() and sol.max() <= 100.0,
+          "PDE field not finite or outside [0, 100]")
+    check(mid[0] == 1.0 and mid[-1] == 100.0 and bool(np.all(np.diff(mid[H // 2:]) >= 0)),
+          "PDE field: isolines moved, or heat not falling away from the hot isoline")
+    best = min(times)
+    print(f"phase 9: PDE configuration 1024x1024, 102,000 iterations (max_err 0, blocks of 2,000): {times!r} ms; "
+          f"best {H * W * it / best / 1e3!r} Mpixel-iters/s (host clock, H*W*it/seconds); final err {err!r}; "
+          f"jacobi_block launches per solve {-(-2000 // T) * 51}")
+
+    P = 2048
+    field = np.zeros((P, P), np.float32)
+    border = np.zeros((P, P), bool)
+    dom = np.ones((P, P), np.float32)
+    field[:, :4], field[:, -4:] = 1.0, 100.0
+    border[:, :4] = border[:, -4:] = True
+    jacobi_solve(field, border, dom, max_err=1e9, max_itr=20_000, check_every=2000, device="cuda")  # warm-up
+    before = jc.jacobi_block.launches
+    t, (sol, it, err) = host_ms(
+        lambda: jacobi_solve(field, border, dom, max_err=1e-6, max_itr=20_000, check_every=2000, device="cuda"))
+    check(jc.jacobi_block.launches - before == -(-2000 // T) * (it // 2000), "jacobi_block launches per atlas solve")
+    row = sol[P // 2]
+    check(bool(np.isfinite(sol).all()) and 0.0 <= sol.min() and sol.max() <= 100.0 and row[0] == 1.0
+          and row[-1] == 100.0 and bool(np.all(np.diff(row[P // 2:]) >= 0)), "atlas field")
+    print(f"phase 9: atlas digitization configuration 2048x2048, stripes, max_err 1e-6: {it} iterations, "
+          f"{t!r} ms, final err {err!r}, {P * P * it / t / 1e3!r} Mpixel-iters/s")
+    return jc.jacobi_block.launches - launches0
+
+
+def quad_domain(P, inset, step, offset):
+    """A quadrilateral domain on a PxP raster, its cv2 contour and corner
+    points (the contour points nearest the polygon's vertices, in (x, y)
+    order xy, Xy, xY, XY), and cells on a `step`-pixel grid over the raster."""
+    import cv2
+
+    v = np.array([[inset + P // 40, inset], [P - 1 - inset, inset + P // 60], [P - 1 - inset - P // 50, P - 1 - inset],
+                  [inset, P - 1 - inset - P // 30]], np.int32)  # (x, y): top-left, top-right, bottom-right, bottom-left
+    img = np.zeros((P, P), np.uint8)
+    cv2.fillPoly(img, [v], 255)
+    ctrs, _ = cv2.findContours(img, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_NONE)
+    pts = ctrs[0][:, 0]
+    near = lambda p: tuple(int(c) for c in pts[np.argmin(((pts - p) ** 2).sum(1))])
+    corners = (near(v[0]), near(v[1]), near(v[3]), near(v[2]))
+    g = np.arange(offset, P, step)
+    yy, xx = np.meshgrid(g, g, indexing="ij")
+    coords = np.c_[yy.ravel(), xx.ravel()].astype(np.float64)  # spatial[:, 0] is the row
+    return ctrs, corners, coords, img
+
+
+def digitize_adata(stt, coords):
+    adata = stt.AnnData(X=np.ones((len(coords), 1), np.float32))
+    adata.obsm["spatial"] = coords
+    stt.SKM.init_adata_type(adata, stt.SKM.ADATA_UMI_TYPE)
+    return adata
+
+
+def phase_digitize(stt):
+    """Phase 9c: `dd.digitize` then `dd.gridit` at 2048^2, stage by stage
+    (each heat solve timed by wrapping the solver `digitize` calls). Returns
+    the kernel's launches."""
+    from spateo_tpu_torch.digitization import utils as tutils
+    from spateo_tpu_torch.ops import jacobi_cuda as jc
+
+    T = jc.sweeps_per_launch()
+    P = 2048
+    t_ctr, (ctrs, corners, coords, img) = host_ms(lambda: quad_domain(P, 24, 4, 3))
+    adata = digitize_adata(stt, coords)
+    solves, real_solve = [], tutils.jacobi_solve
+
+    def timed_solve(*a, **k):
+        t, out = host_ms(lambda: real_solve(*a, **k))
+        solves.append((t, out[1], out[2]))
+        return out
+
+    tutils.jacobi_solve = timed_solve
+    try:
+        before = jc.jacobi_block.launches
+        t_dig, _ = host_ms(lambda: stt.dd.digitize(adata, ctrs, 0, *corners, max_itr=20_000, device="cuda"))
+        launches = jc.jacobi_block.launches - before
+    finally:
+        tutils.jacobi_solve = real_solve
+    t_grid, _ = host_ms(lambda: stt.dd.gridit(adata, layer_num=10, column_num=10))
+
+    check(len(solves) == 2, f"digitize ran {len(solves)} heat solves, expected 2")
+    blocks = sum(it // 100 for _, it, _ in solves)
+    check(launches == -(-100 // T) * blocks, f"jacobi_block launches in digitize {launches}, expected "
+                                             f"{-(-100 // T)} per block of 100 over {blocks} blocks")
+    layer = np.asarray(adata.obs["digital_layer"], float)
+    column = np.asarray(adata.obs["digital_column"], float)
+    inside = img[coords[:, 0].astype(int), coords[:, 1].astype(int)] > 0
+    check(bool(np.isfinite(layer).all() and np.isfinite(column).all()), "digitize heat not finite")
+    # 20,000 sweeps do not reach the steady state of a 2048^2 domain: the
+    # heat is in [0, 100], rises from the min isoline (top) to the max one
+    # (bottom) and from the left edge to the right one
+    for heat in (layer, column):
+        check(float(heat.min()) >= 0.0 and float(heat.max()) <= 100.0, "digitize heat outside [0, 100]")
+        check(float(np.mean(heat[~inside] == 0)) > 0.99, "cells outside the domain got heat")
+    top, bottom = inside & (coords[:, 0] < 0.2 * P), inside & (coords[:, 0] > 0.8 * P)
+    left, right = inside & (coords[:, 1] < 0.2 * P), inside & (coords[:, 1] > 0.8 * P)
+    check(layer[bottom].mean() > layer[top].mean() and column[right].mean() > column[left].mean(),
+          "heat does not rise from the min to the max isoline")
+    lay_lab, col_lab = np.asarray(adata.obs["layer_label"]), np.asarray(adata.obs["column_label"])
+    check(set(np.unique(lay_lab)) <= set(range(11)) and set(np.unique(col_lab)) <= set(range(11)), "gridit labels")
+    rest = t_dig - sum(t for t, _, _ in solves)
+    print(f"phase 9: digitize + gridit {P}x{P}, {len(coords)} cells ({int(inside.sum())} inside the domain): "
+          f"stages (ms, host clock, synchronised): contours={t_ctr!r}, layer_solve={solves[0][0]!r} "
+          f"({solves[0][1]} iterations, err {solves[0][2]!r}), column_solve={solves[1][0]!r} ({solves[1][1]} "
+          f"iterations, err {solves[1][2]!r}), borders_arcs_lookups={rest!r}, gridit={t_grid!r}; "
+          f"share of cells with layer > 0 {float(np.mean(layer > 0))!r}, column > 0 {float(np.mean(column > 0))!r}; "
+          f"jacobi_block launches {launches}")
+    return launches
+
+
+def phase_labeling(mask):
+    """Phase 9d: the labeling chain on a 2048^2 Starro mask."""
+    from spateo_tpu_torch.ops import labels
+
+    labels.label_cells_from_mask(mask[:256, :256], 3, device="cuda")  # warm-up
+    t, (lab, cents) = host_ms(lambda: labels.label_cells_from_mask(mask, 3, device="cuda"))
+    n_lab = int(torch.unique(lab).numel()) - int(bool((lab == 0).any()))
+    check(lab.shape == mask.shape and lab.dtype == torch.int32, "label raster")
+    check(bool(((lab > 0).cpu().numpy() <= mask).all()), "labels outside the mask")
+    check(n_lab == len(cents) and bool(np.isfinite(cents).all()), f"{n_lab} labels but {len(cents)} centroids")
+    print(f"phase 9: label_cells_from_mask on the 2048x2048 Starro mask (min_distance 3): {n_lab} labels, "
+          f"{len(cents)} centroids, {t!r} ms; foreground share {float(mask.mean())!r}")
+
+
+def phase_digitization_cuda_vs_cpu(stt):
+    """Phase 10: a 256^2 solve, a digitize on a 128^2 domain and a labeling
+    chain on a 256^2 mask, on the card and on the CPU."""
+    from spateo_tpu_torch.ops import labels
+    from spateo_tpu_torch.ops.stencil import jacobi_solve
+
+    H = W = 256
+    field = np.zeros((H, W), np.float32)
+    border = np.zeros((H, W), bool)
+    mask = np.zeros((H, W), np.float32)
+    mask[8:-8, 8:-8] = 1
+    field[8, 8:-8], field[-9, 8:-8] = 1.0, 100.0
+    border[8, 8:-8] = border[-9, 8:-8] = True
+    res = {dev: host_ms(lambda: jacobi_solve(field, border, mask, max_err=1e-8, max_itr=20_000, device=dev))
+           for dev in ("cuda", "cpu")}
+    (tg, (fg, itg, eg)), (tc, (fc, itc, ec)) = res["cuda"], res["cpu"]
+    ferr = float(np.abs(fg - fc).max())
+    # bar: the same float32 sweeps on both, so equal bits are expected; a
+    # few ulp of 100 allowed
+    check(itg == itc and ferr <= 1e-4, f"256x256 solve: CUDA {itg} / CPU {itc} iterations, field differs by {ferr}")
+    print(f"phase 10: 256x256 solve CUDA (kernel) vs CPU (plain): iterations {itg} / {itc}, field max_abs_err "
+          f"{ferr!r} (bar 1e-4), bit-identical {bool(np.array_equal(fg, fc))}, err {eg!r} / {ec!r}; {tg!r} ms on the "
+          f"card, {tc!r} ms on the CPU")
+
+    ctrs, corners, coords, _ = quad_domain(128, 6, 2, 1)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        a = digitize_adata(stt, coords)
+        stt.dd.digitize(a, ctrs, 0, *corners, max_itr=20_000, device=dev)
+        stt.dd.gridit(a, layer_num=5, column_num=5)
+        outs[dev] = a.obs
+    herr = max(float(np.abs(np.asarray(outs["cuda"][k], float) - np.asarray(outs["cpu"][k], float)).max())
+               for k in ("digital_layer", "digital_column"))
+    same_labels = all(np.array_equal(np.asarray(outs["cuda"][k]), np.asarray(outs["cpu"][k]))
+                      for k in ("layer_label", "column_label", "grid_label"))
+    check(herr <= 1e-4 and same_labels, f"128x128 digitize: heat differs by {herr}, labels equal {same_labels}")
+    print(f"phase 10: digitize + gridit 128x128 ({len(coords)} cells) CUDA vs CPU: heat max_abs_err {herr!r} "
+          f"(bar 1e-4), labels equal {same_labels}")
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:256, :256]
+    m = np.zeros((256, 256), bool)
+    for cy, cx, r in zip(rng.uniform(8, 248, 150), rng.uniform(8, 248, 150), rng.uniform(3, 7, 150)):
+        m |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    lg, cg = labels.label_cells_from_mask(m, 3, device="cuda")
+    lc, cc = labels.label_cells_from_mask(m, 3, device="cpu")
+    same = bool(np.array_equal(lg.cpu().numpy(), lc.numpy()) and np.array_equal(cg, cc))
+    check(same, "256x256 labeling chain differs between CUDA and CPU")
+    print(f"phase 10: label_cells_from_mask 256x256 CUDA vs CPU: labels and centroids equal ({len(cg)} cells)")
+
+
 def main():
     # -- phase 0: environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -438,7 +704,7 @@ def main():
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    check({"bp_step", "estep", "inlier"} <= set(sources), f"CUDA sources missing: {sources}")
+    check({"bp_step", "estep", "inlier", "jacobi"} <= set(sources), f"CUDA sources missing: {sources}")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = [f.result() for f in [pool.submit(_build.build, name) for name in sources]]
     for name in sources:
@@ -510,6 +776,20 @@ def main():
     est_launches = phase_morpho_main()
     phase_morpho_cuda_vs_cpu()
 
+    # -- phases 8-10: digitization and labeling ---------------------------------------
+    from spateo_tpu_torch.ops import jacobi_cuda
+
+    jstats = phase_jacobi_kernel()
+    jacobi_cuda.jacobi_block.launches = 0
+    pde_launches = phase_pde_configs()
+    dig_launches = phase_digitize(stt)
+    jacobi_launches = jacobi_cuda.jacobi_block.launches
+    check(jacobi_launches > 0 and jacobi_launches >= pde_launches + dig_launches,
+          f"jacobi_block launches in the main path {jacobi_launches}")
+    print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}")
+    phase_labeling(mask)
+    phase_digitization_cuda_vs_cpu(stt)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -543,6 +823,14 @@ def main():
             "replaces": "spateo_tpu/ops/inlier_pallas.py:38",
             "launches": est_launches["inlier"],
             **istats,
+        },
+        {
+            "name": "jacobi_block",
+            "route": "cuda",
+            "source": "spateo_tpu_torch/csrc/jacobi.cu",
+            "replaces": "spateo_tpu/ops/stencil.py:20",
+            "launches": jacobi_launches,
+            **jstats,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

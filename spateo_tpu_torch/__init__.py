@@ -8,9 +8,11 @@ defaults to ``"cuda"``. It never imports JAX.
     import spateo_tpu_torch as stt
     stt.cs.score_and_mask_pixels(adata, "X", k=5, method="EM+BP")
     stt.align.morpho_align([fixed, moving], spatial_key="spatial")
+    stt.dd.digitize(adata, ctrs, 0, pnt_xy, pnt_Xy, pnt_xY, pnt_XY)
 """
 
 from . import alignment as align
+from . import digitization as dd
 from . import segmentation as cs
 from .configuration import SKM
 from .core.anndata import AnnData, concat, read_h5ad

@@ -26,7 +26,12 @@ def to_device(x, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Te
     A host array bound for the card goes through pinned memory and an
     asynchronous copy; the cast, if any, runs on the device."""
     device = torch.device(device)
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    t = x
+    if not isinstance(t, torch.Tensor):
+        a = np.ascontiguousarray(x)
+        # a read-only array (a view of a JAX array, say) is copied: torch
+        # does not support non-writable tensors
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
     if device.type == "cuda" and t.device.type == "cpu":
         t = t.pin_memory().to(device, non_blocking=True)
     else:
@@ -36,17 +41,24 @@ def to_device(x, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Te
 
 def adata_from_reference(adata) -> AnnData:
     """The port's `AnnData` holding copies of a `spateo_tpu` AnnData's X,
-    layers, obs, var and uns."""
+    layers, obs, var, uns, obsm, varm, obsp and varp (dense or sparse)."""
 
     def _copy(x):
         return x.copy() if sparse.issparse(x) else np.array(x)
+
+    def _copies(d):
+        return {k: _copy(v) for k, v in d.items()}
 
     return AnnData(
         X=None if adata.X is None else _copy(adata.X),
         obs=adata.obs.copy(),
         var=adata.var.copy(),
         uns=_deepcopy_uns(dict(adata.uns)),
-        layers={k: _copy(v) for k, v in adata.layers.items()},
+        layers=_copies(adata.layers),
+        obsm=_copies(adata.obsm),
+        varm=_copies(adata.varm),
+        obsp=_copies(adata.obsp),
+        varp=_copies(adata.varp),
     )
 
 

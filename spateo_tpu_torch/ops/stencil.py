@@ -1,0 +1,122 @@
+"""Heat-equation solvers of digitization: the Jacobi raster solve and the
+graph heat equation.
+
+Counterpart of `spateo_tpu.ops.stencil`. `jacobi_solve` runs blocks of
+`check_every` Jacobi sweeps (`ops.jacobi_cuda.jacobi_block`: the CUDA kernel
+on the card, the plain version on the CPU) and after each block the masked
+relative L2 change, exactly as the JAX package's `lax.while_loop` does: the
+state starts at (f, it=0, err=inf), the loop runs while ``err > max_err and
+it <= max_itr``, and each block adds `check_every` to `it`, so `it` may
+overshoot `max_itr` by up to one block. Each block ends with one read of
+`err` by the host: a solve makes ``it / check_every`` reads.
+`graph_heat_solve` is the same loop over a neighbour graph in plain
+PyTorch (XLA only in the JAX package).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.bridge import to_device
+from .jacobi_cuda import jacobi_block
+
+
+def _rel_change(new: torch.Tensor, old: torch.Tensor, weight=None) -> torch.Tensor:
+    """sqrt(sum((new - old)^2 w) / max(sum(new^2 w), 1e-30)), on the device."""
+    d2, n2 = (new - old) ** 2, new**2
+    if weight is not None:
+        d2, n2 = d2 * weight, n2 * weight
+    return torch.sqrt(torch.sum(d2) / torch.clamp_min(torch.sum(n2), 1e-30))
+
+
+def _heat_loop(step_block, x0: torch.Tensor, max_err: float, max_itr: int, check_every: int, weight=None):
+    """The JAX package's while_loop on the host: blocks of `check_every`
+    steps until the relative change is at most `max_err` or `it` passes
+    `max_itr`. `max_err` is compared in float32, as JAX compares it."""
+    max_err = float(np.float32(max_err))
+    x, it, err = x0, 0, float("inf")
+    while err > max_err and it <= max_itr:
+        x_new = step_block(x)
+        err = float(_rel_change(x_new, x, weight))
+        x, it = x_new, it + check_every
+    return x, it, err
+
+
+def jacobi_solve(
+    init_field: np.ndarray,
+    border: np.ndarray,
+    mask: np.ndarray,
+    max_err: float = 1e-10,
+    max_itr: int = 100_000,
+    check_every: int = 100,
+    device="cuda",
+):
+    """Solve the Dirichlet-boundary heat equation on a raster.
+
+    `border != 0` marks the Dirichlet pixels, which keep their values in
+    `init_field`, as does the outermost ring; `mask` is the domain of the
+    L2 norm. Returns (field * mask as numpy, iterations, final_err)."""
+    f0 = to_device(np.asarray(init_field, np.float32), device)
+    frozen = to_device(np.asarray(border) != 0, device)
+    mk = to_device(np.asarray(mask, np.float32), device)
+    # the pixels a sweep moves: the interior window minus the Dirichlet set
+    upd = torch.zeros(f0.shape, dtype=torch.uint8, device=f0.device)
+    upd[1:-1, 1:-1] = 1
+    upd[frozen] = 0
+    n = int(check_every)
+    f, it, err = _heat_loop(lambda x: jacobi_block(x, upd, n), f0, max_err, int(max_itr), n, mk)
+    return (f * mk).cpu().numpy(), int(it), float(err)
+
+
+def _adjacency_slots(n: int, adj_rows: np.ndarray, adj_cols: np.ndarray):
+    """[n, K] neighbour indices (padded with the node itself) and a 0/1 mask,
+    each row's neighbours in the order they appear in the edge list."""
+    rows = np.asarray(adj_rows, np.int64)
+    cols = np.asarray(adj_cols, np.int64)
+    counts = np.bincount(rows, minlength=n)
+    K = max(int(counts.max()) if len(counts) else 0, 1)
+    order = np.argsort(rows, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(rows)) - starts[rows[order]]
+    adj_indices = np.tile(np.arange(n)[:, None], (1, K))
+    adj_mask = np.zeros((n, K), np.float32)
+    adj_indices[rows[order], slot] = cols[order]
+    adj_mask[rows[order], slot] = 1.0
+    return adj_indices, adj_mask
+
+
+def graph_heat_solve(
+    n: int,
+    adj_rows: np.ndarray,
+    adj_cols: np.ndarray,
+    boundary_lower: np.ndarray,
+    boundary_upper: np.ndarray,
+    lh: float = 1.0,
+    hh: float = 100.0,
+    max_err: float = 1e-8,
+    max_itr: int = 100_000,
+    device="cuda",
+):
+    """Heat equation on a general graph (digitize_general): Dirichlet values
+    `lh` and `hh` at the lower and upper node sets, every other node the
+    mean of its neighbours, checked every 50 steps. Returns (values as
+    numpy, iterations, err)."""
+    check_every = 50
+    adj_indices, adj_mask = _adjacency_slots(n, adj_rows, adj_cols)
+    values0 = np.zeros(n, np.float32)
+    values0[np.asarray(boundary_lower, int)] = lh
+    values0[np.asarray(boundary_upper, int)] = hh
+    fixed = np.zeros(n, bool)
+    fixed[np.asarray(boundary_lower, int)] = True
+    fixed[np.asarray(boundary_upper, int)] = True
+    v0, idx, am, fx = (to_device(x, device) for x in (values0, adj_indices, adj_mask, fixed))
+    deg = torch.clamp_min(torch.sum(am, dim=1), 1.0)
+
+    def block(v):
+        for _ in range(check_every):
+            v = torch.where(fx, v0, torch.sum(v[idx] * am, dim=1) / deg)
+        return v
+
+    v, it, err = _heat_loop(block, v0, max_err, int(max_itr), check_every)
+    return v.cpu().numpy(), int(it), float(err)

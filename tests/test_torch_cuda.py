@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from spateo_tpu_torch.alignment.methods import math as amath
-from spateo_tpu_torch.ops import bp_cuda, em, estep_cuda, inlier_cuda
+from spateo_tpu_torch.ops import bp_cuda, em, estep_cuda, inlier_cuda, jacobi_cuda, labels, stencil
 from spateo_tpu_torch.segmentation import starro
 
 pytestmark = pytest.mark.cuda
@@ -246,3 +246,77 @@ def test_inlier_kernel_matches_plain(cuda, n, N):
     np.testing.assert_allclose(R.cpu().numpy(), R_true, atol=0.05)
     again = inlier_cuda.inlier_fit(*args)
     assert torch.equal(again[0], P) and torch.equal(again[1], R)
+
+
+def _jacobi_case(H, W, device, seed=0):
+    """A random field in [0, 100) and the solver's moving set: the interior
+    window minus 1% scattered Dirichlet pixels."""
+    rng = np.random.default_rng(seed)
+    f = torch.from_numpy(rng.uniform(0, 100, (H, W)).astype(np.float32)).to(device)
+    upd = torch.zeros((H, W), dtype=torch.uint8, device=device)
+    upd[1:-1, 1:-1] = 1
+    upd[torch.from_numpy(rng.uniform(size=(H, W)) < 0.01).to(device)] = 0
+    return f, upd
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 5), (3, 3), (7, 33), (130, 257), (1000, 1500)])
+def test_jacobi_block_kernel_matches_plain(cuda, shape):
+    """Kernel vs `jacobi_block_reference` on ragged shapes for 1, T, T + 3
+    and 100 sweeps: the same bits (both round each add and the 0.25 multiply
+    the same way); ceil(n / T) counted launches; the input untouched."""
+    f, upd = _jacobi_case(*shape, cuda)
+    f_before = f.clone()
+    T = jacobi_cuda.sweeps_per_launch()
+    for n in (1, T, T + 3, 100):
+        before = jacobi_cuda.jacobi_block.launches
+        out = jacobi_cuda.jacobi_block(f, upd, n)
+        torch.cuda.synchronize()
+        assert jacobi_cuda.jacobi_block.launches == before + -(-n // T)
+        assert torch.equal(out, jacobi_cuda.jacobi_block_reference(f, upd, n)), n
+    assert torch.equal(f, f_before)
+
+
+def test_jacobi_block_rejects_bad_inputs(cuda):
+    f, upd = _jacobi_case(16, 16, cuda)
+    with pytest.raises(TypeError):
+        jacobi_cuda.jacobi_block(f.double(), upd, 1)
+    with pytest.raises(TypeError):
+        jacobi_cuda.jacobi_block(f, upd.float(), 1)
+    with pytest.raises(ValueError):
+        jacobi_cuda.jacobi_block(f, upd[:, :8], 1)
+    with pytest.raises(ValueError):
+        jacobi_cuda.jacobi_block(f, upd.cpu(), 1)
+    with pytest.raises(ValueError):
+        jacobi_cuda.jacobi_block(f.t(), upd, 1)
+
+
+def test_jacobi_solve_cuda_matches_cpu(cuda):
+    """A masked 96x160 solve with Dirichlet isolines on the card (kernel) and
+    on the CPU (plain): the same iteration count and the same field."""
+    H, W = 96, 160
+    field = np.zeros((H, W), np.float32)
+    border = np.zeros((H, W), bool)
+    mask = np.zeros((H, W), np.float32)
+    mask[4:-4, 4:-4] = 1
+    field[4, 4:-4], field[-5, 4:-4] = 1.0, 100.0
+    border[4, 4:-4] = border[-5, 4:-4] = True
+    before = jacobi_cuda.jacobi_block.launches
+    fg, itg, _ = stencil.jacobi_solve(field, border, mask, max_err=1e-7, max_itr=20_000, device="cuda")
+    assert jacobi_cuda.jacobi_block.launches > before
+    fc, itc, _ = stencil.jacobi_solve(field, border, mask, max_err=1e-7, max_itr=20_000, device="cpu")
+    assert itg == itc
+    np.testing.assert_array_equal(fg, fc)
+
+
+def test_label_cells_from_mask_cuda_matches_cpu(cuda):
+    """The labeling chain on a disk raster on the card and on the CPU: equal
+    labels and centroids."""
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:256, :256]
+    mask = np.zeros((256, 256), bool)
+    for cy, cx, r in zip(rng.uniform(8, 248, 120), rng.uniform(8, 248, 120), rng.uniform(3, 7, 120)):
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    lg, cg = labels.label_cells_from_mask(mask, 3, device="cuda")
+    lc, cc = labels.label_cells_from_mask(mask, 3, device="cpu")
+    np.testing.assert_array_equal(lg.cpu().numpy(), lc.numpy())
+    np.testing.assert_array_equal(cg, cc)

@@ -26,10 +26,11 @@ final ``ok`` line:
    the whole `estep_cuda` against `estep_reference`, at the benchmark's
    20,000 x 2,000 (kl factors, G' = 51), at 100,000 x 10,000 Morton-ordered
    at the solver's sigma2 floor (most tiles skip) and at a ragged shape;
-   CUDA-event times of each kernel and plain sweep, and the share of tiles
-   skipped. Then the coarse-init fit `inlier_fit` (the kernel of
+   CUDA-event times of each kernel and plain sweep, the share of tiles
+   skipped, and each kernel's bound and share of it (`rowred` beside its
+   previous design's time). Then the coarse-init fit `inlier_fit` (the kernel of
    `csrc/inlier.cu`, all 100 iterations in one launch) against
-   `inlier_reference` at the 20k pair's 20,480 NN matches.
+   `inlier_reference` at the 20k pair's 20,480 NN matches, with its bound.
 6. Morpho main path: `align.morpho_align([fixed, moving])` on the benchmark's
    20,000-cell pair (`bench._make_slice_pair`, 50 genes, kl, SVI batch 2,000,
    200 iterations); warm-up on seed 1, seeds 2-4 timed; pairs per minute,
@@ -39,8 +40,10 @@ final ``ok`` line:
    on the CPU (plain dense E-step), same seed.
 8. Jacobi kernel vs plain version: `jacobi_block` (the kernel of
    `csrc/jacobi.cu`) against `jacobi_block_reference` on the card at
-   1024x1024, 2048x2048, 4096x4096 and 1000x1500, for 1, T, 100 and 2000
-   sweeps; CUDA-event times per sweep of both, in Mpixel-iters/s.
+   1024x1024, 2048x2048, 4096x4096 and 1000x1500, for 1, T - 1, T, T + 1,
+   2T + 3, 100 and 2000 sweeps, and its fused relative change against
+   `rel_change_reference`; CUDA-event times per sweep of both, in
+   Mpixel-iters/s, beside the previous design's time and the bound.
 9. Digitization main path: the JAX benchmark's PDE configuration (1024^2,
    isolines, 100,000 iterations in blocks of 2,000, best of 3 after a
    warm-up) and the atlas configuration (2048^2, Dirichlet stripes, max_err
@@ -49,14 +52,17 @@ final ``ok`` line:
    262,144 cells on a 4-pixel grid (20,000 iterations for each heat solve),
    stage by stage; then the labeling chain `label_cells_from_mask` on phase
    3's Starro mask. The launch counts prove the kernel ran, ceil(block / T)
-   launches per block of each solve.
+   launches per block of each solve and one launch of the fused reduction.
 10. Digitization CUDA vs CPU: a 256x256 solve (20,000 iterations), a
    digitize on a 128x128 domain and a labeling chain on a 256x256 mask,
    each on the card and on the CPU.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
-each kernel's launches, error and times (for `jacobi_block`: the largest
-error of phase 8, and ms per sweep at 1024x1024), and the ``ok`` JSON line.
+each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
+larger of its operations at the f32 peak and its bytes at the memory rate of
+an H100 SXM at 700 W) and share of the bound (for `jacobi_block`: the
+largest error of phase 8, and ms per sweep at 1024x1024), and the ``ok``
+JSON line.
 """
 
 import json
@@ -70,6 +76,13 @@ import torch
 
 BP_P, BP_Q = 0.6, 0.4
 TILE = 2048
+#: H100 SXM peaks at 700 W (NVIDIA's data sheet): f32 outside the tensor
+#: cores, and HBM3 bandwidth. The bounds below are against these.
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+#: The previous designs' times on an H100 80GB HBM3 at 700 W (PERF.md's
+#: table; the designs are kept in scripts/baseline/), printed beside the
+#: redesigned kernels'.
+PREV_ROWRED_MS, PREV_JACOBI_US = 0.46824, {1024: 2.473, 2048: 7.153}
 
 
 def check(cond, msg):
@@ -88,6 +101,19 @@ def cuda_ms(fn, n=20):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(flops, nbytes):
+    """The least time (ms) the card could take for `flops` operations and
+    `nbytes` bytes, and which of the two sets it."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=t_ops, bound_by="operations") if t_ops >= t_bytes else dict(bound_ms=t_bytes,
+                                                                                       bound_by="bytes")
+
+
+def with_bound(stats, b):
+    """A kernel's JSON entry: its stats, its bound and its share of it."""
+    return dict(stats, **b, share_of_bound=b["bound_ms"] / stats["ms"], library_ms=None)
 
 
 def host_ms(fn):
@@ -147,8 +173,12 @@ def phase_kernel_vs_plain(bp_cuda):
                     f"phase 2: per-iteration time {H}x{W} {msg}: kernel {ms_k!r} ms "
                     f"({gbytes / ms_k * 1e3!r} GB/s), plain {ms_r!r} ms"
                 )
+                # each input read once, each output written once; ~40 flops a pixel
+                b = bound(40 * H * W, gbytes * 1e9)
+                print(f"phase 2: bp_step {H}x{W} {msg}: bound {b['bound_ms']!r} ms ({b['bound_by']}), share of "
+                      f"the bound {b['bound_ms'] / ms_k!r}")
                 if dt == torch.bfloat16:
-                    result = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_r)
+                    result = with_bound(dict(max_abs_err=err, ms=ms_k, plain_ms=ms_r), b)
     return result
 
 
@@ -290,16 +320,36 @@ def phase_estep_kernels():
             estep_cuda=cuda_ms(lambda: ec.estep_cuda(*args), n),
             estep_reference=cuda_ms(lambda: ec.estep_reference(*args), n),
         )
+        bounds = estep_bounds(NA, B, fat.shape[0], live)
         print(
             f"phase 5: E-step {name} times (ms, CUDA events): " + ", ".join(f"{k}={v!r}" for k, v in t.items())
             + f"; tiles flagged by the bbox mask {bbox_share!r}, tiles computed {live!r}"
         )
+        for k in ("colnorm", "rowred"):
+            b = bounds[k]
+            print(f"phase 5: E-step {name} {k}: {t[k]!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}, the pairs "
+                  f"of the tiles computed), share of the bound {b['bound_ms'] / t[k]!r}"
+                  + (f"; previous design {PREV_ROWRED_MS} ms" if k == "rowred" and name == "20000x2000" else ""))
         if name == "20000x2000":
             result = dict(
-                colnorm=dict(max_abs_err=col_abs, ms=t["colnorm"], plain_ms=t["colnorm_plain"]),
-                rowred=dict(max_abs_err=row_abs, ms=t["rowred"], plain_ms=t["rowred_plain"]),
+                colnorm=with_bound(dict(max_abs_err=col_abs, ms=t["colnorm"], plain_ms=t["colnorm_plain"]),
+                                   bounds["colnorm"]),
+                rowred=with_bound(dict(max_abs_err=row_abs, ms=t["rowred"], plain_ms=t["rowred_plain"]),
+                                  bounds["rowred"]),
             )
     return result
+
+
+def estep_bounds(NA, B, G1, live):
+    """Each E-step sweep's bound on the pairs of the tiles it computes:
+    sweep 1 ~(2 G1 + 19) flops a pair (the expression dot, the distance, 3
+    exp, the scalings and 4 column sums), sweep 2 ~(2 G1 + 27) (6 row sums);
+    bytes: each input read once, each output written once."""
+    pairs = live * NA * B
+    n_tiles = -(-NA // 64) * -(-B // 64)
+    shared = 4 * (2 * NA + 2 * B + G1 * NA + G1 * B + B) + n_tiles  # xa, cb, fat, fbt, bt, skip
+    return dict(colnorm=bound((2 * G1 + 19) * pairs, shared + 4 * NA + 4 * 5 * B),  # mm; [5, B]
+                rowred=bound((2 * G1 + 27) * pairs, shared + 4 * 5 * B + 4 * 6 * NA))  # colstats; [6, NA]
 
 
 def phase_inlier_kernel():
@@ -335,9 +385,12 @@ def phase_inlier_kernel():
     check(float(np.abs(R.cpu().numpy() - R_true).max()) < 0.05, "inlier_fit did not recover the rotation")
     ms_k = cuda_ms(lambda: inlier_cuda.inlier_fit(*args), 10)
     ms_r = cuda_ms(lambda: inlier_cuda.inlier_reference(*args), 3)
+    # ~45 flops a row per iteration; rows read once (tx, ty, dist, mask), P and weights written once
+    b = bound(45 * N * 100, N * (8 + 8 + 4 + 4 + 4 + 4))
     print(f"phase 5: inlier_fit {N} rows, 100 iterations: errors {json.dumps(errs)} (bars {json.dumps(bars)}); "
-          f"kernel {ms_k!r} ms, plain loop {ms_r!r} ms (CUDA events)")
-    return dict(max_abs_err=errs["P"], ms=ms_k, plain_ms=ms_r)
+          f"kernel {ms_k!r} ms, plain loop {ms_r!r} ms (CUDA events); bound {b['bound_ms']!r} ms ({b['bound_by']}), "
+          f"share of the bound {b['bound_ms'] / ms_k!r}")
+    return with_bound(dict(max_abs_err=errs["P"], ms=ms_k, plain_ms=ms_r), b)
 
 
 def phase_morpho_main():
@@ -447,8 +500,9 @@ def jacobi_case(H, W, seed=0):
 
 
 def phase_jacobi_kernel():
-    """Phase 8. Returns the kernel's error and its and the plain version's
-    time per sweep (ms) at 1024^2, the PDE benchmark's raster."""
+    """Phase 8. Returns the kernel's error, and its and the plain version's
+    time per sweep (ms) at 1024^2, the PDE benchmark's raster, with its
+    bound."""
     from spateo_tpu_torch.ops import jacobi_cuda as jc
 
     T = jc.sweeps_per_launch()
@@ -458,7 +512,7 @@ def phase_jacobi_kernel():
     result, worst = {}, 0.0
     for H, W in ((1024, 1024), (2048, 2048), (4096, 4096), (1000, 1500)):
         f, upd = jacobi_case(H, W, seed=H + W)
-        for n in (1, T, 100, 2000):
+        for n in (1, T - 1, T, T + 1, 2 * T + 3, 100, 2000):
             before = jc.jacobi_block.launches
             out_k = jc.jacobi_block(f, upd, n)
             torch.cuda.synchronize()
@@ -469,13 +523,30 @@ def phase_jacobi_kernel():
             check(err <= tol, f"jacobi_block vs plain at {H}x{W}, n={n}: {err} > {tol}")
             print(f"phase 8: jacobi_block {H}x{W} n={n}: max_abs_err={err!r} (tol {tol}), "
                   f"bit-identical={bool(torch.equal(out_k, out_r))}")
+        # the fused relative change of a block against the plain reduction;
+        # bar 1e-5 relative: f64 sums in the kernel's order against f32 sums
+        weight = (torch.arange(H * W, device="cuda").reshape(H, W) % 7 != 0).float()
+        before = jc.jacobi_block.err_launches
+        out_k, err_k = jc.jacobi_block(f, upd, 100, weight=weight)
+        torch.cuda.synchronize()
+        check(jc.jacobi_block.err_launches == before + 1, "jacobi_block did not count its reduction launch")
+        err_r = float(jc.rel_change_reference(out_k, f, weight))
+        rel = abs(float(err_k) - err_r) / err_r
+        check(rel <= 1e-5, f"fused err {float(err_k)!r} vs plain {err_r!r} at {H}x{W}: {rel} > 1e-5")
+        print(f"phase 8: fused relative change {H}x{W}, 100 sweeps: {float(err_k)!r} vs plain {err_r!r} "
+              f"(relative difference {rel!r}, bar 1e-5)")
         ms_k = cuda_ms(lambda: jc.jacobi_block(f, upd, 2000), 3) / 2000
         ms_r = cuda_ms(lambda: jc.jacobi_block_reference(f, upd, 100), 3) / 100
+        # per sweep: 5 flops a moving pixel; the field in and out and upd in
+        # once per call of 2000 sweeps
+        b = bound(5 * float(upd.sum()), 9 * H * W / 2000)
+        prev = f", previous design {PREV_JACOBI_US[H]} us" if H in PREV_JACOBI_US else ""
         print(f"phase 8: per-sweep time {H}x{W} (CUDA events): kernel {ms_k * 1e3!r} us "
-              f"({H * W / ms_k / 1e3!r} Mpixel-iters/s, blocks of 2000), plain {ms_r * 1e3!r} us "
-              f"({H * W / ms_r / 1e3!r} Mpixel-iters/s, blocks of 100)")
+              f"({H * W / ms_k / 1e3!r} Mpixel-iters/s, blocks of 2000){prev}, plain {ms_r * 1e3!r} us "
+              f"({H * W / ms_r / 1e3!r} Mpixel-iters/s, blocks of 100); bound {b['bound_ms'] * 1e3!r} us "
+              f"({b['bound_by']}), share of the bound {b['bound_ms'] / ms_k!r}")
         if H == 1024:
-            result = dict(ms=ms_k, plain_ms=ms_r)
+            result = with_bound(dict(ms=ms_k, plain_ms=ms_r), b)
     print(f"phase 8: kernel config {jc.kernel_config()}")
     return dict(max_abs_err=worst, **result)
 
@@ -497,6 +568,7 @@ def phase_pde_configs():
     kw = dict(max_err=0.0, max_itr=100_000, check_every=2000, device="cuda")
     jacobi_solve(field, border, mask, **kw)  # warm-up
     launches0 = jc.jacobi_block.launches
+    err0 = jc.jacobi_block.err_launches
     times = []
     for _ in range(3):
         before = jc.jacobi_block.launches
@@ -504,6 +576,7 @@ def phase_pde_configs():
         times.append(t)
         check(it == 102_000, f"PDE configuration ran {it} iterations, expected 102,000 (51 blocks of 2,000)")
         check(jc.jacobi_block.launches - before == -(-2000 // T) * 51, "jacobi_block launches per PDE solve")
+    check(jc.jacobi_block.err_launches - err0 == 3 * 51, "fused-reduction launches per PDE solve")
     # 102,000 sweeps do not reach the steady state of a 1024-row raster:
     # heat spreads from both isolines into a middle still near 0
     mid = sol[1:-1, W // 2]
@@ -514,7 +587,7 @@ def phase_pde_configs():
     best = min(times)
     print(f"phase 9: PDE configuration 1024x1024, 102,000 iterations (max_err 0, blocks of 2,000): {times!r} ms; "
           f"best {H * W * it / best / 1e3!r} Mpixel-iters/s (host clock, H*W*it/seconds); final err {err!r}; "
-          f"jacobi_block launches per solve {-(-2000 // T) * 51}")
+          f"jacobi_block launches per solve {-(-2000 // T) * 51}, fused-reduction launches per solve 51")
 
     P = 2048
     field = np.zeros((P, P), np.float32)
@@ -524,9 +597,11 @@ def phase_pde_configs():
     border[:, :4] = border[:, -4:] = True
     jacobi_solve(field, border, dom, max_err=1e9, max_itr=20_000, check_every=2000, device="cuda")  # warm-up
     before = jc.jacobi_block.launches
+    err_before = jc.jacobi_block.err_launches
     t, (sol, it, err) = host_ms(
         lambda: jacobi_solve(field, border, dom, max_err=1e-6, max_itr=20_000, check_every=2000, device="cuda"))
     check(jc.jacobi_block.launches - before == -(-2000 // T) * (it // 2000), "jacobi_block launches per atlas solve")
+    check(jc.jacobi_block.err_launches - err_before == it // 2000, "fused-reduction launches per atlas solve")
     row = sol[P // 2]
     check(bool(np.isfinite(sol).all()) and 0.0 <= sol.min() and sol.max() <= 100.0 and row[0] == 1.0
           and row[-1] == 100.0 and bool(np.all(np.diff(row[P // 2:]) >= 0)), "atlas field")
@@ -582,9 +657,9 @@ def phase_digitize(stt):
 
     tutils.jacobi_solve = timed_solve
     try:
-        before = jc.jacobi_block.launches
+        before, err_before = jc.jacobi_block.launches, jc.jacobi_block.err_launches
         t_dig, _ = host_ms(lambda: stt.dd.digitize(adata, ctrs, 0, *corners, max_itr=20_000, device="cuda"))
-        launches = jc.jacobi_block.launches - before
+        launches, err_launches = jc.jacobi_block.launches - before, jc.jacobi_block.err_launches - err_before
     finally:
         tutils.jacobi_solve = real_solve
     t_grid, _ = host_ms(lambda: stt.dd.gridit(adata, layer_num=10, column_num=10))
@@ -593,6 +668,7 @@ def phase_digitize(stt):
     blocks = sum(it // 100 for _, it, _ in solves)
     check(launches == -(-100 // T) * blocks, f"jacobi_block launches in digitize {launches}, expected "
                                              f"{-(-100 // T)} per block of 100 over {blocks} blocks")
+    check(err_launches == blocks, f"fused-reduction launches in digitize {err_launches}, expected {blocks}")
     layer = np.asarray(adata.obs["digital_layer"], float)
     column = np.asarray(adata.obs["digital_column"], float)
     inside = img[coords[:, 0].astype(int), coords[:, 1].astype(int)] > 0
@@ -615,7 +691,7 @@ def phase_digitize(stt):
           f"({solves[0][1]} iterations, err {solves[0][2]!r}), column_solve={solves[1][0]!r} ({solves[1][1]} "
           f"iterations, err {solves[1][2]!r}), borders_arcs_lookups={rest!r}, gridit={t_grid!r}; "
           f"share of cells with layer > 0 {float(np.mean(layer > 0))!r}, column > 0 {float(np.mean(column > 0))!r}; "
-          f"jacobi_block launches {launches}")
+          f"jacobi_block launches {launches}, fused-reduction launches {err_launches}")
     return launches
 
 
@@ -780,13 +856,16 @@ def main():
     from spateo_tpu_torch.ops import jacobi_cuda
 
     jstats = phase_jacobi_kernel()
-    jacobi_cuda.jacobi_block.launches = 0
+    jacobi_cuda.jacobi_block.launches = jacobi_cuda.jacobi_block.err_launches = 0
     pde_launches = phase_pde_configs()
     dig_launches = phase_digitize(stt)
     jacobi_launches = jacobi_cuda.jacobi_block.launches
+    reduce_launches = jacobi_cuda.jacobi_block.err_launches
     check(jacobi_launches > 0 and jacobi_launches >= pde_launches + dig_launches,
           f"jacobi_block launches in the main path {jacobi_launches}")
-    print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}")
+    check(reduce_launches > 0, "the fused reduction never ran in the main path")
+    print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}, fused-reduction launches "
+          f"{reduce_launches}")
     phase_labeling(mask)
     phase_digitization_cuda_vs_cpu(stt)
 
@@ -830,6 +909,7 @@ def main():
             "source": "spateo_tpu_torch/csrc/jacobi.cu",
             "replaces": "spateo_tpu/ops/stencil.py:20",
             "launches": jacobi_launches,
+            "reduce_launches": reduce_launches,
             **jstats,
         },
     ]}))

@@ -254,9 +254,10 @@ def pad_rows_bucket(arr: np.ndarray, mult: int = 1024) -> np.ndarray:
     return np.concatenate([arr, np.repeat(arr[:1], target - n, axis=0)], axis=0)
 
 
-def inlier_from_NN(train_x, train_y, distance, device="cpu") -> Tuple[np.ndarray, ...]:
+def inlier_from_NN(train_x, train_y, distance, device="cuda") -> Tuple[np.ndarray, ...]:
     """Host-facing wrapper returning numpy (parity signature with the
-    reference); rows are padded to a 2048-multiple as in the JAX package."""
+    reference); rows are padded to a 2048-multiple as in the JAX package.
+    Runs on the card unless `device="cpu"`."""
     n = np.asarray(train_x).shape[0]
     tx = pad_rows_bucket(np.asarray(train_x, np.float32), 2048)
     ty = pad_rows_bucket(np.asarray(train_y, np.float32), 2048)
@@ -305,15 +306,17 @@ def voxel_data(
 
 def init_guess_sigma2(XA, XB, subsample: int = 20000, device=None) -> float:
     """Initial sigma2 guess (parity: methods/utils.py:1339), read back as a
-    float."""
+    float. Runs where a tensor argument lies, else on the card unless
+    `device="cpu"`."""
     return float(init_guess_sigma2_dev(XA, XB, subsample=subsample, device=device))
 
 
 def init_guess_sigma2_dev(XA, XB, subsample: int = 20000, device=None) -> torch.Tensor:
     """init_guess_sigma2 as a 0-d tensor on the device, so that the EM chains
     on it with no read back. Draws its subsamples from its own
-    `default_rng(0)`, as the JAX package does."""
-    device = device if device is not None else _device_of(XA, XB)
+    `default_rng(0)`, as the JAX package does. Runs on `device`, else where
+    a tensor argument lies, else on the card."""
+    device = device if device is not None else _device_of(XA, XB, default="cuda")
     rng = np.random.default_rng(0)
     NA, NB, D = XA.shape[0], XB.shape[0], XA.shape[1]
     sa = rng.choice(NA, subsample, replace=False) if NA > subsample else np.arange(NA)

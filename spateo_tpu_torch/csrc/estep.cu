@@ -18,15 +18,18 @@
 //   inl_j = 1 - so / (so + c1_raw_j).
 //
 // What bounds it on an H100: at G' = 51 expression features each pair costs
-// ~51 f32 FMAs of the expression dot per sweep against 3 exponentials and a
-// few multiplies; the inputs are O((NA + B) G') bytes, so it is bound by the
-// f32 FMA throughput (and the shared-memory loads feeding it), not by bytes.
-// The design: 64 x 64 tiles, 256 threads, each thread a 4 x 4 register
-// micro-tile of pairs; the expression dot is a small GEMM over feature
-// chunks of 32 staged in shared memory; divisions by the per-call scalars
-// and per-column denominators are multiplications by reciprocals computed
-// once (IEEE division), `expf` (not `__expf`), no fast-math: f32 throughout,
-// as the TPU kernel ran at Precision.HIGHEST. Tensor cores are not used.
+// ~51 FMAs of the expression dot per sweep against 3 exponentials and a few
+// multiplies (about 129 flops for sweep 2, 121 for sweep 1); the inputs are
+// O((NA + B) G') bytes, so it is bound by operations, not by bytes.
+// Sweep 1's design: 64 x 64 tiles, 256 threads, each thread a 4 x 4
+// register micro-tile of pairs; the expression dot is a small f32 GEMM over
+// feature chunks of 32 staged in shared memory (`expression_dot`). Sweep
+// 2's design (the row tile resident, a cp.async ring of column tiles,
+// 16-byte shared loads feeding the f32 dot) is described at
+// `rowred_kernel`. Both divide by the per-call scalars and per-column
+// denominators as multiplications by reciprocals computed once (IEEE
+// division), use `expf` (not `__expf`) and no fast-math: f32 accuracy
+// throughout, as the TPU kernel ran at Precision.HIGHEST.
 //
 // Skipping (both sweeps): a tile whose bounding-box gap alone proves
 // d > skip_mult * s2 is flagged by the wrapper (`skip`, [n_ta * n_tb] bytes)
@@ -226,98 +229,252 @@ __global__ void colnorm_finalize(const float* __restrict__ partial, const float*
   out[(size_t)4 * B + j] = inl * c[3] / (c[3] + eps);
 }
 
-// Sweep 2. Grid (n_ta): block it owns row tile it and walks every column
-// tile. out rows: sum P3, sum P1, sum P2, sum P2*d, sum P3*bx, sum P3*by.
-__global__ void __launch_bounds__(NT) rowred_kernel(
+// Sweep 2: the row reductions, redesigned for Hopper.
+//
+// Grid (n_ta, S): block (it, s) owns row tile it (64 rows) and the column
+// tiles [s * tiles_per_split, (s + 1) * tiles_per_split); with S > 1 it
+// writes partial[s][6][NA] and `rowred_finalize` adds the S partials of each
+// row in order (S is chosen by the wrapper so that 20k rows still spread
+// over the card). 256 threads: thread (ty, tx) in 16 x 16 owns the 4 x 4
+// pairs of rows 4 ty .. 4 ty + 3 and columns 4 tx .. 4 tx + 3 of each 64 x 64
+// tile, so the rows of one half-warp are the same four.
+//   * The block's rows stay resident: when G1 <= RK (the benchmark's 51),
+//     its 64 rows of fat are loaded once into shared memory and serve every
+//     column tile. With more features the fat chunk travels in the ring
+//     beside the fbt chunk.
+//   * The column tiles stream through a ring of RSTAGES stages filled by
+//     cp.async (zero-filled past G1 and B), issued RSTAGES - 1 steps ahead,
+//     so the next tiles' loads overlap this tile's exponentials. A step is
+//     one chunk of RK features of one column tile; each stage also carries
+//     the tile's raw column data (cb, bt, c1_raw, c1m, c2, c3), from which
+//     64 threads form the column weights once per tile.
+//   * The expression dot is an f32 FMA chain over the features in order,
+//     fed by two 16-byte shared loads (4 rows, 4 columns) per 16 FMAs.
+//     The dot is not on the tensor cores: on an H100, 3xTF32 (mma.m16n8k8
+//     on hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi)) moved the row sums
+//     by 1.1e-4 - 2.0e-4 of their scale against the plain version, and even
+//     an f64 dot (mma.m8n8k4.f64) by 1.1e-4, above the 1e-4 bar: at
+//     p = 0.01, exp(-e / (2 p)) scales any difference in e by 50, and only
+//     a dot rounded as the plain version's f32 chain agrees with it closely
+//     enough (PERF.md).
+//   * The tile skip stays: tiles flagged by the bounding-box mask are never
+//     loaded; a tile with no pair at d < skip_mult * s2 skips its dot and
+//     its exponentials (`__syncthreads_or`). The 16 column groups of a row
+//     are added in a fixed butterfly at the end. No float atomics: the same
+//     bits every run.
+
+constexpr int RK = 64;          // features per ring step
+constexpr int RLD = TM + 4;     // row stride of the k-major chunks (16-byte aligned)
+constexpr int RSTAGES = 3;      // ring depth
+constexpr int RCOL = 7 * TN;    // raw column data per stage: cb (2 TN), bt, c1_raw, c1m, c2, c3
+
+// The dynamic shared-memory layout (in floats) of one rowred block.
+struct RowredLayout {
+  int kr;       // feature rows a step holds: min(RK, G1 rounded up to 4)
+  bool a_res;   // the whole fat tile is resident
+  int stage;    // floats per ring stage: fbt chunk, raw column data, weights, (fat chunk)
+  int ring;     // float offset of stage 0
+  int live;     // float offset of the live-tile list (ints)
+  __host__ __device__ explicit RowredLayout(int G1) {
+    const int g4 = (G1 + 3) / 4 * 4;
+    kr = g4 < RK ? g4 : RK;
+    a_res = G1 <= RK;
+    stage = kr * RLD + RCOL + 3 * TN + (a_res ? 0 : kr * RLD);
+    ring = a_res ? kr * RLD : 0;
+    live = ring + RSTAGES * stage;
+  }
+  __host__ __device__ size_t bytes(int tiles_per_split) const {
+    return sizeof(float) * (size_t(live) + size_t(tiles_per_split));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte async copy global -> shared; zero-fills when !ok.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(RSTAGES - 2) : "memory");
+}
+
+__global__ void __launch_bounds__(NT, 2) rowred_kernel(
     const float* __restrict__ xa, const float* __restrict__ cb, const float* __restrict__ fat,
     const float* __restrict__ fbt, const float* __restrict__ bt, const float* __restrict__ colstats,
-    const float* __restrict__ scal, const uint8_t* __restrict__ skip, float* __restrict__ out,
-    int NA, int B, int G1, float skip_mult) {
-  __shared__ float sa[TK][TM];
-  __shared__ float sb[TK][TN];
-  __shared__ float s_bx[TN], s_by[TN], s_b2[TN], s_bt[TN], s_w1[TN], s_w2[TN], s_w3[TN];
+    const float* __restrict__ scal, const uint8_t* __restrict__ skip, float* __restrict__ out, int NA, int B,
+    int G1, int tiles_per_split, float skip_mult) {
+  extern __shared__ float4 rowred_smem4[];
+  float* sm = reinterpret_cast<float*>(rowred_smem4);
+  __shared__ int s_n_live;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const RowredLayout L(G1);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int it = blockIdx.x, i0 = it * TM;
   const int n_tb = (B + TN - 1) / TN;
+  const int jt_begin = blockIdx.y * tiles_per_split;
+  const int jt_end = min(n_tb, jt_begin + tiles_per_split);
+  const int n_kc = (G1 + RK - 1) / RK;
   const Scalars s = read_scalars(scal, skip_mult);
-  const float* c1r = colstats;
-  const float* c1m = colstats + B;
-  const float* c2 = colstats + 2 * (size_t)B;
-  const float* c3 = colstats + 3 * (size_t)B;
+  int* live = reinterpret_cast<int*>(sm + L.live);
 
+  if (tid == 0) {
+    int n = 0;
+    for (int jt = jt_begin; jt < jt_end; ++jt)
+      if (!skip[(size_t)it * n_tb + jt]) live[n++] = jt;
+    s_n_live = n;
+  }
+  if (L.a_res) {
+    for (int e = tid; e < L.kr * TM; e += NT) {
+      const int kk = e / TM, ii = e % TM, i = i0 + ii;
+      sm[kk * RLD + ii] = (kk < G1 && i < NA) ? fat[(size_t)kk * NA + i] : 0.0f;
+    }
+  }
+  // this thread's four rows
   float ax[4], ay[4], a2[4];
   bool rowok[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
+    const int i = i0 + 4 * ty + r;
     rowok[r] = i < NA;
     ax[r] = rowok[r] ? xa[2 * i] : 0.0f;
     ay[r] = rowok[r] ? xa[2 * i + 1] : 0.0f;
     a2[r] = ax[r] * ax[r] + ay[r] * ay[r];
   }
+  __syncthreads();
+  const int n_steps = s_n_live * n_kc;
+
+  // step q: feature chunk q % n_kc of column tile live[q / n_kc], into stage q % RSTAGES
+  auto issue = [&](int q) {
+    float* st = sm + L.ring + (q % RSTAGES) * L.stage;
+    const int j0 = live[q / n_kc] * TN, g0 = (q % n_kc) * RK;
+    for (int e = tid; e < L.kr * TN; e += NT) {
+      const int kk = e / TN, jj = e % TN, gg = g0 + kk, j = j0 + jj;
+      const bool ok = gg < G1 && j < B;
+      cp_async4(st + kk * RLD + jj, ok ? fbt + (size_t)gg * B + j : fbt, ok);
+    }
+    float* col = st + L.kr * RLD;
+    for (int e = tid; e < RCOL; e += NT) {
+      const int part = e / TN, jj = e % TN;
+      if (part < 2) {  // cb, two floats per column
+        const int idx = 2 * j0 + e;
+        cp_async4(col + e, idx < 2 * B ? cb + idx : cb, idx < 2 * B);
+      } else {
+        const int j = j0 + jj;
+        const float* src = part == 2 ? bt : colstats + (size_t)(part - 3) * B;  // c1_raw, c1m, c2, c3
+        cp_async4(col + e, j < B ? src + j : src, j < B);
+      }
+    }
+    if (!L.a_res) {
+      float* sa = col + RCOL + 3 * TN;
+      for (int e = tid; e < L.kr * TM; e += NT) {
+        const int kk = e / TM, ii = e % TM, gg = g0 + kk, i = i0 + ii;
+        const bool ok = gg < G1 && i < NA;
+        cp_async4(sa + kk * RLD + ii, ok ? fat + (size_t)gg * NA + i : fat, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int q = 0; q < RSTAGES - 1; ++q) {
+    if (q < n_steps) issue(q);
+    cp_async_commit();
+  }
+
+  float e[4][4], d[4][4];
   float r3[4] = {0.f, 0.f, 0.f, 0.f}, r1[4] = {0.f, 0.f, 0.f, 0.f}, r2[4] = {0.f, 0.f, 0.f, 0.f};
   float sg[4] = {0.f, 0.f, 0.f, 0.f}, px[4] = {0.f, 0.f, 0.f, 0.f}, py[4] = {0.f, 0.f, 0.f, 0.f};
+  bool tile_live = false;
 
-  for (int jt = 0; jt < n_tb; ++jt) {
-    if (skip[(size_t)it * n_tb + jt]) continue;  // uniform over the block
-    const int j0 = jt * TN;
-    __syncthreads();  // shared column data of the previous tile is consumed
-    if (threadIdx.x < TN) {
-      const int j = j0 + threadIdx.x;
-      const bool ok = j < B;
-      const float x = ok ? cb[2 * j] : 0.0f, y = ok ? cb[2 * j + 1] : 0.0f;
-      s_bx[threadIdx.x] = x;
-      s_by[threadIdx.x] = y;
-      s_b2[threadIdx.x] = x * x + y * y;
-      s_bt[threadIdx.x] = ok ? bt[j] : 0.0f;
-      if (ok) {
-        const float inl = 1.0f - s.so / (s.so + c1r[j]);
-        s_w1[threadIdx.x] = 1.0f / (s.so + c1m[j]);
-        s_w2[threadIdx.x] = inl / (c2[j] + s.eps);
-        s_w3[threadIdx.x] = inl / (c3[j] + s.eps);
-      } else {
-        s_w1[threadIdx.x] = s_w2[threadIdx.x] = s_w3[threadIdx.x] = 0.0f;
-      }
+  for (int q = 0; q < n_steps; ++q) {
+    cp_async_wait_ring();
+    __syncthreads();  // stage q has landed for every thread; stage q - 1 is consumed
+    if (q + RSTAGES - 1 < n_steps) issue(q + RSTAGES - 1);
+    cp_async_commit();
+
+    float* st = sm + L.ring + (q % RSTAGES) * L.stage;
+    float* col = st + L.kr * RLD;  // cb[2 TN], bt, c1_raw, c1m, c2, c3
+    float* wts = col + RCOL;       // w1, w2, w3 [TN] each
+    const int kc = q % n_kc, j0 = live[q / n_kc] * TN;
+
+    if (kc == n_kc - 1 && tid < TN) {
+      const bool ok = j0 + tid < B;
+      const float inl = 1.0f - s.so / (s.so + col[3 * TN + tid]);
+      wts[tid] = ok ? 1.0f / (s.so + col[4 * TN + tid]) : 0.0f;
+      wts[TN + tid] = ok ? inl / (col[5 * TN + tid] + s.eps) : 0.0f;
+      wts[2 * TN + tid] = ok ? inl / (col[6 * TN + tid] + s.eps) : 0.0f;
     }
-    __syncthreads();
-
-    float d[4][4];
-    float dmin = __int_as_float(0x7f800000);  // +inf
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    if (kc == 0) {
+      const float4 b01 = *reinterpret_cast<const float4*>(col + 8 * tx);
+      const float4 b23 = *reinterpret_cast<const float4*>(col + 8 * tx + 4);
+      const float bx[4] = {b01.x, b01.z, b23.x, b23.z}, by[4] = {b01.y, b01.w, b23.y, b23.w};
+      float dmin = __int_as_float(0x7f800000);  // +inf
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int jl = tx + 16 * c;
-        const float dot = ax[r] * s_bx[jl] + ay[r] * s_by[jl];
-        d[r][c] = fmaxf(a2[r] + s_b2[jl] - 2.0f * dot, 0.0f);
-        if (rowok[r] && j0 + jl < B) dmin = fminf(dmin, d[r][c]);
+        const float b2 = bx[c] * bx[c] + by[c] * by[c];
+        const bool colok = j0 + 4 * tx + c < B;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float dot = ax[r] * bx[c] + ay[r] * by[c];
+          d[r][c] = fmaxf(a2[r] + b2 - 2.0f * dot, 0.0f);
+          e[r][c] = 0.0f;
+          if (rowok[r] && colok) dmin = fminf(dmin, d[r][c]);
+        }
       }
+      // also publishes the weights when the tile has one chunk
+      tile_live = __syncthreads_or(dmin < s.thr);
+    } else if (kc == n_kc - 1) {
+      __syncthreads();  // the weights
     }
-    if (!__syncthreads_or(dmin < s.thr)) continue;
+    if (!tile_live) continue;
 
-    float e[4][4];
-    expression_dot(fat, fbt, NA, B, G1, i0, j0, tx, ty, sa, sb, e);
+    // the expression dot of this chunk: one f32 FMA chain per pair, features in order
+    const float* sA = L.a_res ? sm : wts + 3 * TN;
+    const int kmax = min(RK, G1 - kc * RK);
+#pragma unroll 4
+    for (int kk = 0; kk < kmax; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(sA + kk * RLD + 4 * ty);
+      const float4 bv = *reinterpret_cast<const float4*>(st + kk * RLD + 4 * tx);
+      const float a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) e[r][c] = fmaf(a[r], b[c], e[r][c]);
+    }
+    if (kc != n_kc - 1) continue;
+
+    // epilogue: the tile's pairs into this thread's four rows
+    const float4 b01 = *reinterpret_cast<const float4*>(col + 8 * tx);
+    const float4 b23 = *reinterpret_cast<const float4*>(col + 8 * tx + 4);
+    const float bx[4] = {b01.x, b01.z, b23.x, b23.z}, by[4] = {b01.y, b01.w, b23.y, b23.w};
+    const float4 btv = *reinterpret_cast<const float4*>(col + 2 * TN + 4 * tx);
+    const float4 w1v = *reinterpret_cast<const float4*>(wts + 4 * tx);
+    const float4 w2v = *reinterpret_cast<const float4*>(wts + TN + 4 * tx);
+    const float4 w3v = *reinterpret_cast<const float4*>(wts + 2 * TN + 4 * tx);
+    const float btc[4] = {btv.x, btv.y, btv.z, btv.w}, w1[4] = {w1v.x, w1v.y, w1v.z, w1v.w};
+    const float w2[4] = {w2v.x, w2v.y, w2v.z, w2v.w}, w3[4] = {w3v.x, w3v.y, w3v.z, w3v.w};
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const int jl = tx + 16 * c;
-      if (j0 + jl >= B) continue;
-      const float w1 = s_w1[jl], w2 = s_w2[jl], w3 = s_w3[jl], bxj = s_bx[jl], byj = s_by[jl], btj = s_bt[jl];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float pv = expf(-d[r][c] * s.inv_v);
         const float ps = expf(-d[r][c] * s.inv_s);
-        const float full = ps * expf(-(e[r][c] + btj) * s.inv_p);
-        const float P1 = pv * w1, P2 = ps * w2, P3 = full * w3;
+        const float full = ps * expf(-(e[r][c] + btc[c]) * s.inv_p);
+        const float P1 = pv * w1[c], P2 = ps * w2[c], P3 = full * w3[c];
         r3[r] += P3;
         r1[r] += P1;
         r2[r] += P2;
         sg[r] += P2 * d[r][c];
-        px[r] += P3 * bxj;
-        py[r] += P3 * byj;
+        px[r] += P3 * bx[c];
+        py[r] += P3 * by[c];
       }
     }
   }
+  cp_async_wait_all();
 
   // the 16 column groups of each row sit in one half-warp: a fixed butterfly
 #pragma unroll
@@ -333,18 +490,29 @@ __global__ void __launch_bounds__(NT) rowred_kernel(
     }
   }
   if (tx == 0) {
+    float* o = out + (size_t)blockIdx.y * 6 * NA;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       if (!rowok[r]) continue;
-      const size_t i = (size_t)i0 + ty + 16 * r;
-      out[i] = r3[r];
-      out[(size_t)NA + i] = r1[r];
-      out[2 * (size_t)NA + i] = r2[r];
-      out[3 * (size_t)NA + i] = sg[r];
-      out[4 * (size_t)NA + i] = px[r];
-      out[5 * (size_t)NA + i] = py[r];
+      const size_t i = (size_t)i0 + 4 * ty + r;
+      o[i] = r3[r];
+      o[(size_t)NA + i] = r1[r];
+      o[2 * (size_t)NA + i] = r2[r];
+      o[3 * (size_t)NA + i] = sg[r];
+      o[4 * (size_t)NA + i] = px[r];
+      o[5 * (size_t)NA + i] = py[r];
     }
   }
+}
+
+// Sweep 2, second launch when the columns were split: the S partials of
+// each output in order.
+__global__ void rowred_finalize(const float* __restrict__ partial, float* __restrict__ out, int n, int S) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float sum = 0.0f;
+  for (int t = 0; t < S; ++t) sum += partial[(size_t)t * n + e];
+  out[e] = sum;
 }
 
 }  // namespace
@@ -366,13 +534,23 @@ int estep_colnorm(const float* xa, const float* cb, const float* fat, const floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sweep 2: out [6, NA] = row sums of P3, P1, P2, P2*d, P3*bx, P3*by.
+// Sweep 2: out [6, NA] = row sums of P3, P1, P2, P2*d, P3*bx, P3*by. With
+// S > 1 column splits, partial is [S, 6, NA] scratch and a second launch
+// adds the splits; with S == 1 partial is unused (may be null).
 int estep_rowred(const float* xa, const float* cb, const float* fat, const float* fbt, const float* bt,
-                 const float* colstats, const float* scal, const uint8_t* skip, float* out, int NA, int B,
-                 int G1, float skip_mult, void* stream) {
+                 const float* colstats, const float* scal, const uint8_t* skip, float* partial, float* out, int NA,
+                 int B, int G1, int S, int tiles_per_split, float skip_mult, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_ta = (NA + TM - 1) / TM;
-  rowred_kernel<<<n_ta, NT, 0, st>>>(xa, cb, fat, fbt, bt, colstats, scal, skip, out, NA, B, G1, skip_mult);
+  const size_t smem = RowredLayout(G1).bytes(tiles_per_split);
+  cudaError_t err = cudaFuncSetAttribute(rowred_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rowred_kernel<<<dim3(n_ta, S), NT, smem, st>>>(xa, cb, fat, fbt, bt, colstats, scal, skip, S > 1 ? partial : out,
+                                                   NA, B, G1, tiles_per_split, skip_mult);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return static_cast<int>(err);
+  const int n = 6 * NA;
+  rowred_finalize<<<(n + 255) / 256, 256, 0, st>>>(partial, out, n, S);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,12 @@ two sweeps over the [NA, B] pairs:
 - `rowred`: the per-row reductions, through `estep_rowred` or
   `rowred_reference`.
 
+`tf32_split` and `dot_3xtf32` are the 3xTF32 arithmetic in plain PyTorch:
+the split of each f32 operand into TF32 parts that a tensor-core dot of the
+E-step would take. On the card that dot missed the E-step's bar
+(PERF.md), so both kernels keep an f32 FMA dot; the emulation stays as the
+measure of what the split itself costs.
+
 A CUDA tensor launches the kernel or raises; nothing falls back. Each sweep
 counts its launches (`colnorm.launches`, `rowred.launches`).
 `estep_reference` runs the same prologue and epilogue around the two plain
@@ -41,6 +47,10 @@ TM, TN = 64, 64
 #: Sweep-1 blocks wanted in flight: rows are split until column tiles x
 #: splits reaches this (4 blocks on each of the H100's 132 SMs).
 _COLNORM_BLOCKS = 528
+#: Sweep-2 blocks wanted: columns are split until row tiles x splits
+#: reaches this (8 blocks for each SM), so that 20k rows (313 row tiles)
+#: still spread evenly over the card.
+_ROWRED_BLOCKS = 1056
 
 #: Tile-skip bound: when every pair of a tile has d > 80*sigma2, every
 #: probability in it is < e^-40 (prob_s governs: prob_v decays faster since
@@ -120,7 +130,7 @@ def _lib():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.estep_colnorm.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
     lib.estep_colnorm.restype = i32
-    lib.estep_rowred.argtypes = [ptr] * 9 + [i32] * 3 + [f32, ptr]
+    lib.estep_rowred.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
     lib.estep_rowred.restype = i32
     for fn in (lib.estep_tile_rows, lib.estep_tile_cols):
         fn.argtypes, fn.restype = [], i32
@@ -189,6 +199,30 @@ def colnorm(xa, cb, fat, fbt, bt, mm, scal, skip) -> torch.Tensor:
 colnorm.launches = 0
 
 
+def tf32_split(x: torch.Tensor):
+    """The kernel's split of an f32 value into TF32 parts, in plain PyTorch:
+    hi = cvt.rna.tf32(x) (round to nearest, ties away from zero, to 10
+    mantissa bits), lo = cvt.rna.tf32(x - hi). Both are f32 tensors whose
+    low 13 mantissa bits are 0; hi + lo is x to about 2^-22 relative."""
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def dot_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32 with round-to-nearest sums, emulated in f32: the
+    products hi.lo and lo.hi first, then hi.hi (every product of two TF32
+    values is exact in f32); the term lo.lo is dropped. The tensor cores'
+    own f32 accumulation truncates instead, which this does not model."""
+    (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
 def rowred(xa, cb, fat, fbt, bt, colstats, scal, skip) -> torch.Tensor:
     """Sweep 2: [6, NA] row sums of (P3, P1, P2, P2*d, P3*x_B, P3*y_B). The
     kernel for CUDA tensors, `rowred_reference` for CPU tensors."""
@@ -203,11 +237,17 @@ def rowred(xa, cb, fat, fbt, bt, colstats, scal, skip) -> torch.Tensor:
     out = torch.zeros((6, NA), dtype=torch.float32, device=dev)
     if NA == 0 or B == 0:
         return out
+    n_ta, n_tb = -(-NA // TM), -(-B // TN)
+    splits = min(n_tb, max(1, -(-_ROWRED_BLOCKS // n_ta)))
+    per_split = -(-n_tb // splits)
+    splits = -(-n_tb // per_split)
+    partial = torch.empty((splits, 6, NA), dtype=torch.float32, device=dev) if splits > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().estep_rowred(
             xa.data_ptr(), cb.data_ptr(), fat.data_ptr(), fbt.data_ptr(), bt.data_ptr(), colstats.data_ptr(),
-            scal.data_ptr(), skip.data_ptr(), out.data_ptr(), NA, B, G1, float(_SKIP_MULT), stream,
+            scal.data_ptr(), skip.data_ptr(), 0 if partial is None else partial.data_ptr(), out.data_ptr(),
+            NA, B, G1, splits, per_split, float(_SKIP_MULT), stream,
         )
     if err != 0:
         raise RuntimeError(f"estep_rowred kernel launch failed: CUDA error {err}")

@@ -7,8 +7,11 @@ on the card, the plain version on the CPU) and after each block the masked
 relative L2 change, exactly as the JAX package's `lax.while_loop` does: the
 state starts at (f, it=0, err=inf), the loop runs while ``err > max_err and
 it <= max_itr``, and each block adds `check_every` to `it`, so `it` may
-overshoot `max_itr` by up to one block. Each block ends with one read of
-`err` by the host: a solve makes ``it / check_every`` reads.
+overshoot `max_itr` by up to one block. On the card the kernel's last launch
+of a block computes the change's sums itself (f64, fixed order) and a small
+kernel writes `err` on the device; on the CPU `_rel_change` computes it.
+Each block ends with one read of `err` by the host: a solve makes
+``it / check_every`` reads.
 `graph_heat_solve` is the same loop over a neighbour graph in plain
 PyTorch (XLA only in the JAX package).
 """
@@ -20,26 +23,20 @@ import torch
 
 from ..core.bridge import to_device
 from .jacobi_cuda import jacobi_block
+from .jacobi_cuda import rel_change_reference as _rel_change
 
 
-def _rel_change(new: torch.Tensor, old: torch.Tensor, weight=None) -> torch.Tensor:
-    """sqrt(sum((new - old)^2 w) / max(sum(new^2 w), 1e-30)), on the device."""
-    d2, n2 = (new - old) ** 2, new**2
-    if weight is not None:
-        d2, n2 = d2 * weight, n2 * weight
-    return torch.sqrt(torch.sum(d2) / torch.clamp_min(torch.sum(n2), 1e-30))
-
-
-def _heat_loop(step_block, x0: torch.Tensor, max_err: float, max_itr: int, check_every: int, weight=None):
+def _heat_loop(step_block, x0: torch.Tensor, max_err: float, max_itr: int, check_every: int):
     """The JAX package's while_loop on the host: blocks of `check_every`
     steps until the relative change is at most `max_err` or `it` passes
-    `max_itr`. `max_err` is compared in float32, as JAX compares it."""
+    `max_itr`. `step_block(x)` returns the next state and its relative
+    change (a 0-d tensor, read once per block). `max_err` is compared in
+    float32, as JAX compares it."""
     max_err = float(np.float32(max_err))
     x, it, err = x0, 0, float("inf")
     while err > max_err and it <= max_itr:
-        x_new = step_block(x)
-        err = float(_rel_change(x_new, x, weight))
-        x, it = x_new, it + check_every
+        x, err_t = step_block(x)
+        err, it = float(err_t), it + check_every
     return x, it, err
 
 
@@ -65,7 +62,7 @@ def jacobi_solve(
     upd[1:-1, 1:-1] = 1
     upd[frozen] = 0
     n = int(check_every)
-    f, it, err = _heat_loop(lambda x: jacobi_block(x, upd, n), f0, max_err, int(max_itr), n, mk)
+    f, it, err = _heat_loop(lambda x: jacobi_block(x, upd, n, weight=mk), f0, max_err, int(max_itr), n)
     return (f * mk).cpu().numpy(), int(it), float(err)
 
 
@@ -113,10 +110,11 @@ def graph_heat_solve(
     v0, idx, am, fx = (to_device(x, device) for x in (values0, adj_indices, adj_mask, fixed))
     deg = torch.clamp_min(torch.sum(am, dim=1), 1.0)
 
-    def block(v):
+    def block(v_old):
+        v = v_old
         for _ in range(check_every):
             v = torch.where(fx, v0, torch.sum(v[idx] * am, dim=1) / deg)
-        return v
+        return v, _rel_change(v, v_old)
 
     v, it, err = _heat_loop(block, v0, max_err, int(max_itr), check_every)
     return v.cpu().numpy(), int(it), float(err)

@@ -160,6 +160,27 @@ def test_estep_kernels_are_deterministic(cuda):
         assert torch.equal(a[k], b[k]), k
 
 
+@pytest.mark.parametrize("G", [18, 50, 100])
+@pytest.mark.parametrize("NA,B", [(1000, 333), (20000, 2000)])
+def test_rowred_kernel_matches_plain(cuda, NA, B, G):
+    """`rowred` against `rowred_reference` at G1 = 19, 51 (the row tile
+    resident) and 101 features (the fat chunks in the ring), B not a
+    multiple of 64 and 2000 (split over columns at 20k rows): every row sum
+    within 1e-4 of its scale; one counted launch; the same bits twice."""
+    args = _estep_args(NA, B, cuda, G=G, seed=G)
+    xa, cb, fat, fbt, bt, mm, scal, skip = estep_cuda.prepare(*args[:1], *args[2:])
+    assert fat.shape[0] == G + 1
+    col = estep_cuda.colnorm_reference(xa, cb, fat, fbt, bt, mm, scal)
+    before = estep_cuda.rowred.launches
+    out = estep_cuda.rowred(xa, cb, fat, fbt, bt, col, scal, skip)
+    torch.cuda.synchronize()
+    assert estep_cuda.rowred.launches == before + 1
+    ref = estep_cuda.rowred_reference(xa, cb, fat, fbt, bt, col, scal)
+    for q in range(6):
+        assert _scaled(ref[q], out[q]) < 1e-4, (q, _scaled(ref[q], out[q]))
+    assert torch.equal(estep_cuda.rowred(xa, cb, fat, fbt, bt, col, scal, skip), out)
+
+
 def test_estep_kernels_reject_bad_inputs(cuda):
     args = _estep_args(200, 70, cuda)
     xa, cb = args[0], args[2]
@@ -259,21 +280,45 @@ def _jacobi_case(H, W, device, seed=0):
     return f, upd
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (2, 5), (3, 3), (7, 33), (130, 257), (1000, 1500)])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 5), (3, 3), (7, 33), (130, 257), (1000, 1500), (229, 333)])
 def test_jacobi_block_kernel_matches_plain(cuda, shape):
-    """Kernel vs `jacobi_block_reference` on ragged shapes for 1, T, T + 3
-    and 100 sweeps: the same bits (both round each add and the 0.25 multiply
-    the same way); ceil(n / T) counted launches; the input untouched."""
+    """Kernel vs `jacobi_block_reference` on ragged shapes (229 x 333: no
+    side a multiple of the tile or of a warp's 128 columns) for 1, T - 1,
+    T, T + 1, 2T + 3 and 100 sweeps: the same bits (both round each add and
+    the 0.25 multiply the same way); ceil(n / T) counted launches; the input
+    untouched."""
     f, upd = _jacobi_case(*shape, cuda)
     f_before = f.clone()
     T = jacobi_cuda.sweeps_per_launch()
-    for n in (1, T, T + 3, 100):
+    for n in (1, T - 1, T, T + 1, 2 * T + 3, 100):
         before = jacobi_cuda.jacobi_block.launches
         out = jacobi_cuda.jacobi_block(f, upd, n)
         torch.cuda.synchronize()
         assert jacobi_cuda.jacobi_block.launches == before + -(-n // T)
         assert torch.equal(out, jacobi_cuda.jacobi_block_reference(f, upd, n)), n
     assert torch.equal(f, f_before)
+
+
+@pytest.mark.parametrize("shape,n", [((130, 257), 1), ((229, 333), 40), ((1024, 1024), 100)])
+def test_jacobi_block_fused_err_matches_plain(cuda, shape, n):
+    """The relative change the last launch sums in f64 (and the small kernel
+    adds in a fixed order) against `rel_change_reference` in f32 on the same
+    block, under a non-uniform weight: rtol 1e-5 (the two sum in other
+    orders and precisions); the field is the one without a weight; one
+    counted reduction launch; the same bits twice."""
+    f, upd = _jacobi_case(*shape, cuda, seed=7)
+    weight = torch.rand(shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (jacobi_cuda.jacobi_block.launches, jacobi_cuda.jacobi_block.err_launches)
+    out, err = jacobi_cuda.jacobi_block(f, upd, n, weight=weight)
+    torch.cuda.synchronize()
+    T = jacobi_cuda.sweeps_per_launch()
+    assert (jacobi_cuda.jacobi_block.launches, jacobi_cuda.jacobi_block.err_launches) == (
+        before[0] + -(-n // T), before[1] + 1)
+    assert torch.equal(out, jacobi_cuda.jacobi_block(f, upd, n))
+    want = jacobi_cuda.rel_change_reference(out, f, weight)
+    assert err.shape == () and err.dtype == torch.float32
+    torch.testing.assert_close(err, want, rtol=1e-5, atol=0)
+    assert torch.equal(jacobi_cuda.jacobi_block(f, upd, n, weight=weight)[1], err)
 
 
 def test_jacobi_block_rejects_bad_inputs(cuda):

@@ -140,6 +140,22 @@ def test_jacobi_block_on_cpu_is_plain_and_uncounted():
         jacobi_cuda.jacobi_block(torch.empty((4, 4), device="meta"), torch.empty((4, 4), dtype=torch.uint8, device="meta"), 1)
 
 
+def test_jacobi_block_with_weight_on_cpu_is_plain():
+    """With a weight, a CPU tensor returns the plain field and its relative
+    change from `rel_change_reference`, the value `_heat_loop` reads once
+    per block; no launch of either kernel is counted."""
+    f0, border = _block_case(20, 30, seed=3)
+    f = torch.from_numpy(f0)
+    upd = torch.from_numpy(_upd(20, 30, border))
+    w = torch.from_numpy((np.arange(600).reshape(20, 30) % 3 != 0).astype(np.float32))
+    before = (jacobi_cuda.jacobi_block.launches, jacobi_cuda.jacobi_block.err_launches)
+    out, err = jacobi_cuda.jacobi_block(f, upd, 7, weight=w)
+    assert (jacobi_cuda.jacobi_block.launches, jacobi_cuda.jacobi_block.err_launches) == before
+    want = jacobi_cuda.jacobi_block_reference(f, upd, 7)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    assert err.shape == () and float(err) == float(jacobi_cuda.rel_change_reference(want, f, w)) > 0
+
+
 # -- the solvers ------------------------------------------------------------------
 
 

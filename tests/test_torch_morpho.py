@@ -343,8 +343,8 @@ def test_host_helpers_match_jax():
 def test_init_guess_sigma2_and_order_stat_match_jax():
     rng = np.random.default_rng(4)
     XA, XB = rng.normal(size=(300, 2)).astype(np.float32), rng.normal(size=(250, 2)).astype(np.float32)
-    np.testing.assert_allclose(float(tm.init_guess_sigma2_dev(XA, XB)), float(jm.init_guess_sigma2_dev(XA, XB)),
-                               rtol=1e-5)
+    np.testing.assert_allclose(float(tm.init_guess_sigma2_dev(XA, XB, device="cpu")),
+                               float(jm.init_guess_sigma2_dev(XA, XB)), rtol=1e-5)
     EA, EB = rng.poisson(2.0, (120, 7)).astype(np.float32), rng.poisson(2.0, (90, 7)).astype(np.float32)
     np.testing.assert_allclose(float(tm.min_dist_order_stat(T(EA), T(EB), 6)),
                                float(jm.min_dist_order_stat(jnp.asarray(EA), jnp.asarray(EB), 6)), rtol=1e-5)
@@ -448,3 +448,95 @@ def test_build_hash_covers_included_headers(tmp_path):
     assert _build.source_digest(tmp_path / "k.cu", flags=("-O2",)) != _build.source_digest(tmp_path / "k.cu")
     with pytest.raises(FileNotFoundError):
         _build.source_digest(tmp_path / "missing.cu")
+
+
+# -- the 3xTF32 arithmetic the E-step kernels were measured with, and the card defaults
+
+
+def test_tf32_split_rounds_to_nearest_away_and_keeps_f32():
+    """`tf32_split` is cvt.rna.tf32 twice: hi keeps 10 mantissa bits (low 13
+    bits zero), a tie rounds away from zero, and hi + lo is x to 2^-21 of
+    |x| (lo keeps 11 of the 13 dropped bits)."""
+    ties = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 3 * 2**-11, 2.0 + 2**-10], dtype=torch.float32)
+    hi, lo = ec.tf32_split(ties)
+    np.testing.assert_array_equal(hi.numpy(), np.array([1 + 2**-10, -(1 + 2**-10), 1 + 2**-9, 2.0 + 2**-9], np.float32))
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 10, 10000).astype(np.float32))
+    hi, lo = ec.tf32_split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0**-21 * x.double().abs()).all())
+
+
+@pytest.mark.parametrize("G", [18, 50, 100])
+def test_dot_3xtf32_matches_f64_dot(G):
+    """The expression dot in 3xTF32 with round-to-nearest sums
+    (`dot_3xtf32`) on the E-step's kl factors of Poisson counts, G + 1 =
+    19, 51, 101 features with the a-row appended: within 2e-6 of the f64
+    dot's scale (sum_g |fat| |fbt|), as close as the f32 dot itself, so the
+    split loses nothing; plain TF32 (hi.hi alone) misses by more than 1e-4
+    of the scale."""
+    rng = np.random.default_rng(G)
+    XA, XB = rng.poisson(2.0, (300, G)).astype(np.float32), rng.poisson(2.0, (130, G)).astype(np.float32)
+    a, b, A, Bf = tm.factorize_distance(T(XA), T(XB), "kl")
+    fat = torch.cat([A.T, a[None]])
+    fbt = torch.cat([Bf.T, torch.ones((1, 130))])
+    exact = fat.double().T @ fbt.double()
+    scale = float((fat.double().abs().T @ fbt.double().abs()).max())
+    e3 = ec.dot_3xtf32(fat.T, fbt)
+    err3 = float((e3.double() - exact).abs().max()) / scale
+    err32 = float(((fat.T @ fbt).double() - exact).abs().max()) / scale
+    (ah, _), (bh, _) = ec.tf32_split(fat.T), ec.tf32_split(fbt)
+    err_tf32 = float(((ah @ bh).double() - exact).abs().max()) / scale
+    assert err3 < 2e-6 and err3 < 4 * err32 + 1e-7, (err3, err32)
+    assert err_tf32 > 1e-4, err_tf32
+
+
+def test_inlier_from_NN_on_cpu_matches_jax():
+    """The host-facing coarse fit with device="cpu" against the JAX
+    package's `inlier_from_NN` (1,500 matches, padded to 2,048 by both): the
+    bars of the kernel-level test."""
+    rng = np.random.default_rng(5)
+    n = 1500
+    th = 0.4
+    R_true = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    tx = rng.uniform(0, 5, (n, 2)).astype(np.float32)
+    ty = (tx @ R_true.T + np.array([1.0, -2.0], np.float32)).astype(np.float32)
+    ty[: n // 3] += rng.normal(0, 2.0, (n // 3, 2)).astype(np.float32)
+    dist = rng.uniform(0, 3, (n, 1)).astype(np.float32)
+    P, R, t, w, s2, g = tm.inlier_from_NN(tx, ty, dist, device="cpu")
+    Pj, Rj, tj, wj, s2j, gj = jm.inlier_from_NN(tx, ty, dist)
+    assert P.shape == np.shape(Pj) and w.shape == np.shape(wj)
+    np.testing.assert_allclose(R, np.asarray(Rj), atol=2e-5)
+    np.testing.assert_allclose(t, np.asarray(tj), atol=2e-4)
+    np.testing.assert_allclose(P, np.asarray(Pj), atol=1e-3)
+    np.testing.assert_allclose(w, np.asarray(wj), atol=1e-5)
+    assert abs(s2 - float(s2j)) < 1e-3 * max(float(s2j), 1e-3) and abs(g - float(gj)) < 1e-3
+    np.testing.assert_allclose(R, R_true, atol=0.05)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """`inlier_from_NN` and `init_guess_sigma2` run on the card unless the
+    caller asks for the CPU, as every entry point of the port does; a
+    tensor argument keeps its own device."""
+    import inspect
+
+    assert inspect.signature(tm.inlier_from_NN).parameters["device"].default == "cuda"
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def record(x, device=None):
+        seen.append(torch.device(device))
+        raise Stop
+
+    monkeypatch.setattr(tm, "as_tensor", record)
+    XA = np.zeros((5, 2), np.float32)
+    for call in (tm.init_guess_sigma2, tm.init_guess_sigma2_dev):
+        with pytest.raises(Stop):
+            call(XA, XA)
+    with pytest.raises(Stop):
+        tm.init_guess_sigma2_dev(torch.from_numpy(XA), XA)
+    assert [d.type for d in seen] == ["cuda", "cuda", "cpu"]

@@ -27,10 +27,12 @@ final ``ok`` line:
    20,000 x 2,000 (kl factors, G' = 51), at 100,000 x 10,000 Morton-ordered
    at the solver's sigma2 floor (most tiles skip) and at a ragged shape;
    CUDA-event times of each kernel and plain sweep, the share of tiles
-   skipped, and each kernel's bound and share of it (`rowred` beside its
-   previous design's time). Then the coarse-init fit `inlier_fit` (the kernel of
-   `csrc/inlier.cu`, all 100 iterations in one launch) against
-   `inlier_reference` at the 20k pair's 20,480 NN matches, with its bound.
+   skipped, the most live tiles one `colnorm` block computes, and each
+   kernel's bound and share of it, beside the previous designs' times. Then
+   the coarse-init fit `inlier_fit` (the kernel of `csrc/inlier.cu`, all 100
+   iterations in one launch of one thread-block cluster) against
+   `inlier_reference` at the 20k pair's 20,480 NN matches, with its bound and
+   its previous design's time.
 6. Morpho main path: `align.morpho_align([fixed, moving])` on the benchmark's
    20,000-cell pair (`bench._make_slice_pair`, 50 genes, kl, SVI batch 2,000,
    200 iterations); warm-up on seed 1, seeds 2-4 timed; pairs per minute,
@@ -81,8 +83,10 @@ TILE = 2048
 F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 #: The previous designs' times on an H100 80GB HBM3 at 700 W (PERF.md's
 #: table; the designs are kept in scripts/baseline/), printed beside the
-#: redesigned kernels'.
+#: redesigned kernels'. `inlier`'s is `inlier_fit` with its prologue.
 PREV_ROWRED_MS, PREV_JACOBI_US = 0.46824, {1024: 2.473, 2048: 7.153}
+PREV_COLNORM_MS = {"20000x2000": 0.33308, "100000x10000": 1.98765}
+PREV_INLIER_MS = 3.7473
 
 
 def check(cond, msg):
@@ -325,11 +329,16 @@ def phase_estep_kernels():
             f"phase 5: E-step {name} times (ms, CUDA events): " + ", ".join(f"{k}={v!r}" for k, v in t.items())
             + f"; tiles flagged by the bbox mask {bbox_share!r}, tiles computed {live!r}"
         )
+        splits = ec.colnorm_splits(NA, B)
+        busiest = max(len(tiles) for per in ec.colnorm_assignment(skip, NA, B, splits) for tiles in per)
+        print(f"phase 5: E-step {name} colnorm: {splits} blocks per column tile, the busiest computes {busiest} "
+              f"live row tiles")
+        prev = dict(colnorm=PREV_COLNORM_MS.get(name), rowred=PREV_ROWRED_MS if name == "20000x2000" else None)
         for k in ("colnorm", "rowred"):
             b = bounds[k]
             print(f"phase 5: E-step {name} {k}: {t[k]!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}, the pairs "
                   f"of the tiles computed), share of the bound {b['bound_ms'] / t[k]!r}"
-                  + (f"; previous design {PREV_ROWRED_MS} ms" if k == "rowred" and name == "20000x2000" else ""))
+                  + (f"; previous design {prev[k]} ms" if prev[k] else ""))
         if name == "20000x2000":
             result = dict(
                 colnorm=with_bound(dict(max_abs_err=col_abs, ms=t["colnorm"], plain_ms=t["colnorm_plain"]),
@@ -352,13 +361,10 @@ def estep_bounds(NA, B, G1, live):
                 rowred=bound((2 * G1 + 27) * pairs, shared + 4 * 5 * B + 4 * 6 * NA))  # colstats; [6, NA]
 
 
-def phase_inlier_kernel():
-    """Phase 5, the coarse fit: the kernel against the plain loop at the
-    row count the 20k pair gives it (two voxel sets of 1,024 rows, 10
-    matches each way). Returns its error and times."""
-    from spateo_tpu_torch.ops import inlier_cuda
-
-    n, N = 20000, 20480
+def inlier_case(n, N):
+    """NN matches of a planted rigid motion (0.4 rad, shift (1, -2)), a
+    third of the n valid rows outliers, rows past n padding copies of row 0:
+    the fit's arguments on the card and the planted rotation."""
     rng = np.random.default_rng(0)
     th = 0.4
     R_true = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
@@ -370,7 +376,17 @@ def phase_inlier_kernel():
     mask = np.zeros((N, 1), np.float32)
     mask[:n] = 1.0
     T = lambda x: torch.from_numpy(x).to("cuda")
-    args = (T(tx), T(ty), T(dist), T(mask), float(n))
+    return (T(tx), T(ty), T(dist), T(mask), float(n)), R_true
+
+
+def phase_inlier_kernel():
+    """Phase 5, the coarse fit: the kernel against the plain loop at the
+    row count the 20k pair gives it (two voxel sets of 1,024 rows, 10
+    matches each way). Returns its error and times."""
+    from spateo_tpu_torch.ops import inlier_cuda
+
+    N = 20480
+    args, R_true = inlier_case(20000, N)
     before = inlier_cuda.inlier_fit.launches
     P, R, t, w, s2, g = inlier_cuda.inlier_fit(*args)
     torch.cuda.synchronize()
@@ -383,13 +399,21 @@ def phase_inlier_kernel():
     bars = dict(R=2e-5, t=2e-4, P=1e-3, weight0=1e-5, sigma2_rel=1e-3, gamma=1e-3)
     check(all(errs[k] <= bars[k] for k in bars), f"inlier_fit vs plain: {errs} (bars {bars})")
     check(float(np.abs(R.cpu().numpy() - R_true).max()) < 0.05, "inlier_fit did not recover the rotation")
-    ms_k = cuda_ms(lambda: inlier_cuda.inlier_fit(*args), 10)
+    prep = inlier_cuda.kernel_inputs(*args)[:5]
+    ms_k = cuda_ms(lambda: inlier_cuda.launch(*prep), 10)  # the kernel alone
+    ms_w = cuda_ms(lambda: inlier_cuda.inlier_fit(*args), 10)  # with its PyTorch prologue
     ms_r = cuda_ms(lambda: inlier_cuda.inlier_reference(*args), 3)
     # ~45 flops a row per iteration; rows read once (tx, ty, dist, mask), P and weights written once
     b = bound(45 * N * 100, N * (8 + 8 + 4 + 4 + 4 + 4))
+    again = inlier_cuda.inlier_fit(*args)
+    same = torch.equal(again[0], P) and torch.equal(again[1], R)
+    check(same, "inlier_fit is not deterministic")
     print(f"phase 5: inlier_fit {N} rows, 100 iterations: errors {json.dumps(errs)} (bars {json.dumps(bars)}); "
-          f"kernel {ms_k!r} ms, plain loop {ms_r!r} ms (CUDA events); bound {b['bound_ms']!r} ms ({b['bound_by']}), "
-          f"share of the bound {b['bound_ms'] / ms_k!r}")
+          f"same bits twice {same}; launch (cluster, threads, rows a thread) {inlier_cuda.inlier_layout(N)[:3]}; "
+          f"kernel {ms_k!r} ms, `inlier_fit` with its prologue {ms_w!r} ms (previous design's {PREV_INLIER_MS} ms), "
+          f"plain loop {ms_r!r} ms (CUDA events); bound "
+          f"{b['bound_ms']!r} ms ({b['bound_by']}; 3 x 100 + 2 dependent cluster reductions), share of the bound "
+          f"{b['bound_ms'] / ms_k!r}")
     return with_bound(dict(max_abs_err=errs["P"], ms=ms_k, plain_ms=ms_r), b)
 
 

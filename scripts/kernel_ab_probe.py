@@ -1,25 +1,34 @@
-"""Before/after of the two redesigned kernels on one NVIDIA GPU, in turns.
+"""Before/after of the redesigned kernels on one NVIDIA GPU, in turns.
 
-    python3 scripts/kernel_ab_probe.py
+    python3 scripts/kernel_ab_probe.py [--only colnorm,inlier,rowred,jacobi]
 
 Builds the previous designs kept in `scripts/baseline/` (the Jacobi kernel
 with T = 8 and 64x64 tiles in shared memory, `jacobi_shared_tile.cu`; the
-E-step whose `rowred` restages both factor chunks for every column tile,
-`estep_restaged_tiles.cu`) with the flags of `ops/_build.py`
-beside the current `csrc/` kernels, and times each pair with CUDA events in
-the order old, new, new, old at the main path's shapes:
+E-step whose sweeps restage both factor chunks for every tile and split
+sweep 1 into contiguous row ranges, `estep_restaged_tiles.cu`; the inlier
+fit in one block of 1,024 threads, `inlier_one_block.cu`) with the flags of
+`ops/_build.py` beside the current `csrc/` kernels, and times each pair with
+CUDA events in the order old, new, new, old at the main path's shapes:
 
+- colnorm: 20,000 x 2,000 and 100,000 x 10,000 (`chip_smoke.estep_case`),
+  both against `colnorm_reference` (scaled error), the most live tiles one
+  block of a column tile computes under either split rule, then the new
+  kernel under other block targets (`_COLNORM_BLOCKS`);
+- inlier: the 20k pair's 20,480 NN matches, 100 iterations (old, and the
+  new kernel as `inlier_fit` launches it), then the new kernel with
+  clusters of 8 and 16 blocks of 256 and 512 threads, and at 200,000 rows;
+- rowred: 20,000 x 2,000 and 100,000 x 10,000, both against
+  `rowred_reference`, and the three against the same sweep in f64; then
+  the new kernel under other column-split targets;
 - Jacobi: 1024^2 and 2048^2, 2000 sweeps per call; and one solver block of
   100 sweeps with its relative change (old: the kernel then the PyTorch
   reduction `rel_change_reference`; new: the fused sums), as `digitize`
-  runs it at 2048^2;
-- rowred: 20,000 x 2,000 and 100,000 x 10,000 (`chip_smoke.estep_case`),
-  both against `rowred_reference` (scaled error), and the three against the
-  same sweep in f64; then the new kernel under other column-split targets.
+  runs it at 2048^2.
 
 Prints the card's name and power limit first, then one line per case.
 """
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -32,7 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from spateo_tpu_torch.ops import _build, estep_cuda as ec, jacobi_cuda as jc  # noqa: E402
+from spateo_tpu_torch.ops import _build, estep_cuda as ec, inlier_cuda as ic, jacobi_cuda as jc  # noqa: E402
 
 
 def nvcc(src, out_dir):
@@ -62,24 +71,13 @@ def ms_turns(fns, n):
     return out
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("kernel_ab_probe: needs an NVIDIA GPU")
-    import chip_smoke
+def stream():
+    return torch.cuda.current_stream().cuda_stream
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(4) as pool:
-        baseline = ROOT / "scripts" / "baseline"
-        jobs = [pool.submit(nvcc, baseline / n, tmp) for n in ("jacobi_shared_tile.cu", "estep_restaged_tiles.cu")]
-        jobs += [pool.submit(_build.build, n) for n in ("jacobi", "estep")]
-        old_j, old_e = jobs[0].result(), jobs[1].result()
-        for j in jobs[2:]:
-            j.result()
+
+def ab_jacobi(old_j, chip_smoke):
     old_j.jacobi_block_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     old_j.jacobi_block_f32.restype = ctypes.c_int
-    stream = lambda: torch.cuda.current_stream().cuda_stream
 
     def old_jacobi(f, upd, n, bufs):
         if old_j.jacobi_block_f32(f.data_ptr(), upd.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), f.shape[0],
@@ -106,10 +104,15 @@ def main():
         print(f"jacobi {H}x{H}, ms per block of 100 sweeps with its relative change: old {t['old']!r}, "
               f"new {t['new']!r}; err old {float(e_old)!r}, new {float(e_new)!r}")
 
+
+ESTEP_CASES = (("20000x2000", 20000, 2000, 0.05, 1), ("100000x10000", 100000, 10000, 1e-3, 2))
+
+
+def ab_rowred(old_e, chip_smoke):
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     old_e.estep_rowred.argtypes = [ptr] * 9 + [i32] * 3 + [f32, ptr]
     old_e.estep_rowred.restype = i32
-    for name, NA, B, s2, seed in (("20000x2000", 20000, 2000, 0.05, 1), ("100000x10000", 100000, 10000, 1e-3, 2)):
+    for name, NA, B, s2, seed in ESTEP_CASES:
         args = chip_smoke.estep_case(NA, B, s2, seed)
         xa, cb, fat, fbt, bt, mm, scal, skip = ec.prepare(*args[:1], *args[2:])
         col = ec.colnorm_reference(xa, cb, fat, fbt, bt, mm, scal)
@@ -141,6 +144,131 @@ def main():
             t = ms_turns({"new": new_rowred}, 20 if NA <= 20000 else 5)
             print(f"rowred {name} with column splits up to {target} blocks: ms {t['new']!r}")
         ec._ROWRED_BLOCKS = default
+
+
+def ab_colnorm(old_e, chip_smoke):
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    old_e.estep_colnorm.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
+    old_e.estep_colnorm.restype = i32
+    for name, NA, B, s2, seed in ESTEP_CASES:
+        args = chip_smoke.estep_case(NA, B, s2, seed)
+        xa, cb, fat, fbt, bt, mm, scal, skip = ec.prepare(*args[:1], *args[2:])
+        G1 = fat.shape[0]
+        n_ta, n_tb = -(-NA // ec.TM), -(-B // ec.TN)
+        # the old design's contiguous row ranges
+        splits = min(n_ta, max(1, -(-528 // n_tb)))
+        per_split = -(-n_ta // splits)
+        splits = -(-n_ta // per_split)
+
+        def old_colnorm():
+            out = torch.zeros((5, B), dtype=torch.float32, device="cuda")
+            partial = torch.empty((splits, 4, B), dtype=torch.float32, device="cuda")
+            if old_e.estep_colnorm(xa.data_ptr(), cb.data_ptr(), fat.data_ptr(), fbt.data_ptr(), bt.data_ptr(),
+                                   mm.data_ptr(), scal.data_ptr(), skip.data_ptr(), partial.data_ptr(),
+                                   out.data_ptr(), NA, B, G1, splits, per_split, float(ec._SKIP_MULT), stream()):
+                raise RuntimeError("old colnorm launch failed")
+            return out
+
+        new_colnorm = lambda: ec.colnorm(xa, cb, fat, fbt, bt, mm, scal, skip)
+        ref = ec.colnorm_reference(xa, cb, fat, fbt, bt, mm, scal)
+        errs = {k: max(chip_smoke.scaled_err(ref[q], fn()[q]) for q in range(5))
+                for k, fn in (("old", old_colnorm), ("new", new_colnorm))}
+        # live tiles (by the bbox mask) of the busiest block of each rule
+        live = (skip.reshape(n_ta, n_tb) == 0).cpu()
+        old_max = max(int(live[s * per_split:(s + 1) * per_split, jt].sum()) for jt in range(n_tb)
+                      for s in range(splits))
+        new_split = ec.colnorm_splits(NA, B)
+        new_max = max(len(t) for per in ec.colnorm_assignment(skip, NA, B, new_split) for t in per)
+        print(f"colnorm {name}: live tiles {int(live.sum())} of {n_ta * n_tb}; busiest block: old {old_max} "
+              f"({splits} contiguous splits), new {new_max} ({new_split} dealt splits)")
+        t = ms_turns({"old": old_colnorm, "new": new_colnorm}, 20 if NA <= 20000 else 5)
+        print(f"colnorm {name}: ms old {t['old']!r}, new {t['new']!r}; scaled error vs plain {errs!r}; same bits "
+              f"twice {torch.equal(new_colnorm(), new_colnorm())}")
+        default = ec._COLNORM_BLOCKS
+        for target in (264, 528, 1056, 2112):
+            ec._COLNORM_BLOCKS = target
+            t = ms_turns({"new": new_colnorm}, 20 if NA <= 20000 else 5)
+            print(f"colnorm {name} with blocks up to {target} ({ec.colnorm_splits(NA, B)} splits): ms {t['new']!r}")
+        ec._COLNORM_BLOCKS = default
+
+
+def ab_inlier(old_i, chip_smoke):
+    old_i.inlier_fit.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    old_i.inlier_fit.restype = ctypes.c_int
+    for N, n in ((20480, 20000), (200000, 195000)):
+        args, _ = chip_smoke.inlier_case(n, N)
+        prep = ic.kernel_inputs(*args)[:5]
+        x, y, d, m, scal = prep
+        bufs = [torch.empty((2, N), device="cuda"), torch.empty(N, device="cuda"), torch.empty(8, device="cuda")]
+
+        def old_fit():
+            if old_i.inlier_fit(x.data_ptr(), y.data_ptr(), d.data_ptr(), m.data_ptr(), scal.data_ptr(),
+                                bufs[0][0].data_ptr(), bufs[0][1].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
+                                N, 100, stream()):
+                raise RuntimeError("old inlier launch failed")
+            return bufs[1].clone(), bufs[2].clone()
+
+        def launch(*layout):
+            return old_fit() if not layout else ic.launch(*prep, 100, layout)
+
+        ref = ic.inlier_reference(*args)
+        layouts = {f"C={C} NT={NT}": ic.inlier_layout(N, C, NT)[:3] for C in (8, 16) for NT in (256, 512)}
+        errs = {}
+        for k, lay in [("old", ())] + list(layouts.items()):
+            p, misc = launch(*lay)
+            errs[k] = dict(P=float((p - ref[0][:, 0]).abs().max()), R=float((misc[:4] - ref[1].reshape(4)).abs().max()))
+        default = ic.inlier_layout(N)[:3]
+        t = ms_turns({"old": old_fit, "new": lambda: launch(*default)}, 10)
+        print(f"inlier {N} rows x 100 iterations: ms old {t['old']!r}, new {t['new']!r} (layout {default}); "
+              f"errors vs plain {errs!r}")
+        t = ms_turns({k: (lambda lay=lay: launch(*lay)) for k, lay in layouts.items()}, 10)
+        print(f"inlier {N} rows, cluster and threads: " + ", ".join(f"{k} {lay} ms {t[k]!r}"
+                                                                 for k, lay in layouts.items()))
+    # where the time goes: 16 rows (the chain of 302 cluster reductions and
+    # almost no row work) against 20,480, for each cluster size
+    for N in (16, 20480):
+        args, _ = chip_smoke.inlier_case(N - N // 40, N)
+        prep = ic.kernel_inputs(*args)[:5]
+
+        def run(lay, iters=100):
+            ic.launch(*prep, iters, lay)
+
+        lays = {C: ic.inlier_layout(N, C, 256)[:3] for C in (1, 2, 4, 8, 16)}
+        t = ms_turns({f"C={C}": (lambda lay=lay: run(lay)) for C, lay in lays.items()}, 10)
+        t0 = ms_turns({f"C={C}": (lambda lay=lay: run(lay, 0)) for C, lay in lays.items()}, 10)
+        print(f"inlier {N} rows, 256 threads, us per iteration over 100 (0 iterations: 2 reductions, ms): "
+              + ", ".join(f"C={C} {lay}: {[v * 10 for v in t[f'C={C}']]!r} ({t0[f'C={C}']!r})"
+                          for C, lay in lays.items()))
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab_probe: needs an NVIDIA GPU")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default="colnorm,inlier,rowred,jacobi")
+    parts = ap.parse_args().only.split(",")
+    import chip_smoke
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    baseline = ROOT / "scripts" / "baseline"
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(6) as pool:
+        old = {n: pool.submit(nvcc, baseline / f, tmp) for n, f in (("jacobi", "jacobi_shared_tile.cu"),
+                                                                   ("estep", "estep_restaged_tiles.cu"),
+                                                                   ("inlier", "inlier_one_block.cu"))}
+        new = [pool.submit(_build.build, n) for n in ("jacobi", "estep", "inlier")]
+        old = {n: f.result() for n, f in old.items()}
+        for f in new:
+            f.result()
+    if "colnorm" in parts:
+        ab_colnorm(old["estep"], chip_smoke)
+    if "inlier" in parts:
+        ab_inlier(old["inlier"], chip_smoke)
+    if "rowred" in parts:
+        ab_rowred(old["estep"], chip_smoke)
+    if "jacobi" in parts:
+        ab_jacobi(old["jacobi"], chip_smoke)
 
 
 if __name__ == "__main__":

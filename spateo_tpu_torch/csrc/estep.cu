@@ -21,12 +21,13 @@
 // ~51 FMAs of the expression dot per sweep against 3 exponentials and a few
 // multiplies (about 129 flops for sweep 2, 121 for sweep 1); the inputs are
 // O((NA + B) G') bytes, so it is bound by operations, not by bytes.
-// Sweep 1's design: 64 x 64 tiles, 256 threads, each thread a 4 x 4
-// register micro-tile of pairs; the expression dot is a small f32 GEMM over
-// feature chunks of 32 staged in shared memory (`expression_dot`). Sweep
-// 2's design (the row tile resident, a cp.async ring of column tiles,
-// 16-byte shared loads feeding the f32 dot) is described at
-// `rowred_kernel`. Both divide by the per-call scalars and per-column
+// Both sweeps share one design over 64 x 64 tiles, 256 threads each owning
+// a 4 x 4 register micro-tile of pairs: one side's tile stays resident in
+// shared memory, the other side's tiles stream through a cp.async ring
+// (`RingLayout`), and 16-byte shared loads feed an f32 FMA dot. Sweep 2
+// keeps a row tile and streams column tiles (`rowred_kernel`); sweep 1
+// keeps a column tile and streams row tiles (`colnorm_kernel`). Both
+// divide by the per-call scalars and per-column
 // denominators as multiplications by reciprocals computed once (IEEE
 // division), use `expf` (not `__expf`) and no fast-math: f32 accuracy
 // throughout, as the TPU kernel ran at Precision.HIGHEST.
@@ -34,13 +35,15 @@
 // Skipping (both sweeps): a tile whose bounding-box gap alone proves
 // d > skip_mult * s2 is flagged by the wrapper (`skip`, [n_ta * n_tb] bytes)
 // and not touched; otherwise the block computes d, and skips the expression
-// dot and the exponentials when no pair of the tile has d < skip_mult * s2
-// (`__syncthreads_or`), since every probability there is below e^-40.
+// dot and the exponentials when no pair of the tile (sweep 2) or of the
+// warp's part of it (sweep 1) has d < skip_mult * s2, since every
+// probability there is below e^-40.
 //
 // Sweep 1 has too few column tiles to fill 132 SMs (B = 2000 gives 32), so
-// its rows are split over a second grid dimension into S contiguous ranges;
-// each block writes its partial sums, and a second small kernel adds the S
-// partials in a fixed order. No float atomics: every run gives the same bits.
+// each column tile's live row tiles are dealt over a second grid dimension
+// of S blocks; each block writes its partial sums, and a second small
+// kernel adds the S partials in a fixed order. No float atomics: every run
+// gives the same bits.
 //
 // The per-call scalars (s2, s2v, spatial outlier so, p, eps) are read from
 // an [8] f32 device array, so the EM loop never reads them back to the host.
@@ -54,8 +57,7 @@ namespace {
 
 constexpr int TM = 64;   // rows of the moving slice per tile
 constexpr int TN = 64;   // minibatch columns per tile
-constexpr int TK = 32;   // expression features per staged chunk
-constexpr int NT = 256;  // threads: (ty, tx) in 16 x 16; rows ty + 16 r, columns tx + 16 c
+constexpr int NT = 256;  // threads: 16 x 16, each a 4 x 4 micro-tile of pairs
 
 struct Scalars {
   float inv_v, inv_s, inv_p, thr, so, eps;
@@ -71,142 +73,6 @@ __device__ __forceinline__ Scalars read_scalars(const float* __restrict__ scal, 
   s.so = scal[2];
   s.eps = scal[4];
   return s;
-}
-
-// The expression dot of one 64 x 64 tile into e[r][c] (without bt), over
-// all G1 features in chunks of TK staged in shared memory.
-__device__ __forceinline__ void expression_dot(const float* __restrict__ fat, const float* __restrict__ fbt,
-                                               int NA, int B, int G1, int i0, int j0, int tx, int ty,
-                                               float (&sa)[TK][TM], float (&sb)[TK][TN], float (&e)[4][4]) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) e[r][c] = 0.0f;
-  for (int k0 = 0; k0 < G1; k0 += TK) {
-    __syncthreads();  // the previous chunk has been consumed
-    for (int q = threadIdx.x; q < TK * TM; q += NT) {
-      const int kk = q / TM, ii = q % TM;
-      const int g = k0 + kk, i = i0 + ii, j = j0 + ii;
-      sa[kk][ii] = (g < G1 && i < NA) ? fat[(size_t)g * NA + i] : 0.0f;
-      sb[kk][ii] = (g < G1 && j < B) ? fbt[(size_t)g * B + j] : 0.0f;
-    }
-    __syncthreads();
-    const int kmax = min(TK, G1 - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = sa[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = sb[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) e[r][c] = fmaf(av[r], bv[c], e[r][c]);
-    }
-  }
-}
-
-// Sweep 1. Grid (n_tb, S): block (jt, s) owns column tile jt and row tiles
-// [s * tiles_per_split, (s + 1) * tiles_per_split). Writes partial[s][q][j]
-// for q in (c1_raw, c1m, c2, c3).
-__global__ void __launch_bounds__(NT) colnorm_kernel(
-    const float* __restrict__ xa, const float* __restrict__ cb, const float* __restrict__ fat,
-    const float* __restrict__ fbt, const float* __restrict__ bt, const float* __restrict__ mm,
-    const float* __restrict__ scal, const uint8_t* __restrict__ skip, float* __restrict__ partial,
-    int NA, int B, int G1, int tiles_per_split, float skip_mult) {
-  __shared__ float sa[TK][TM];
-  __shared__ float sb[TK][TN];
-  __shared__ float s_ax[TM], s_ay[TM], s_a2[TM], s_mm[TM];
-  __shared__ float red[16][4][TN];
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int jt = blockIdx.x, n_tb = gridDim.x;
-  const int j0 = jt * TN;
-  const int n_ta = (NA + TM - 1) / TM;
-  const int it_begin = blockIdx.y * tiles_per_split;
-  const int it_end = min(n_ta, it_begin + tiles_per_split);
-  const Scalars s = read_scalars(scal, skip_mult);
-
-  float bx[4], by[4], b2[4], bb[4];
-  bool colok[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = j0 + tx + 16 * c;
-    colok[c] = j < B;
-    bx[c] = colok[c] ? cb[2 * j] : 0.0f;
-    by[c] = colok[c] ? cb[2 * j + 1] : 0.0f;
-    b2[c] = bx[c] * bx[c] + by[c] * by[c];
-    bb[c] = colok[c] ? bt[j] : 0.0f;
-  }
-  float acc_v[4] = {0.f, 0.f, 0.f, 0.f}, acc_vm[4] = {0.f, 0.f, 0.f, 0.f};
-  float acc_sm[4] = {0.f, 0.f, 0.f, 0.f}, acc_fm[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int it = it_begin; it < it_end; ++it) {
-    if (skip[(size_t)it * n_tb + jt]) continue;  // uniform over the block
-    const int i0 = it * TM;
-    __syncthreads();  // shared row data of the previous tile is consumed
-    if (threadIdx.x < TM) {
-      const int i = i0 + threadIdx.x;
-      const bool ok = i < NA;
-      const float x = ok ? xa[2 * i] : 0.0f, y = ok ? xa[2 * i + 1] : 0.0f;
-      s_ax[threadIdx.x] = x;
-      s_ay[threadIdx.x] = y;
-      s_a2[threadIdx.x] = x * x + y * y;
-      s_mm[threadIdx.x] = ok ? mm[i] : 0.0f;
-    }
-    __syncthreads();
-
-    float d[4][4];
-    float dmin = __int_as_float(0x7f800000);  // +inf
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int il = ty + 16 * r;
-      const bool rowok = i0 + il < NA;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float dot = s_ax[il] * bx[c] + s_ay[il] * by[c];
-        d[r][c] = fmaxf(s_a2[il] + b2[c] - 2.0f * dot, 0.0f);
-        if (rowok && colok[c]) dmin = fminf(dmin, d[r][c]);
-      }
-    }
-    if (!__syncthreads_or(dmin < s.thr)) continue;
-
-    float e[4][4];
-    expression_dot(fat, fbt, NA, B, G1, i0, j0, tx, ty, sa, sb, e);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int il = ty + 16 * r;
-      if (i0 + il >= NA) continue;
-      const float m = s_mm[il];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pv = expf(-d[r][c] * s.inv_v);
-        const float ps = expf(-d[r][c] * s.inv_s);
-        const float full = ps * expf(-(e[r][c] + bb[c]) * s.inv_p);
-        acc_v[c] += pv;
-        acc_vm[c] += m * pv;
-        acc_sm[c] += m * ps;
-        acc_fm[c] += m * full;
-      }
-    }
-  }
-
-  // add the 16 row groups of each column in a fixed order
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int col = tx + 16 * c;
-    red[ty][0][col] = acc_v[c];
-    red[ty][1][col] = acc_vm[c];
-    red[ty][2][col] = acc_sm[c];
-    red[ty][3][col] = acc_fm[c];
-  }
-  __syncthreads();
-  const int q = threadIdx.x / TN, col = threadIdx.x % TN;
-  float sum = 0.0f;
-  for (int t = 0; t < 16; ++t) sum += red[t][q][col];
-  const int j = j0 + col;
-  if (j < B) partial[((size_t)blockIdx.y * 4 + q) * B + j] = sum;
 }
 
 // Sweep 1, second launch: the S partials of each column in order, then K_NB.
@@ -268,23 +134,30 @@ constexpr int RLD = TM + 4;     // row stride of the k-major chunks (16-byte ali
 constexpr int RSTAGES = 3;      // ring depth
 constexpr int RCOL = 7 * TN;    // raw column data per stage: cb (2 TN), bt, c1_raw, c1m, c2, c3
 
-// The dynamic shared-memory layout (in floats) of one rowred block.
-struct RowredLayout {
+constexpr int ROWRED_EXTRA = RCOL + 3 * TN;  // rowred's stage data: raw columns, the weights w1, w2, w3
+constexpr int COLNORM_EXTRA = 3 * TM;        // colnorm's stage data: xa (2 TM), mm
+
+// The dynamic shared-memory layout (in floats) of one block of either
+// sweep: the resident side's feature tile (when G1 <= RK), RSTAGES ring
+// stages, then the block's list of live tiles (ints). A stage holds the
+// streamed side's feature chunk [kr][RLD], `extra` floats of that tile's own
+// data, and, when the resident side does not fit, its feature chunk too.
+struct RingLayout {
   int kr;       // feature rows a step holds: min(RK, G1 rounded up to 4)
-  bool a_res;   // the whole fat tile is resident
-  int stage;    // floats per ring stage: fbt chunk, raw column data, weights, (fat chunk)
+  bool res;     // the resident side's whole feature tile is in shared memory
+  int stage;    // floats per ring stage
   int ring;     // float offset of stage 0
   int live;     // float offset of the live-tile list (ints)
-  __host__ __device__ explicit RowredLayout(int G1) {
+  __host__ __device__ RingLayout(int G1, int extra) {
     const int g4 = (G1 + 3) / 4 * 4;
     kr = g4 < RK ? g4 : RK;
-    a_res = G1 <= RK;
-    stage = kr * RLD + RCOL + 3 * TN + (a_res ? 0 : kr * RLD);
-    ring = a_res ? kr * RLD : 0;
+    res = G1 <= RK;
+    stage = kr * RLD + extra + (res ? 0 : kr * RLD);
+    ring = res ? kr * RLD : 0;
     live = ring + RSTAGES * stage;
   }
-  __host__ __device__ size_t bytes(int tiles_per_split) const {
-    return sizeof(float) * (size_t(live) + size_t(tiles_per_split));
+  __host__ __device__ size_t bytes(int n_list) const {
+    return sizeof(float) * (size_t(live) + size_t(n_list));
   }
 };
 
@@ -312,7 +185,7 @@ __global__ void __launch_bounds__(NT, 2) rowred_kernel(
   float* sm = reinterpret_cast<float*>(rowred_smem4);
   __shared__ int s_n_live;
 
-  const RowredLayout L(G1);
+  const RingLayout L(G1, ROWRED_EXTRA);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int it = blockIdx.x, i0 = it * TM;
   const int n_tb = (B + TN - 1) / TN;
@@ -328,7 +201,7 @@ __global__ void __launch_bounds__(NT, 2) rowred_kernel(
       if (!skip[(size_t)it * n_tb + jt]) live[n++] = jt;
     s_n_live = n;
   }
-  if (L.a_res) {
+  if (L.res) {
     for (int e = tid; e < L.kr * TM; e += NT) {
       const int kk = e / TM, ii = e % TM, i = i0 + ii;
       sm[kk * RLD + ii] = (kk < G1 && i < NA) ? fat[(size_t)kk * NA + i] : 0.0f;
@@ -369,7 +242,7 @@ __global__ void __launch_bounds__(NT, 2) rowred_kernel(
         cp_async4(col + e, j < B ? src + j : src, j < B);
       }
     }
-    if (!L.a_res) {
+    if (!L.res) {
       float* sa = col + RCOL + 3 * TN;
       for (int e = tid; e < L.kr * TM; e += NT) {
         const int kk = e / TM, ii = e % TM, gg = g0 + kk, i = i0 + ii;
@@ -433,7 +306,7 @@ __global__ void __launch_bounds__(NT, 2) rowred_kernel(
     if (!tile_live) continue;
 
     // the expression dot of this chunk: one f32 FMA chain per pair, features in order
-    const float* sA = L.a_res ? sm : wts + 3 * TN;
+    const float* sA = L.res ? sm : wts + 3 * TN;
     const int kmax = min(RK, G1 - kc * RK);
 #pragma unroll 4
     for (int kk = 0; kk < kmax; ++kk) {
@@ -515,20 +388,239 @@ __global__ void rowred_finalize(const float* __restrict__ partial, float* __rest
   out[e] = sum;
 }
 
+
+// Sweep 1: the column normalisers, redesigned for Hopper as `rowred_kernel`
+// with rows and columns swapped.
+//
+// Grid (n_tb, S): block (jt, s) owns column tile jt (64 columns). It lists,
+// in order, the row tiles the bounding-box mask leaves live for jt, and
+// takes the k-th of them when k % S == s, so the S blocks of a column tile
+// get the same number of live tiles to within one wherever along the rows
+// they lie (Morton-ordered rows put them in a narrow band). The list depends
+// only on the mask, so `colnorm_finalize` adds the S partials in one fixed
+// order: the same bits every run. 256 threads: thread (cg, rg) = (tid >> 4,
+// tid & 15) owns the 4 x 4 pairs of rows 4 rg .. 4 rg + 3 and columns
+// 4 cg .. 4 cg + 3 of each 64 x 64 tile, so the 16 row groups of a column
+// group sit in one half-warp and its sums end in a fixed butterfly.
+//   * The block's columns stay resident: when G1 <= RK its fbt tile is
+//     loaded once into shared memory, and each thread keeps cb and bt of its
+//     four columns in registers. With more features the fbt chunk travels in
+//     the ring beside the fat chunk.
+//   * Row tiles stream through the ring of RSTAGES stages filled by cp.async
+//     (zero-filled past G1 and NA), issued RSTAGES - 1 steps ahead; a step is
+//     one chunk of RK features of one row tile, and each stage also carries
+//     the tile's xa and mm.
+//   * The dot and the exponentials are rowred's. The tile skip is finer:
+//     tiles flagged by the mask are never listed, and each warp skips the
+//     dot and exponentials of its own 64 x 8 pairs when none of them has
+//     d < skip_mult * s2 (`__any_sync`, no block barrier), which is faster
+//     than a block-wide `__syncthreads_or` where most tiles skip (PERF.md).
+__global__ void __launch_bounds__(NT, 2) colnorm_kernel(
+    const float* __restrict__ xa, const float* __restrict__ cb, const float* __restrict__ fat,
+    const float* __restrict__ fbt, const float* __restrict__ bt, const float* __restrict__ mm,
+    const float* __restrict__ scal, const uint8_t* __restrict__ skip, float* __restrict__ partial, int NA, int B,
+    int G1, float skip_mult) {
+  extern __shared__ float4 colnorm_smem4[];
+  float* sm = reinterpret_cast<float*>(colnorm_smem4);
+  __shared__ int s_warp[NT / 32];
+
+  const RingLayout L(G1, COLNORM_EXTRA);
+  const int tid = threadIdx.x, rg = tid & 15, cg = tid >> 4, lane = tid & 31, warp = tid >> 5;
+  const int jt = blockIdx.x, n_tb = gridDim.x, j0 = jt * TN;
+  const int split = blockIdx.y, S = gridDim.y;
+  const int n_ta = (NA + TM - 1) / TM;
+  const int n_kc = (G1 + RK - 1) / RK;
+  const Scalars s = read_scalars(scal, skip_mult);
+  int* list = reinterpret_cast<int*>(sm + L.live);
+
+  if (L.res) {
+    for (int e = tid; e < L.kr * TN; e += NT) {
+      const int kk = e / TN, jj = e % TN, j = j0 + jj;
+      sm[kk * RLD + jj] = (kk < G1 && j < B) ? fbt[(size_t)kk * B + j] : 0.0f;
+    }
+  }
+  // this thread's four columns
+  float bx[4], by[4], b2[4], bb[4];
+  bool colok[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = j0 + 4 * cg + c;
+    colok[c] = j < B;
+    bx[c] = colok[c] ? cb[2 * j] : 0.0f;
+    by[c] = colok[c] ? cb[2 * j + 1] : 0.0f;
+    b2[c] = bx[c] * bx[c] + by[c] * by[c];
+    bb[c] = colok[c] ? bt[j] : 0.0f;
+  }
+  // the live row tiles of column tile jt in order, NT at a time: the k-th
+  // goes to split k % S
+  int n_live = 0;
+  for (int base = 0; base < n_ta; base += NT) {
+    const int it = base + tid;
+    const bool lv = it < n_ta && !skip[(size_t)it * n_tb + jt];
+    const unsigned bal = __ballot_sync(0xffffffffu, lv);
+    if (lane == 0) s_warp[warp] = __popc(bal);
+    __syncthreads();
+    int k = n_live + __popc(bal & ((1u << lane) - 1u));
+    for (int w = 0; w < NT / 32; ++w) {
+      if (w < warp) k += s_warp[w];
+      n_live += s_warp[w];
+    }
+    if (lv && k % S == split) list[k / S] = it;
+    __syncthreads();  // s_warp is reused; the list and the resident tile are published
+  }
+  const int n_steps = (n_live > split ? (n_live - split + S - 1) / S : 0) * n_kc;
+
+  // step q: feature chunk q % n_kc of row tile list[q / n_kc], into stage q % RSTAGES
+  auto issue = [&](int q) {
+    float* st = sm + L.ring + (q % RSTAGES) * L.stage;
+    const int i0 = list[q / n_kc] * TM, g0 = (q % n_kc) * RK;
+    for (int e = tid; e < L.kr * TM; e += NT) {
+      const int kk = e / TM, ii = e % TM, gg = g0 + kk, i = i0 + ii;
+      const bool ok = gg < G1 && i < NA;
+      cp_async4(st + kk * RLD + ii, ok ? fat + (size_t)gg * NA + i : fat, ok);
+    }
+    float* row = st + L.kr * RLD;  // xa [2 TM], mm [TM]
+    for (int e = tid; e < COLNORM_EXTRA; e += NT) {
+      if (e < 2 * TM) {
+        const int idx = 2 * i0 + e;
+        cp_async4(row + e, idx < 2 * NA ? xa + idx : xa, idx < 2 * NA);
+      } else {
+        const int i = i0 + e - 2 * TM;
+        cp_async4(row + e, i < NA ? mm + i : mm, i < NA);
+      }
+    }
+    if (!L.res) {
+      float* sb = row + COLNORM_EXTRA;
+      for (int e = tid; e < L.kr * TN; e += NT) {
+        const int kk = e / TN, jj = e % TN, gg = g0 + kk, j = j0 + jj;
+        const bool ok = gg < G1 && j < B;
+        cp_async4(sb + kk * RLD + jj, ok ? fbt + (size_t)gg * B + j : fbt, ok);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int q = 0; q < RSTAGES - 1; ++q) {
+    if (q < n_steps) issue(q);
+    cp_async_commit();
+  }
+
+  float e[4][4], d[4][4];
+  float acc_v[4] = {0.f, 0.f, 0.f, 0.f}, acc_vm[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc_sm[4] = {0.f, 0.f, 0.f, 0.f}, acc_fm[4] = {0.f, 0.f, 0.f, 0.f};
+  bool rowok[4] = {false, false, false, false};
+  bool tile_live = false;
+
+  for (int q = 0; q < n_steps; ++q) {
+    cp_async_wait_ring();
+    __syncthreads();  // stage q has landed for every thread; stage q - 1 is consumed
+    if (q + RSTAGES - 1 < n_steps) issue(q + RSTAGES - 1);
+    cp_async_commit();
+
+    const float* st = sm + L.ring + (q % RSTAGES) * L.stage;
+    const float* row = st + L.kr * RLD;
+    const int kc = q % n_kc, i0 = list[q / n_kc] * TM;
+
+    if (kc == 0) {
+      const float4 a01 = *reinterpret_cast<const float4*>(row + 8 * rg);
+      const float4 a23 = *reinterpret_cast<const float4*>(row + 8 * rg + 4);
+      const float ax[4] = {a01.x, a01.z, a23.x, a23.z}, ay[4] = {a01.y, a01.w, a23.y, a23.w};
+      float dmin = __int_as_float(0x7f800000);  // +inf
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a2 = ax[r] * ax[r] + ay[r] * ay[r];
+        rowok[r] = i0 + 4 * rg + r < NA;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float dot = ax[r] * bx[c] + ay[r] * by[c];
+          d[r][c] = fmaxf(a2 + b2[c] - 2.0f * dot, 0.0f);
+          e[r][c] = 0.0f;
+          if (rowok[r] && colok[c]) dmin = fminf(dmin, d[r][c]);
+        }
+      }
+      // a warp whose 64 x 8 pairs are all past the threshold skips them
+      tile_live = __any_sync(0xffffffffu, dmin < s.thr);
+    }
+    if (!tile_live) continue;
+
+    // the expression dot of this chunk: one f32 FMA chain per pair, features in order
+    const float* sB = L.res ? sm : row + COLNORM_EXTRA;
+    const int kmax = min(RK, G1 - kc * RK);
+#pragma unroll 4
+    for (int kk = 0; kk < kmax; ++kk) {
+      const float4 av = *reinterpret_cast<const float4*>(st + kk * RLD + 4 * rg);
+      const float4 bv = *reinterpret_cast<const float4*>(sB + kk * RLD + 4 * cg);
+      const float a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) e[r][c] = fmaf(a[r], b[c], e[r][c]);
+    }
+    if (kc != n_kc - 1) continue;
+
+    // epilogue: the tile's pairs into this thread's four columns
+    const float4 mv = *reinterpret_cast<const float4*>(row + 2 * TM + 4 * rg);
+    const float m[4] = {mv.x, mv.y, mv.z, mv.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (!rowok[r]) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pv = expf(-d[r][c] * s.inv_v);
+        const float ps = expf(-d[r][c] * s.inv_s);
+        const float full = ps * expf(-(e[r][c] + bb[c]) * s.inv_p);
+        acc_v[c] += pv;
+        acc_vm[c] += m[r] * pv;
+        acc_sm[c] += m[r] * ps;
+        acc_fm[c] += m[r] * full;
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // the 16 row groups of each column sit in one half-warp: a fixed butterfly
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      acc_v[c] += __shfl_xor_sync(0xffffffffu, acc_v[c], off);
+      acc_vm[c] += __shfl_xor_sync(0xffffffffu, acc_vm[c], off);
+      acc_sm[c] += __shfl_xor_sync(0xffffffffu, acc_sm[c], off);
+      acc_fm[c] += __shfl_xor_sync(0xffffffffu, acc_fm[c], off);
+    }
+  }
+  if (rg == 0) {
+    float* o = partial + (size_t)split * 4 * B;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!colok[c]) continue;
+      const size_t j = (size_t)j0 + 4 * cg + c;
+      o[j] = acc_v[c];
+      o[(size_t)B + j] = acc_vm[c];
+      o[2 * (size_t)B + j] = acc_sm[c];
+      o[3 * (size_t)B + j] = acc_fm[c];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Sweep 1: colstats [5, B] = (c1_raw, c1m, c2, c3, K_NB); partial is [S, 4, B]
-// scratch. Two launches on `stream`.
+// scratch, S the blocks dealt each column tile's live row tiles. Two
+// launches on `stream`.
 int estep_colnorm(const float* xa, const float* cb, const float* fat, const float* fbt, const float* bt,
                   const float* mm, const float* scal, const uint8_t* skip, float* partial, float* colstats,
-                  int NA, int B, int G1, int S, int tiles_per_split, float skip_mult, void* stream) {
+                  int NA, int B, int G1, int S, float skip_mult, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tb = (B + TN - 1) / TN;
-  colnorm_kernel<<<dim3(n_tb, S), NT, 0, st>>>(xa, cb, fat, fbt, bt, mm, scal, skip, partial, NA, B, G1,
-                                                tiles_per_split, skip_mult);
-  cudaError_t err = cudaGetLastError();
+  const int n_ta = (NA + TM - 1) / TM, n_tb = (B + TN - 1) / TN;
+  const size_t smem = RingLayout(G1, COLNORM_EXTRA).bytes((n_ta + S - 1) / S);
+  cudaError_t err = cudaFuncSetAttribute(colnorm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  colnorm_kernel<<<dim3(n_tb, S), NT, smem, st>>>(xa, cb, fat, fbt, bt, mm, scal, skip, partial, NA, B, G1,
+                                                   skip_mult);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   colnorm_finalize<<<(B + 255) / 256, 256, 0, st>>>(partial, scal, colstats, B, S);
   return static_cast<int>(cudaGetLastError());
@@ -542,7 +634,7 @@ int estep_rowred(const float* xa, const float* cb, const float* fat, const float
                  int B, int G1, int S, int tiles_per_split, float skip_mult, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_ta = (NA + TM - 1) / TM;
-  const size_t smem = RowredLayout(G1).bytes(tiles_per_split);
+  const size_t smem = RingLayout(G1, ROWRED_EXTRA).bytes(tiles_per_split);
   cudaError_t err = cudaFuncSetAttribute(rowred_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   rowred_kernel<<<dim3(n_ta, S), NT, smem, st>>>(xa, cb, fat, fbt, bt, colstats, scal, skip, S > 1 ? partial : out,

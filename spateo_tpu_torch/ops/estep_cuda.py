@@ -44,9 +44,14 @@ import torch
 
 #: Rows and columns of one kernel tile; the skip mask is cut on this grid.
 TM, TN = 64, 64
-#: Sweep-1 blocks wanted in flight: rows are split until column tiles x
-#: splits reaches this (4 blocks on each of the H100's 132 SMs).
-_COLNORM_BLOCKS = 528
+#: Sweep-1 blocks wanted: each column tile's live row tiles are dealt over
+#: splits until column tiles x splits reaches this (8 blocks for each of
+#: the H100's 132 SMs, four waves of two blocks an SM; PERF.md has the
+#: sweep of 264-2,112).
+_COLNORM_BLOCKS = 1056
+#: Most row tiles one sweep-1 block may list (4 bytes each in shared
+#: memory); more splits are taken when a column tile has more.
+_COLNORM_MAX_LIST = 8192
 #: Sweep-2 blocks wanted: columns are split until row tiles x splits
 #: reaches this (8 blocks for each SM), so that 20k rows (313 row tiles)
 #: still spread evenly over the card.
@@ -128,7 +133,7 @@ def _lib():
 
     lib = load("estep")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.estep_colnorm.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
+    lib.estep_colnorm.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
     lib.estep_colnorm.restype = i32
     lib.estep_rowred.argtypes = [ptr] * 10 + [i32] * 5 + [f32, ptr]
     lib.estep_rowred.restype = i32
@@ -178,17 +183,14 @@ def colnorm(xa, cb, fat, fbt, bt, mm, scal, skip) -> torch.Tensor:
     out = torch.zeros((5, B), dtype=torch.float32, device=dev)
     if NA == 0 or B == 0:
         return out
-    n_ta, n_tb = -(-NA // TM), -(-B // TN)
-    splits = min(n_ta, max(1, -(-_COLNORM_BLOCKS // n_tb)))
-    per_split = -(-n_ta // splits)
-    splits = -(-n_ta // per_split)
+    splits = colnorm_splits(NA, B)
     partial = torch.empty((splits, 4, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().estep_colnorm(
             xa.data_ptr(), cb.data_ptr(), fat.data_ptr(), fbt.data_ptr(), bt.data_ptr(), mm.data_ptr(),
             scal.data_ptr(), skip.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            NA, B, G1, splits, per_split, float(_SKIP_MULT), stream,
+            NA, B, G1, splits, float(_SKIP_MULT), stream,
         )
     if err != 0:
         raise RuntimeError(f"estep_colnorm kernel launch failed: CUDA error {err}")
@@ -197,6 +199,30 @@ def colnorm(xa, cb, fat, fbt, bt, mm, scal, skip) -> torch.Tensor:
 
 
 colnorm.launches = 0
+
+
+def colnorm_splits(NA: int, B: int) -> int:
+    """Sweep 1's blocks per column tile: enough that column tiles x splits
+    reaches `_COLNORM_BLOCKS`, at most one per row tile, and enough that no
+    block lists more than `_COLNORM_MAX_LIST` row tiles."""
+    n_ta, n_tb = -(-NA // TM), -(-B // TN)
+    splits = min(n_ta, max(1, -(-_COLNORM_BLOCKS // n_tb)))
+    return max(splits, -(-n_ta // _COLNORM_MAX_LIST))
+
+
+def colnorm_assignment(skip: torch.Tensor, NA: int, B: int, splits: int):
+    """The row tiles each sweep-1 block computes, as the kernel deals them:
+    for column tile jt, the row tiles the mask leaves live, in order, the
+    k-th to split k % splits. Returns [n_tb][splits] lists of row-tile
+    indices. The kernel builds its own list; this is its rule in plain
+    Python, for the tests and for the balance `chip_smoke.py` prints."""
+    n_ta, n_tb = -(-NA // TM), -(-B // TN)
+    live = (skip.reshape(n_ta, n_tb) == 0).cpu()
+    out = []
+    for jt in range(n_tb):
+        rows = torch.nonzero(live[:, jt]).flatten().tolist()
+        out.append([rows[s::splits] for s in range(splits)])
+    return out
 
 
 def tf32_split(x: torch.Tensor):

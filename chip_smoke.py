@@ -13,11 +13,15 @@ final ``ok`` line:
    each, all started together.
 2. kernel vs plain version: `bp_step` (the kernel) against
    `bp_step_reference` on the card at 2048x2048 and 1000x1500, in f32 and
-   bf16, and full 50-iteration `bp_kernel` runs against the plain loop on
-   the CPU; per-iteration times of both at 2048x2048.
+   bf16, bit for bit, and full 50-iteration `bp_kernel` runs against the
+   plain loop on the CPU; per-iteration times of both at 2048x2048 beside
+   the previous design's; the fused delta (`bp_step(..., delta=True)`)
+   against `delta_reference`, the same bits twice, and its launch timed
+   against a plain one.
 3. Starro main path: `cs.score_and_mask_pixels` on a 2048x2048 AGG raster
    (k=5, BP 50 iterations, bf16 messages), then four tiles through
-   `starro_em_bp_stream`; the launch counts of that run prove the kernel ran.
+   `starro_em_bp_stream`; the launch counts of that run prove the kernel and
+   the fused delta's reduction ran.
    A per-stage breakdown of one tile is timed first.
 4. Starro CUDA vs CPU: one 512x512 density raster and one NB fit scored on
    the card (kernel) and on the CPU (plain); mask IoU >= 0.999.
@@ -87,6 +91,7 @@ F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
 PREV_ROWRED_MS, PREV_JACOBI_US = 0.46824, {1024: 2.473, 2048: 7.153}
 PREV_COLNORM_MS = {"20000x2000": 0.33308, "100000x10000": 1.98765}
 PREV_INLIER_MS = 3.7473
+PREV_BP_MS = {torch.float32: 0.09278, torch.bfloat16: 0.07504}
 
 
 def check(cond, msg):
@@ -138,7 +143,6 @@ def phase_kernel_vs_plain(bp_cuda):
     """Phase 2. Returns the 2048^2 bf16 step's error and times (ms)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    tol_step = {torch.float32: 1e-6, torch.bfloat16: 4e-3}  # bf16: 1 ulp on values <= 1
     tol_marg = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     result = {}
     for H, W in ((TILE, TILE), (1000, 1500)):
@@ -156,9 +160,10 @@ def phase_kernel_vs_plain(bp_cuda):
             err = float((out_k.float() - out_r.float()).abs().max())
             edges = torch.cat([out_k[0, -1], out_k[1, 0], out_k[2, :, -1], out_k[3, :, 0]]).float()
             check(bool((edges == 0.5).all()), f"edge planes not 0.5 at {H}x{W} {dt}")
-            check(err <= tol_step[dt], f"bp_step vs plain at {H}x{W} {dt}: {err} > {tol_step[dt]}")
+            # the same f32 operations in the same order: equal bits expected
             exact = bool(torch.equal(out_k, out_r))
-            print(f"phase 2: bp_step {H}x{W} {dt}: max_abs_err={err!r} (tol {tol_step[dt]}), bit-identical={exact}")
+            check(exact, f"bp_step vs plain at {H}x{W} {dt}: not bit-identical, max_abs_err {err}")
+            print(f"phase 2: bp_step {H}x{W} {dt}: max_abs_err={err!r}, bit-identical={exact}")
 
             # full loops: the kernel on the card against the plain loop on the CPU
             phi_hw = phi.permute(1, 2, 0).contiguous()
@@ -180,9 +185,25 @@ def phase_kernel_vs_plain(bp_cuda):
                 # each input read once, each output written once; ~40 flops a pixel
                 b = bound(40 * H * W, gbytes * 1e9)
                 print(f"phase 2: bp_step {H}x{W} {msg}: bound {b['bound_ms']!r} ms ({b['bound_by']}), share of "
-                      f"the bound {b['bound_ms'] / ms_k!r}")
+                      f"the bound {b['bound_ms'] / ms_k!r}; previous design {PREV_BP_MS[dt]} ms")
+                # the fused delta: bar 1e-5 relative, f64 sums in the
+                # kernel's order against the plain version's f32 sum
+                before = bp_cuda.bp_step.delta_launches
+                out_d, d = bp_cuda.bp_step(phi, M, BP_P, BP_Q, delta=True)
+                torch.cuda.synchronize()
+                check(bp_cuda.bp_step.delta_launches == before + 1, "bp_step did not count its delta launch")
+                check(torch.equal(out_d, out_k), f"bp_step(delta=True) messages differ at {H}x{W} {dt}")
+                d_r = float(bp_cuda.delta_reference(out_d, M))
+                rel = abs(float(d) - d_r) / d_r
+                same = bool(torch.equal(bp_cuda.bp_step(phi, M, BP_P, BP_Q, delta=True)[1], d))
+                check(rel <= 1e-5 and same, f"fused delta {float(d)!r} vs plain {d_r!r} ({rel}), same bits {same}")
+                ms_d = cuda_ms(lambda: bp_cuda.bp_step(phi, M, BP_P, BP_Q, delta=True))
+                print(f"phase 2: fused delta {H}x{W} {msg}: {float(d)!r} vs plain {d_r!r} (relative difference "
+                      f"{rel!r}, bar 1e-5), same bits twice {same}; launch with the delta {ms_d!r} ms, without "
+                      f"{ms_k!r} ms")
                 if dt == torch.bfloat16:
-                    result = with_bound(dict(max_abs_err=err, ms=ms_k, plain_ms=ms_r), b)
+                    result = with_bound(dict(max_abs_err=err, ms=ms_k, plain_ms=ms_r, delta_rel_err=rel,
+                                             delta_ms=ms_d), b)
     return result
 
 
@@ -202,17 +223,19 @@ def phase_stages(X, ts, em, bp_cuda, report):
     stages["em"] = t
     t, phi = host_ms(lambda: ts._starro_conditionals(res, r[0], p[0]))
     stages["conditionals"] = t
-    before = bp_cuda.bp_step.launches
+    before = (bp_cuda.bp_step.launches, bp_cuda.bp_step.delta_launches)
     t, scores = host_ms(lambda: bp_cuda.bp_kernel(phi, BP_P, BP_Q, 1e-6, 50, check_every=10, msg_dtype="bfloat16"))
     stages["bp"] = t
-    bp_iters = bp_cuda.bp_step.launches - before
+    bp_iters = bp_cuda.bp_step.launches - before[0]
+    bp_checks = bp_cuda.bp_step.delta_launches - before[1]
     t, mask = host_ms(lambda: ts._starro_threshold_mask(scores, 7))
     stages["threshold_morphology"] = t
     if report:
         print(
             "phase 3: stages of one 2048x2048 tile (ms, host clock, synchronised): "
             + ", ".join(f"{k}={v!r}" for k, v in stages.items())
-            + f"; EM iterations={stats['n_iter']}, BP iterations={bp_iters}, total={sum(stages.values())!r}"
+            + f"; EM iterations={stats['n_iter']}, BP iterations={bp_iters} with {bp_checks} fused delta "
+            f"checks, total={sum(stages.values())!r}"
         )
     return bp_iters, mask.cpu().numpy()
 
@@ -823,7 +846,7 @@ def main():
     stt.SKM.init_adata_type(adata, stt.SKM.ADATA_AGG_TYPE)
     tiles = [make_raster(TILE, TILE, seed=s) for s in range(4)]
     torch.cuda.reset_peak_memory_stats()
-    bp_cuda.bp_step.launches = 0
+    bp_cuda.bp_step.launches = bp_cuda.bp_step.delta_launches = 0
     t_main, _ = host_ms(
         lambda: stt.cs.score_and_mask_pixels(
             adata, "X", k=5, method="EM+BP", em_kwargs=dict(seed=0), bp_kwargs=dict(max_iter=50)
@@ -834,6 +857,7 @@ def main():
         lambda: list(stt.cs.starro_em_bp_stream(tiles, k=5, seed=0, bp_max_iter=50, mask_only=True))
     )
     launches = bp_cuda.bp_step.launches
+    delta_launches = bp_cuda.bp_step.delta_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     check("X_scores" in adata.layers and "X_mask" in adata.layers, "scores/mask layers missing")
@@ -844,6 +868,9 @@ def main():
     check(0.01 <= fg <= 0.30, f"foreground share {fg} outside [0.01, 0.30]")
     check(launches_single >= bp_iters > 0, f"bp_step launched {launches_single} times, BP ran {bp_iters} iterations")
     check(launches >= launches_single + 4 * bp_iters, f"stream launched {launches - launches_single} kernels")
+    # one fused delta ends each check block of up to 10 iterations, in each of the 5 tiles
+    check(5 <= delta_launches <= launches <= 10 * delta_launches, f"fused delta launched {delta_launches} times "
+          f"for {launches} iterations")
     check(len(streamed) == 4 and all(m.shape == X.shape and m.dtype == bool for _, m in streamed), "stream output")
     check(np.array_equal(streamed[0][1], mask), "stream tile 0 differs from the single-tile call")
     print(
@@ -853,7 +880,8 @@ def main():
     )
     print(
         f"phase 3: stream of 4 tiles: {t_stream!r} ms, {4 * TILE * TILE / t_stream / 1e3!r} Mpixels/s; "
-        f"peak device memory {peak_gb!r} GB; bp_step launches in the main path {launches}"
+        f"peak device memory {peak_gb!r} GB; bp_step launches in the main path {launches}, fused delta launches "
+        f"{delta_launches}"
     )
 
     # -- phase 4: CUDA vs CPU at 512^2 ---------------------------------------------
@@ -901,6 +929,7 @@ def main():
             "source": "spateo_tpu_torch/csrc/bp_step.cu",
             "replaces": "spateo_tpu/ops/bp_pallas.py:63",
             "launches": launches,
+            "delta_launches": delta_launches,
             **kstats,
         },
         {

@@ -33,11 +33,19 @@ def _phi_m(H, W, dtype, device, seed=0):
     return phi, M
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 4e-3)])
-@pytest.mark.parametrize("shape", [(1, 1), (7, 33), (130, 257)])
-def test_bp_step_kernel_matches_plain(cuda, dtype, tol, shape):
-    """Kernel vs `bp_step_reference` on ragged shapes: f32 atol 1e-6, bf16
-    atol 4e-3 (one bf16 ulp on values <= 1); one counted launch."""
+BP_SHAPES = [(1, 1), (7, 33), (130, 257), (13, 1), (9, 31), (40, 32), (33, 33), (17, 255), (21, 257), (11, 1500),
+             (1000, 1500), (37, 1002), (3, 4100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BP_SHAPES)
+def test_bp_step_kernel_matches_plain(cuda, dtype, shape):
+    """Kernel vs `bp_step_reference` on ragged shapes: equal bits in both
+    types (the same f32 operations in the same order, one rounding to bf16).
+    The widths cover one pixel, a lane, a warp's strip and its ragged ends,
+    rows of 1,500 (not 16-byte aligned in bf16), 1,002 (2 elements) and odd
+    widths (scalar accesses); the heights are no multiple of a strip's rows.
+    One counted launch."""
     phi, M = _phi_m(*shape, dtype, cuda)
     before = bp_cuda.bp_step.launches
     out = bp_cuda.bp_step(phi, M, 0.6, 0.4)
@@ -45,7 +53,77 @@ def test_bp_step_kernel_matches_plain(cuda, dtype, tol, shape):
     assert bp_cuda.bp_step.launches == before + 1
     ref = bp_cuda.bp_step_reference(phi, M, 0.6, 0.4)
     assert out.dtype == dtype and out.shape == M.shape
-    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bp_step_kernel_misaligned_messages(cuda, dtype):
+    """Message planes that start off a 16-byte boundary (a view one element
+    into a larger buffer) take narrower accesses, with the same bits."""
+    phi, M = _phi_m(29, 512, dtype, cuda)
+    buf = torch.empty(M.numel() + 1, dtype=dtype, device=cuda)
+    Mv = buf[1:].view(M.shape)
+    Mv.copy_(M)
+    assert Mv.is_contiguous() and Mv.data_ptr() % 16 != 0
+    assert torch.equal(bp_cuda.bp_step(phi, Mv, 0.6, 0.4), bp_cuda.bp_step_reference(phi, M, 0.6, 0.4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,q", [(0.6, 0.4), (0.999, 1e-4), (0.5, 0.5), (3.0, 2000.0)])
+def test_bp_step_kernel_wide_inputs(cuda, dtype, p, q):
+    """Messages and potentials spread over [1e-30, 1] (log-uniform), with
+    exact 0s and 1s, so that the products fall on both sides of the
+    branch-free division's range and outside it, and edge potentials inside
+    and outside [2^-10, 2^10]: equal bits to `bp_step_reference`."""
+    rng = np.random.default_rng(11)
+    H, W = 300, 777
+
+    def wide(shape):
+        x = np.exp(rng.uniform(np.log(1e-30), 0.0, shape))
+        x = np.where(rng.uniform(size=shape) < 0.3, rng.uniform(size=shape), x)
+        pick = rng.uniform(size=shape)
+        return np.where(pick < 0.03, 0.0, np.where(pick > 0.97, 1.0, x)).astype(np.float32)
+
+    phi = torch.from_numpy(wide((2, H, W))).to(cuda)
+    M = torch.from_numpy(wide((4, H, W))).to(cuda).to(dtype)
+    ref = bp_cuda.bp_step_reference(phi, M, p, q)
+    assert torch.equal(bp_cuda.bp_step(phi, M, p, q), ref)
+
+
+def test_bp_step_kernel_config_matches_plan(cuda):
+    """The compiled choice is the one `step_plan` and the wrapper assume."""
+    cfg = bp_cuda.kernel_config()
+    assert (cfg["V"], cfg["R"], cfg["NW"], cfg["threads"]) == (bp_cuda.LANE_PIXELS, bp_cuda.STRIP_ROWS,
+                                                               bp_cuda.BLOCK_WARPS, 32 * bp_cuda.BLOCK_WARPS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 1), (17, 255), (130, 257), (1000, 1500), (2048, 2048)])
+def test_bp_step_fused_delta(cuda, dtype, shape):
+    """`bp_step(..., delta=True)`: the messages of a plain launch; the delta
+    within 1e-5 relative of `delta_reference` (f64 sums in the kernel's
+    order against f32 sums); the same bits on two runs; one counted launch
+    of each kernel."""
+    phi, M = _phi_m(*shape, dtype, cuda, seed=3)
+    before = (bp_cuda.bp_step.launches, bp_cuda.bp_step.delta_launches)
+    out, d = bp_cuda.bp_step(phi, M, 0.6, 0.4, delta=True)
+    torch.cuda.synchronize()
+    assert (bp_cuda.bp_step.launches, bp_cuda.bp_step.delta_launches) == (before[0] + 1, before[1] + 1)
+    assert d.shape == () and d.dtype == torch.float32 and d.device == M.device
+    assert torch.equal(out, bp_cuda.bp_step(phi, M, 0.6, 0.4))
+    torch.testing.assert_close(d, bp_cuda.delta_reference(out, M), rtol=1e-5, atol=0)
+    assert torch.equal(bp_cuda.bp_step(phi, M, 0.6, 0.4, delta=True)[1], d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bp_step_fused_delta_zero_at_fixed_point(cuda, dtype):
+    """With p = q every outgoing message is exactly 0.5, so messages of 0.5
+    are a fixed point: the fused delta is exactly 0."""
+    phi, _ = _phi_m(67, 300, dtype, cuda, seed=4)
+    M = torch.full((4, 67, 300), 0.5, dtype=dtype, device=cuda)
+    out, d = bp_cuda.bp_step(phi, M, 0.5, 0.5, delta=True)
+    assert torch.equal(out, M)
+    assert float(d) == 0.0
 
 
 def test_bp_step_rejects_bad_inputs(cuda):

@@ -241,6 +241,25 @@ def test_bp_kernel_matches_pallas(check_every, precision):
     assert tcu.bp_step.launches == before  # CPU tensors never launch the kernel
 
 
+@pytest.mark.parametrize("msg_dtype", ["float32", "bfloat16"])
+def test_bp_step_delta_on_cpu_is_the_plain_sum(msg_dtype):
+    """On CPU tensors `bp_step(..., delta=True)` returns the plain iteration
+    and the f32 L2 change of the JAX loop, sqrt(2 sum((new - old)^2)),
+    within 1e-5 relative (both sum in f32, in other orders: 3e-6 apart in
+    bf16 here), and launches nothing."""
+    H, W = 40, 72
+    phi = _t(_phi_planes(H, W, 4))
+    M = _t(np.random.default_rng(5).uniform(0.02, 0.98, (4, H, W)).astype(np.float32)).to(tcu._MSG_DTYPES[msg_dtype])
+    before = (tcu.bp_step.launches, tcu.bp_step.delta_launches)
+    out, delta = tcu.bp_step(_t(phi.numpy()), M, 0.6, 0.4, delta=True)
+    assert (tcu.bp_step.launches, tcu.bp_step.delta_launches) == before
+    assert torch.equal(out, tcu.bp_step_reference(phi, M, 0.6, 0.4))
+    diff = np.asarray(jnp.asarray(out.float().numpy()) - jnp.asarray(M.float().numpy()))
+    want = np.asarray(jnp.sqrt(2.0 * jnp.sum(jnp.asarray(diff) ** 2)))
+    assert delta.shape == () and delta.dtype == torch.float32
+    np.testing.assert_allclose(float(delta), float(want), rtol=1e-5)
+
+
 @pytest.mark.parametrize("square", [True, False])
 def test_generic_bp_kernel_matches_jax(square):
     """The generic kernel for the 3x3 square (8 neighbours) and the circle(3)

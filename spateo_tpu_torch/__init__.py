@@ -9,11 +9,13 @@ defaults to ``"cuda"``. It never imports JAX.
     stt.cs.score_and_mask_pixels(adata, "X", k=5, method="EM+BP")
     stt.align.morpho_align([fixed, moving], spatial_key="spatial")
     stt.dd.digitize(adata, ctrs, 0, pnt_xy, pnt_Xy, pnt_xY, pnt_XY)
+    stt.tdr.morphofield_sparsevfc_batch(aligned_slices, M=100, MaxIter=60)
 """
 
 from . import alignment as align
 from . import digitization as dd
 from . import segmentation as cs
+from . import tdr
 from .configuration import SKM
 from .core.anndata import AnnData, concat, read_h5ad
 from .errors import ConfigurationError, SegmentationError, SpateoError

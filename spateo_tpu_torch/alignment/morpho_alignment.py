@@ -1,7 +1,7 @@
 """Serial-slice Morpho alignment entry points: host-side loops over
 `Morpho_pairwise` (counterpart of `spateo_tpu.alignment.morpho_alignment`;
 reference spateo/alignment/morpho_alignment.py:22-470). `device` is passed
-on to every pairwise solve. `morpho_align_ref` waits for `BA_transform`."""
+on to every pairwise solve and field evaluation."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import numpy as np
 
 from ..core.anndata import AnnData, read_h5ad
 from .methods.morpho import Morpho_pairwise
-from .utils import _iteration, solve_RT_by_correspondence
+from .transform import BA_transform
+from .utils import _iteration, downsampling, solve_RT_by_correspondence
 
 
 def morpho_align(
@@ -75,6 +76,86 @@ def morpho_align(
             modelB.uns[vecfld_key_added] = morpho_model.vecfld
         pis.append(P.T)
     return align_models, pis
+
+
+def morpho_align_ref(
+    models: List[AnnData],
+    models_ref: Optional[List[AnnData]] = None,
+    n_sampling: int = 2000,
+    sampling_method: str = "random",
+    rep_layer: Union[str, List[str]] = "X",
+    rep_field: Union[str, List[str]] = "layer",
+    genes: Optional[List[str]] = None,
+    spatial_key: str = "spatial",
+    key_added: str = "align_spatial",
+    iter_key_added: Optional[str] = "iter_spatial",
+    vecfld_key_added: str = "VecFld_morpho",
+    mode: str = "SN-S",
+    dissimilarity: Union[str, List[str]] = "kl",
+    max_iter: int = 200,
+    dtype: str = "float32",
+    device: str = "cuda",
+    verbose: bool = True,
+    **kwargs,
+) -> Tuple[List[AnnData], List[AnnData], list, list]:
+    """Align downsampled reference slices, then warp the full slices with the
+    learned field through `BA_transform` (parity: reference
+    morpho_alignment.py:318). Returns (aligned models, aligned reference
+    models, assignments, reference assignments); the assignments are device
+    tensors [NA_ref, B] as `Morpho_pairwise.run` returns them."""
+    if models_ref is None:
+        models_sampling = [model.copy() for model in models]
+        models_ref = downsampling(
+            models=models_sampling, n_sampling=n_sampling, sampling_method=sampling_method, spatial_key=spatial_key
+        )
+
+    pis, pis_ref = [], []
+    align_models = [model.copy() for model in models]
+    align_models_ref = [model.copy() for model in models_ref]
+    for group in (align_models, align_models_ref):
+        for model in group:
+            model.obsm[key_added] = np.asarray(model.obsm[spatial_key]).copy()
+            model.obsm[f"{key_added}_rigid"] = np.asarray(model.obsm[spatial_key]).copy()
+            model.obsm[f"{key_added}_nonrigid"] = np.asarray(model.obsm[spatial_key]).copy()
+
+    progress_name = f"Models alignment with ref-models based on morpho, mode: {mode}."
+    for i in _iteration(n=len(align_models) - 1, progress_name=progress_name, verbose=verbose):
+        modelA_ref = align_models_ref[i]
+        modelB_ref = align_models_ref[i + 1]
+        morpho_model = Morpho_pairwise(
+            sampleA=modelB_ref,
+            sampleB=modelA_ref,
+            rep_layer=rep_layer,
+            rep_field=rep_field,
+            dissimilarity=dissimilarity,
+            genes=genes,
+            spatial_key=key_added,
+            key_added=key_added,
+            iter_key_added=iter_key_added,
+            vecfld_key_added=vecfld_key_added,
+            max_iter=max_iter,
+            device=device,
+            verbose=verbose,
+            **kwargs,
+        )
+        P = morpho_model.run()
+        modelB_ref.obsm[f"{key_added}_rigid"] = morpho_model.optimal_RnA.copy()
+        modelB_ref.obsm[f"{key_added}_nonrigid"] = morpho_model.XAHat.copy()
+        modelB_ref.obsm[key_added] = modelB_ref.obsm[f"{key_added}_rigid" if mode == "SN-S" else f"{key_added}_nonrigid"]
+        align_models_ref[i + 1] = modelB_ref
+        pis_ref.append(P)
+
+        modelB = align_models[i + 1]
+        vecfld = morpho_model.vecfld
+        if vecfld_key_added is not None:
+            modelB_ref.uns[vecfld_key_added] = vecfld
+            modelB.uns[vecfld_key_added] = vecfld
+        nonrigid, _, rigid = BA_transform(vecfld=vecfld, quary_points=modelB.obsm[key_added], device=device)
+        modelB.obsm[f"{key_added}_nonrigid"] = nonrigid
+        modelB.obsm[f"{key_added}_rigid"] = rigid
+        modelB.obsm[key_added] = modelB.obsm[f"{key_added}_rigid" if mode == "SN-S" else f"{key_added}_nonrigid"]
+        pis.append(P)
+    return align_models, align_models_ref, pis, pis_ref
 
 
 def morpho_align_transformation(

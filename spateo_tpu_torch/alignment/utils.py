@@ -3,9 +3,13 @@ matching functions of `spateo_tpu.alignment.utils`)."""
 
 from __future__ import annotations
 
+from typing import List, Optional, Union
+
 import numpy as np
 
+from ..core.anndata import AnnData
 from ..logging import logger_manager as lm
+from .methods.sampling import sample_indices
 
 
 def _iteration(n: int, progress_name: str, verbose: bool = True, start_n: int = 0, indent_level=1):
@@ -13,6 +17,25 @@ def _iteration(n: int, progress_name: str, verbose: bool = True, start_n: int = 
     if verbose:
         return lm.progress_logger(iteration, progress_name=progress_name)
     return iteration
+
+
+def downsampling(
+    models: Union[List[AnnData], AnnData],
+    n_sampling: Optional[int] = 2000,
+    sampling_method: str = "random",
+    spatial_key: str = "spatial",
+    seed: int = 0,
+) -> List[AnnData]:
+    """Downsample AnnData(s) by spatial sampling (parity: reference
+    alignment/utils.py:25; 'random', 'kmeans', 'trn' or 'lhs' from
+    `methods.sampling`). Host-side."""
+    models = models if isinstance(models, list) else [models]
+    out = []
+    for m in models:
+        n = min(n_sampling, m.n_obs)
+        idx = sample_indices(np.asarray(m.obsm[spatial_key]), n, method=sampling_method, seed=seed)
+        out.append(m[idx, :])
+    return out
 
 
 def generate_label_transfer_dict(

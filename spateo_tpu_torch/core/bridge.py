@@ -4,9 +4,10 @@ JAX package.
 `to_device` uploads through pinned host memory with ``non_blocking=True``, so
 the copy is asynchronous on the current stream. `adata_from_reference` builds
 the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
-fields, and `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho
-solve's EM inputs over; both are duck-typed, so that this module never
-imports the JAX package.
+fields, `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho solve's
+EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
+learned SparseVFC field and a Morpho vector field; all are duck-typed, so
+that this module never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -93,3 +94,38 @@ def morpho_inputs_from_reference(m, em_args, em_kwargs) -> dict:
     static = dict(em_kwargs)
     static["use_kernel_estep"] = bool(static.pop("use_pallas_estep", True))
     return {"args": args, "static": static, "invA": np.asarray(m._invA)}
+
+
+def _host_copy(v):
+    """A host copy of a result value: containers recursively, arrays (and
+    device arrays) as numpy, scalars, strings and None as they are."""
+    if isinstance(v, dict):
+        return {k: _host_copy(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_host_copy(x) for x in v)
+    if v is None or isinstance(v, (bool, int, float, str, np.generic)):
+        return v
+    return np.array(v)
+
+
+def vfc_from_reference(res) -> dict:
+    """A `spateo_tpu` SparseVFC result (its lazy dict, which materialises
+    here) as the port's dict of numpy arrays and scalars, without the JAX
+    package's `_device` handles."""
+    return {k: _host_copy(v) for k, v in res.items() if k != "_device"}
+
+
+#: The entries of a `spateo_tpu` Morpho `vecfld` that the port's consumers
+#: read (BA_transform, get_P_chunk, the GP morphofield).
+VECFLD_KEYS = (
+    "R", "t", "optimal_R", "optimal_t", "init_R", "init_t", "beta", "Coff", "inducing_variables",
+    "normalize_scales", "normalize_means", "normalize_c", "dissimilarity", "sigma2", "gamma", "NA",
+    "sigma2_variance", "method", "norm_dict", "kernel_type", "kernel_dict",
+)
+
+
+def vecfld_from_reference(vecfld) -> dict:
+    """A `spateo_tpu` Morpho `vecfld` (R, t, Coff, inducing_variables, beta,
+    norm_dict, the init and optimal R and t, kernel_dict, ...) as numpy
+    copies."""
+    return {k: _host_copy(vecfld[k]) for k in VECFLD_KEYS if k in vecfld}

@@ -1,0 +1,31 @@
+"""TDR layer (`stt.tdr`): morphofields and their differential geometry,
+trajectories and the SparseVFC kernel interpolation, ported from
+`spateo_tpu.tdr`. Meshes, surfaces, voxels, backbones, widgets and the VTK,
+GP and deep interpolation engines are not ported yet (ROADMAP Queue 1
+item 11)."""
+
+from .interpolations import get_X_Y_grid, in_hull, kernel_interpolation, polyhull
+from .morphometrics.morphofield_dg import (
+    Jacobian_GP_gaussian_kernel,
+    compute_acceleration,
+    compute_curl,
+    compute_curvature,
+    compute_divergence,
+    compute_sensitivity,
+    compute_torsion,
+)
+from .morphometrics import (
+    GPVectorField,
+    cell_directions,
+    morphofield_acceleration,
+    morphofield_curl,
+    morphofield_curvature,
+    morphofield_divergence,
+    morphofield_gp,
+    morphofield_jacobian,
+    morphofield_sparsevfc,
+    morphofield_sparsevfc_batch,
+    morphofield_torsion,
+    morphofield_velocity,
+    morphopath,
+)

@@ -509,3 +509,70 @@ def test_label_cells_from_mask_cuda_matches_cpu(cuda):
     lc, cc = labels.label_cells_from_mask(mask, 3, device="cpu")
     np.testing.assert_array_equal(lg.cpu().numpy(), lc.numpy())
     np.testing.assert_array_equal(cg, cc)
+
+
+def _rotation_fields(N, F, seed):
+    rng = np.random.default_rng(seed)
+    Xs = rng.uniform(-1, 1, (F, N, 3)).astype(np.float32)
+    Vs = np.cross(np.broadcast_to([0.0, 0.0, 1.0], Xs.shape), Xs).astype(np.float32)
+    return Xs, (Vs + rng.normal(0, 0.05, Vs.shape)).astype(np.float32)
+
+
+def test_tf32_stays_off(cuda):
+    """SparseVFC's kernel products take f32 (`precision="highest"` in the JAX
+    package); the port sets no global flag, so the defaults must hold."""
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_sparsevfc_batch_cuda_matches_cpu(cuda):
+    """`SparseVFC_batch` on 3 x 5,000 points (5 row chunks) on the card and on
+    the CPU: V within 1e-3 of max|V|, div/curl within 1e-2, equal iterations
+    (pinned at 60, and stopped by the energy at ecr 1e-3), and
+    `GPVectorField` Jacobians within 1e-4 of scale."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.ops import vfc
+    from spateo_tpu_torch.tdr.morphometrics.morphofield_dg.GPVectorField import GPVectorField
+
+    Xs, Vs = _rotation_fields(5000, 3, seed=4)
+    for kw in (dict(MaxIter=60, ecr=0.0), dict(MaxIter=200, ecr=1e-3)):
+        res = {d: vfc.SparseVFC_batch(Xs, Vs, M=100, seed=1, device=d, **kw) for d in ("cuda", "cpu")}
+        for f, (g, c) in enumerate(zip(res["cuda"], res["cpu"])):
+            v_err = float(np.abs(g["V"] - c["V"]).max() / np.abs(c["V"]).max())
+            dc_err = max(float(np.abs(g[k] - c[k]).max()) for k in ("div", "curl"))
+            msg = f"{kw} field {f}: iterations {g['iteration']}/{c['iteration']}, V {v_err}, div/curl {dc_err}"
+            print(msg)
+            assert g["iteration"] == c["iteration"] and v_err <= 1e-3 and dc_err <= 1e-2, msg
+            assert g["_device"]["C"].is_cuda
+    a = stt.AnnData(X=np.ones((5000, 1), np.float32))
+    a.uns["VecFld_morpho"] = {k: v for k, v in res["cpu"][0].items() if k != "_device"}
+    J = {}
+    for d in ("cuda", "cpu"):
+        gv = GPVectorField(device=d)
+        gv.from_adata(a, vf_key="VecFld_morpho")
+        J[d] = gv.get_Jacobian("analytical")(Xs[0][:500])
+    assert np.abs(J["cuda"] - J["cpu"]).max() <= 1e-4 * np.abs(J["cpu"]).max()
+
+
+def test_sparsevfc_em_host_reads(cuda):
+    """The EM reads the card once per block of CHECK_EVERY iterations (and
+    once for the factorisations' status), never once per iteration."""
+    from spateo_tpu_torch.ops import vfc
+
+    Xs, Vs = _rotation_fields(5000, 2, seed=5)
+    before = vfc._run_em.host_reads
+    vfc.SparseVFC_batch(Xs, Vs, M=100, MaxIter=60, ecr=0.0, seed=0, device="cuda")
+    assert vfc._run_em.host_reads - before == -(-60 // vfc.CHECK_EVERY)
+
+
+def test_sparsevfc_em_cholesky_failure_raises(cuda):
+    """A non-SPD M-step system (NaN features) raises after the loop: the
+    factorisation's status is read once, not per iteration."""
+    from spateo_tpu_torch.ops import vfc
+
+    K = torch.full((1, 64, 8), float("nan"), device="cuda")
+    U = torch.eye(8, device="cuda")[None]
+    Y = torch.ones((1, 64, 3), device="cuda")
+    one = torch.ones(1, device="cuda")
+    with pytest.raises(torch.linalg.LinAlgError):
+        vfc._run_em(K, U, Y, one, 3.0, 0.9, 5.0, 0.0, 1e-5, 12, False, one)

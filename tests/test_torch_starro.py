@@ -237,12 +237,13 @@ def test_adata_from_reference_copies_fields():
 
 def test_import_does_not_import_jax():
     """`import spateo_tpu_torch` (and its slices: Starro, the alignment
-    package with Morpho and the E-step kernels' wrapper) loads no JAX
-    module."""
+    package with Morpho, its field transforms and the E-step kernels'
+    wrapper, the morphofield layer and SparseVFC) loads no JAX module."""
     code = (
         "import sys; import spateo_tpu_torch, spateo_tpu_torch.segmentation.starro; "
         "import spateo_tpu_torch.alignment, spateo_tpu_torch.alignment.methods.morpho, "
         "spateo_tpu_torch.ops.estep_cuda; "
+        "import spateo_tpu_torch.tdr, spateo_tpu_torch.ops.vfc, spateo_tpu_torch.alignment.transform; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'spateo_tpu.'))]; "
         "sys.exit(1 if bad or 'spateo_tpu' in sys.modules else 0)"
     )

@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
 EM+BP slice, the Morpho alignment slice, the digitization slice with its
-labeling chain, the morphofield slice, and the whole atlas chain. Run from
-the repository root, with no arguments:
+labeling chain, the morphofield slice, the whole atlas chain, and MuSIC.
+Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -89,6 +89,25 @@ final ``ok`` line:
    all five kernels in the timed stages (counters set to 0 after each
    stage's warm-up), held to the exact counts the chain must give; then the chain again under the profiler for
    each stage's device-busy share.
+14. MuSIC main path. (a) `bench.music_bench`'s workload, cut nowhere: 4
+   targets of 8,192 cells, K 12, poisson, 25 IRLS iterations, ridge 0, clip
+   5, W from the coordinates on the card (untruncated gaussian, bandwidth
+   1); warm-up, best and mean of 3 sweeps through the port's
+   `_iwls_batch_kernel`; cells/s, peak memory, the sweep under the profiler
+   (device busy, idle share, launches per IRLS iteration, ops by time)
+   beside its bound; each target's coefficients recover the truth's sign
+   (bar from the JAX package's CPU run). (b) `tl.MuSIC(...).fit()` on a
+   10,000-cell `lr` slice (`music_slice`): bisquare adaptive weights, one
+   target at 20 neighbours, two with the bandwidth search; seconds of
+   `define_sig_inputs`, of each search and final fit, `mpi_fit` calls,
+   bandwidths, peak memory; each target's driving pair has a positive mean
+   coefficient on its receivers. No kernel of `csrc/` is on this path.
+15. MuSIC CUDA vs CPU: `iwls_batch_full` at 2,000 cells, k 12, in the
+   gaussian, poisson and nb families (1e-4 of scale); the conditioned
+   weights, fixed and adaptive, with and without `exclude_self` (2e-3
+   absolute, support flips <= 1e-4 of the nonzeros); `moran_i` on 2,000 x 20
+   genes, 199 permutations (I within 1e-5, p-values equal except at ties
+   within 1e-5); one `MuSIC.fit` on 250 cells at a fixed bandwidth.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
@@ -1254,6 +1273,323 @@ def phase_atlas_chain():
           + f"; whole chain idle share {1 - sum(p['stage_busy_seconds'].values()) / p['wall_seconds']!r}")
 
 
+#: `bench.music_bench`'s workload (bench.py:397-479): Q = N cells, K
+#: features, the poisson family, 25 IRLS iterations, ridge 0, clip 5, the
+#: untruncated gaussian kernel of bandwidth 1.0, 4 targets.
+MUSIC_N, MUSIC_K, MUSIC_ITERS, MUSIC_TARGETS, MUSIC_BW = 8192, 12, 25, 4, 1.0
+
+
+def short_op(name, width=90):
+    """A device op's name without ATen's common prefixes, cut to `width`."""
+    for prefix in ("void ", "at::native::", "vectorized_elementwise_kernel<4, ", "elementwise_kernel<128, 2, ",
+                   "at::native::", "(anonymous namespace)::"):
+        name = name[len(prefix):] if name.startswith(prefix) else name
+    return name[:width]
+
+
+def music_bench_data(N=MUSIC_N, K=MUSIC_K, n_targets=MUSIC_TARGETS):
+    """`bench.music_bench`'s data (bench.py:410-418, seed 0; the targets from
+    seed 7): coords in [0, 10]^2, X with an intercept column, and per target
+    the generating coefficients and its poisson counts."""
+    rng = np.random.default_rng(0)
+    coords = rng.uniform(0, 10, (N, 2)).astype(np.float32)
+    X = rng.normal(0, 0.3, (N, K)).astype(np.float32)
+    X[:, 0] = 1.0
+    rng_t = np.random.default_rng(7)
+    betas, ys = [], []
+    for _ in range(n_targets):
+        b = rng_t.normal(0, 0.4, K)
+        betas.append(b)
+        ys.append(rng_t.poisson(np.exp(np.clip(X @ b, -4, 4))).astype(np.float32))
+    return coords, X, np.stack(betas), ys
+
+
+def music_fit_all(coords_d, y_d, X_d, bw=MUSIC_BW, n_irls_iter=MUSIC_ITERS):
+    """One target of the benchmark: W from the coordinates on their device
+    (the untruncated gaussian kernel, bench.py:423-429), then the port's
+    `_iwls_batch_kernel` over every cell."""
+    from spateo_tpu_torch.tools.CCI_effects_modeling.regression_utils import _iwls_batch_kernel
+
+    sq = (coords_d**2).sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (coords_d @ coords_d.T)
+    W = torch.exp(-torch.clamp(d2, min=0.0) / (2 * bw**2))
+    return _iwls_batch_kernel(y_d, X_d, W, 0.0, 5.0, "poisson", n_irls_iter)
+
+
+#: Share of the (focal row, coefficient) pairs with |beta_true| >= 0.2 whose
+#: fitted sign is the truth's. The JAX package's own `_iwls_batch_kernel` on
+#: the CPU gets 0.978, 0.991, 1.0 and 0.973 for the 4 targets on the first
+#: 512 focal rows at this seed (rows are independent, so a 512-row block of
+#: W gives the full fit's rows); the bar leaves 0.02 for the other rows.
+#: (With ~500 cells of effective weight and X of sd 0.3, a local beta is
+#: ~0.1-0.3 off the truth, so smaller coefficients flip.)
+MUSIC_SIGN_BAR, MUSIC_SIGN_MIN_ABS = 0.95, 0.2
+
+
+def music_sign_share(betas, beta_true, min_abs=MUSIC_SIGN_MIN_ABS):
+    """Share of the fitted signs that are the truth's where |truth| >= min_abs."""
+    keep = np.abs(beta_true) >= min_abs
+    return float((np.sign(betas[:, keep]) == np.sign(beta_true[keep])[None, :]).mean())
+
+
+def phase_music_bench():
+    """Phase 14a: `bench.music_bench`'s 4-target poisson sweep at Q = N =
+    8,192, K 12, cut nowhere, through the port's `_iwls_batch_kernel`."""
+    check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 must stay off for MuSIC (the JAX distance dot takes precision='highest')")
+    coords, X, beta_true, ys = music_bench_data()
+    cd, Xd = torch.from_numpy(coords).cuda(), torch.from_numpy(X).cuda()
+    yds = [torch.from_numpy(y).cuda() for y in ys]
+
+    def sweep():
+        return [music_fit_all(cd, yd, Xd) for yd in yds]
+
+    sweep()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        t, out = host_ms(sweep)
+        times.append(t)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shares = []
+    for t, (b, h) in enumerate(out):
+        b, h = b.cpu().numpy(), h.cpu().numpy()
+        check(b.shape == (MUSIC_N, MUSIC_K) and h.shape == (MUSIC_N,) and bool(np.isfinite(b).all())
+              and bool(np.isfinite(h).all()), f"target {t}: betas {b.shape}, hats {h.shape} or not finite")
+        shares.append(music_sign_share(b, beta_true[t]))
+    check(min(shares) >= MUSIC_SIGN_BAR, f"sign recovery {shares} < {MUSIC_SIGN_BAR} (the JAX package's CPU run)")
+    best, mean = min(times), sum(times) / len(times)
+    cells = MUSIC_TARGETS * MUSIC_N
+    _, wall, busy, launches, ops = device_profile(sweep)
+    q = n = MUSIC_N
+    k = MUSIC_K
+    # per IRLS iteration: the [q, n] @ [n, k^2] and two [q, n] x [n, k]
+    # products, ~20 elementwise flops an entry; the leverage pass: one
+    # product and the elementwise work. W read once an iteration.
+    flops = MUSIC_TARGETS * (MUSIC_ITERS * (2 * q * n * (k * k + 2 * k) + 20 * q * n) + 2 * q * n * k * k + 20 * q * n)
+    nbytes = MUSIC_TARGETS * (MUSIC_ITERS + 1) * q * n * 4
+    b = bound(flops, nbytes)
+    top = ", ".join(f"{short_op(name)} {ms!r} ms/{cnt}" for name, (ms, cnt) in list(ops.items())[:8])
+    print(f"phase 14: music_bench sweep ({MUSIC_TARGETS} targets x {MUSIC_N} cells, K {MUSIC_K}, poisson, "
+          f"{MUSIC_ITERS} IRLS iterations): {times!r} ms; {cells / best * 1e3!r} cells/s (best of 3), "
+          f"{cells / mean * 1e3!r} cells/s (mean); peak device memory {peak_gb!r} GB; sign recovery {shares} "
+          f"(bar {MUSIC_SIGN_BAR}, |beta| >= {MUSIC_SIGN_MIN_ABS})")
+    print(f"phase 14: sweep under the profiler: wall {wall!r} ms, device busy {busy!r} ms, idle share "
+          f"{1 - busy / wall!r}; {launches} launches, {launches / (MUSIC_TARGETS * (MUSIC_ITERS + 1))!r} per IRLS "
+          f"iteration; bound {b['bound_ms']!r} ms ({b['bound_by']}: {flops / 1e9!r} GFLOP, {nbytes / 1e9!r} GB), "
+          f"share of bound {b['bound_ms'] / best!r}")
+    print(f"phase 14: the sweep's device ops by busy time (ms/events): {top}")
+    return dict(ms=best, bound_ms=b["bound_ms"])
+
+
+def music_slice(n=10_000, seed=0, n_targets=3):
+    """A synthetic slice for an `lr` MuSIC model: the `lr_adata` fixture of
+    tests/test_music_fidelity.py scaled to `n` cells at 0.01 cells per unit
+    area (a square of side sqrt(n / 0.01)). Senders (x < side / 2) express
+    TGFB1 and DLL1, receivers TGFBR1, TGFBR2 and NOTCH1. TGT1 rises in the
+    receivers within 30 units of the senders (the reach of 25-neighbour
+    secreted weights), TGT2 within 16 (8 neighbours, contact), TGT3 in the
+    receivers within 30 whose TGFBR2 is above its median. Returns the port's
+    AnnData and the masks of the receivers each target's effect lies on."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+
+    rng = np.random.default_rng(seed)
+    side = float(np.sqrt(n / 0.01))
+    half = side / 2
+    pts = rng.uniform(0, side, (n, 2)).astype(np.float32)
+    genes = ["TGFB1", "TGFBR1", "TGFBR2", "DLL1", "NOTCH1", "TGT1", "TGT2", "TGT3"][: 5 + n_targets]
+    X = rng.poisson(0.2, (n, len(genes))).astype(np.float32)
+    senders = pts[:, 0] < half
+    X[senders, 0] += rng.poisson(5.0, senders.sum())
+    X[senders, 3] += rng.poisson(4.0, senders.sum())
+    for j in (1, 2, 4):
+        X[~senders, j] += rng.poisson(3.0, (~senders).sum())
+    near = {30: ~senders & (pts[:, 0] < half + 30), 16: ~senders & (pts[:, 0] < half + 16)}
+    effect = {"TGT1": near[30], "TGT2": near[16], "TGT3": near[30] & (X[:, 2] > np.median(X[~senders, 2]))}
+    for t, m in list(effect.items())[:n_targets]:
+        X[m, genes.index(t)] += rng.poisson(6.0, m.sum())
+    adata = stt.AnnData(
+        X=X,
+        obs=pd.DataFrame({"cell_type": np.where(senders, "sender", "receiver")}, index=[f"c{i}" for i in range(n)]),
+        var=pd.DataFrame(index=genes),
+    )
+    adata.obsm["spatial"] = pts
+    stt.SKM.init_adata_type(adata, stt.SKM.ADATA_UMI_TYPE)
+    return adata, dict(list(effect.items())[:n_targets])
+
+
+#: The pair whose coefficient carries each planted target's effect.
+MUSIC_PLANTED_PAIRS = {"TGT1": "TGFB1", "TGT2": "DLL1:NOTCH1", "TGT3": "TGFB1:TGFBR2"}
+
+
+def music_fit(adata, out_dir, device="cuda", fixed_bw=20, search=("TGT2", "TGT3"), fixed=("TGT1",),
+              distr="poisson"):
+    """`tl.MuSIC(...).fit()` on an `lr` model of `music_slice`'s genes:
+    bisquare adaptive weights; the `fixed` targets at `fixed_bw` neighbours,
+    the `search` targets with the golden-section bandwidth search. Returns
+    the model, the coefficients, bandwidths and seconds per target (search,
+    final fit), the seconds of `define_sig_inputs` and the `mpi_fit` calls."""
+    import spateo_tpu_torch as stt
+
+    targets = sorted(set(fixed) | set(search))
+    model = stt.tl.MuSIC(
+        adata=adata, mod_type="lr", species="human", output_path=f"{out_dir}/music.csv", distr=distr,
+        custom_ligands=["TGFB1", "DLL1"], custom_receptors=["TGFBR1", "TGFBR2", "NOTCH1"],
+        custom_targets=targets, kernel="bisquare", bw_fixed=False, fit_intercept=True, device=device,
+    )
+    t0 = time.perf_counter()
+    model._set_up_model(verbose=False)
+    t_define = time.perf_counter() - t0
+    stages, orig = [], model.mpi_fit
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        out = orig(*args, **kwargs)
+        sync(device)
+        stages.append((kwargs["y_label"], bool(kwargs["final"]), time.perf_counter() - t))
+        return out
+
+    model.mpi_fit = timed
+    coeffs, bws = {}, {}
+    for bw, group in ((fixed_bw, fixed), (None, search)):
+        if not group:
+            continue
+        model.bw = bw
+        model.fit(y=model.targets_expr[list(group)], verbose=False)
+        coeffs.update(model.coeffs)
+        bws.update(model.bws)
+    seconds = {t: (sum(s for lab, f, s in stages if lab == t and not f), sum(s for lab, f, s in stages if lab == t and f))
+               for t in targets}
+    return model, coeffs, bws, seconds, t_define, len(stages)
+
+
+def check_music_effects(coeffs, effect, what):
+    """Each planted target's driving pair has a positive mean coefficient on
+    the receivers its effect lies on. Returns those means."""
+    means = {}
+    for t, m in effect.items():
+        cdf = coeffs[t]
+        cols = [c for c in cdf.columns if c.startswith("b_") and MUSIC_PLANTED_PAIRS[t] in c and ":" in c]
+        check(bool(cols), f"{what}: no fitted pair of {MUSIC_PLANTED_PAIRS[t]} for {t}: {list(cdf.columns)}")
+        rows = np.asarray(m)[: len(cdf)]
+        means[t] = {c[2:]: float(cdf[c].values[rows].mean()) for c in cols}
+        check(max(means[t].values()) > 0, f"{what}: {t}'s {MUSIC_PLANTED_PAIRS[t]} coefficients on its receivers {means[t]}")
+    return means
+
+
+def phase_music_fit():
+    """Phase 14b: `tl.MuSIC(...).fit()` end to end on a 10,000-cell slice."""
+    import tempfile
+
+    adata, effect = music_slice(10_000)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model, coeffs, bws, seconds, t_define, calls = music_fit(adata, tmp)
+        total = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for t, cdf in coeffs.items():
+        check(cdf.shape[0] == 10_000 and bool(np.isfinite(cdf.values).all()), f"{t}: coefficients {cdf.shape}")
+    means = check_music_effects(coeffs, effect, "phase 14b")
+    print(f"phase 14: MuSIC.fit lr model on 10,000 cells ({len(model.feature_names)} features "
+          f"{model.feature_names}): {total!r} s in all; define_sig_inputs {t_define!r} s; per target (search s, "
+          f"final fit s) {seconds}; {calls} mpi_fit calls; bandwidths {bws}; peak device memory {peak_gb!r} GB; "
+          f"driving pairs' mean coefficients on the receivers {means}")
+
+
+def phase_music_cuda_vs_cpu():
+    """Phase 15: MuSIC on the card against the CPU, the same inputs."""
+    import tempfile
+
+    from spateo_tpu_torch.tools import find_neighbors as fn, spatial_degs as sd
+    from spateo_tpu_torch.tools.CCI_effects_modeling import regression_utils as ru
+
+    rng = np.random.default_rng(15)
+    n, k = 2000, 12
+    coords = rng.uniform(0, 100, (n, 2)).astype(np.float32)
+    X = rng.normal(0, 0.3, (n, k)).astype(np.float32)
+    X[:, 0] = 1.0
+    y = rng.poisson(np.exp(np.clip(X @ rng.normal(0, 0.4, k), -4, 4))).astype(np.float32)
+    d2 = ((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1)
+    W = np.exp(-d2 / (2 * 8.0**2)).astype(np.float32)
+    errs = {}
+    for distr in ("gaussian", "poisson", "nb"):
+        out = {dev: ru.iwls_batch_full(y, X, W, distr=distr, ridge_lambda=0.3, clip=5.0, device=dev)
+               for dev in ("cuda", "cpu")}
+        errs[distr] = [float(np.abs(g - c).max() / max(np.abs(c).max(), 1e-30)) for g, c in zip(out["cuda"], out["cpu"])]
+        check(max(errs[distr]) <= 1e-4, f"iwls_batch_full {distr} CUDA vs CPU (betas, hat, inv_diag, pred) {errs[distr]}")
+    print(f"phase 15: iwls_batch_full {n} cells, k {k}, CUDA vs CPU, scaled errors (betas, hat, inv_diag, pred) "
+          f"{errs} (bar 1e-4)")
+
+    ct = rng.integers(1, 4, n).astype(np.int32)
+    cond = rng.random(n) < 0.4
+    w_stats = {}
+    for fixed, bw in ((True, 8.0), (False, 25)):
+        for excl in (False, True):
+            Wd = {}
+            for dev in ("cuda", "cpu"):
+                c = torch.from_numpy(coords).to(dev)
+                ctd = torch.from_numpy(ct).to(dev)
+                Wd[dev] = fn._conditioned_kernel_weights_batch(
+                    c, c, bw, ctd, ctd, torch.from_numpy(cond).to(dev), function="bisquare", fixed=fixed,
+                    exclude_self=excl, self_idx=torch.arange(n, device=dev),
+                ).cpu().numpy()
+            err = float(np.abs(Wd["cuda"] - Wd["cpu"]).max())
+            flips = int(((Wd["cuda"] > 0) != (Wd["cpu"] > 0)).sum())
+            nnz = int((Wd["cpu"] > 0).sum())
+            w_stats[f"{'fixed' if fixed else 'adaptive'}, exclude_self={excl}"] = (err, flips, nnz)
+            check(err <= 2e-3 and flips <= 1e-4 * nnz, f"conditioned weights fixed={fixed} exclude_self={excl}: "
+                  f"max_abs_err {err}, {flips} support flips of {nnz}")
+    print(f"phase 15: conditioned weights {n} x {n}, CUDA vs CPU (max_abs_err, support flips, nonzeros) {w_stats} "
+          f"(bars 2e-3, 1e-4 of the nonzeros)")
+
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+
+    G = 20
+    expr = rng.poisson(np.exp(np.sin(coords[:, :1] / 15.0 * np.arange(1, G + 1)[None, :] / 4))).astype(np.float32)
+    a = stt.AnnData(X=expr, obs=pd.DataFrame(index=[f"c{i}" for i in range(n)]),
+                    var=pd.DataFrame(index=[f"g{j}" for j in range(G)]))
+    a.obsm["spatial"] = coords
+    res = {dev: sd.moran_i(a, permutations=199, seed=3, device=dev) for dev in ("cuda", "cpu")}
+    i_err = float(np.abs(res["cuda"]["moran_i"].values - res["cpu"]["moran_i"].values).max())
+    differ = np.flatnonzero(res["cuda"]["moran_p_val"].values != res["cpu"]["moran_p_val"].values)
+    if len(differ):
+        Z = torch.from_numpy((expr - expr.mean(0, keepdims=True)).astype(np.float32))
+        Wm = torch.from_numpy(sd._spatial_weights(coords.astype(float), 5).astype(np.float32))
+        rng_p = np.random.default_rng(3)
+        perm = torch.from_numpy(np.stack([rng_p.permutation(n) for _ in range(199)]))
+        I_obs, I_perm = sd._moran_replicates(Z, Wm, perm)
+        gap = (I_perm[:, differ] - I_obs[differ][None, :]).abs().min(0).values
+        check(bool((gap <= 1e-5).all()), f"moran_i p-values differ on genes {differ.tolist()} with no permuted I "
+              f"within 1e-5 of the observed one (gaps {gap.tolist()})")
+    check(i_err <= 1e-5, f"moran_i CUDA vs CPU I max_abs_err {i_err}")
+    print(f"phase 15: moran_i {n} cells x {G} genes, 199 permutations, CUDA vs CPU: I max_abs_err {i_err!r} (bar "
+          f"1e-5), p-values differ on {len(differ)} genes (each with a permuted I within 1e-5 of the observed one)")
+
+    small, _ = music_slice(250, seed=11, n_targets=1)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as tmp:
+            _, coeffs, _, _, _, _ = music_fit(small, tmp, device=dev, fixed_bw=10, search=(), distr="poisson")
+            fits[dev] = coeffs["TGT1"]
+    c_err = float(np.abs(fits["cuda"].values - fits["cpu"].values).max() / np.abs(fits["cpu"].values).max())
+    check(list(fits["cuda"].columns) == list(fits["cpu"].columns) and c_err <= MUSIC_FIT_BAR,
+          f"MuSIC.fit CUDA vs CPU coefficients scaled err {c_err} (bar {MUSIC_FIT_BAR})")
+    print(f"phase 15: MuSIC.fit lr model, 250 cells, bw 10, CUDA vs CPU: coefficients scaled err {c_err!r} "
+          f"(bar {MUSIC_FIT_BAR})")
+
+
+#: Card against CPU, one `MuSIC.fit` at a fixed bandwidth: the coefficients'
+#: largest difference over their largest magnitude. Measured 3.7e-6 on an
+#: H100 (the same package on both sides: the weights agree to 2.7e-7).
+MUSIC_FIT_BAR = 1e-5
+
+
 def main():
     # -- phase 0: environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -1372,6 +1708,11 @@ def main():
     phase_morphofield_main(stt)
     phase_morphofield_cuda_vs_cpu(stt)
     phase_atlas_chain()
+
+    # -- phases 14-15: MuSIC ----------------------------------------------------------
+    phase_music_bench()
+    phase_music_fit()
+    phase_music_cuda_vs_cpu()
 
     print(card)
     print(json.dumps({"kernels": [

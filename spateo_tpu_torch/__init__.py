@@ -10,12 +10,15 @@ defaults to ``"cuda"``. It never imports JAX.
     stt.align.morpho_align([fixed, moving], spatial_key="spatial")
     stt.dd.digitize(adata, ctrs, 0, pnt_xy, pnt_Xy, pnt_xY, pnt_XY)
     stt.tdr.morphofield_sparsevfc_batch(aligned_slices, M=100, MaxIter=60)
+    stt.tl.MuSIC(adata=adata, mod_type="lr", custom_ligands=[...], custom_receptors=[...]).fit()
 """
 
 from . import alignment as align
 from . import digitization as dd
+from . import preprocessing as pp
 from . import segmentation as cs
-from . import tdr
+from . import svg, tdr
+from . import tools as tl
 from .configuration import SKM
 from .core.anndata import AnnData, concat, read_h5ad
 from .errors import ConfigurationError, SegmentationError, SpateoError

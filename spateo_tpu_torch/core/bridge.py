@@ -6,8 +6,9 @@ the copy is asynchronous on the current stream. `adata_from_reference` builds
 the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
 fields, `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho solve's
 EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
-learned SparseVFC field and a Morpho vector field; all are duck-typed, so
-that this module never imports the JAX package.
+learned SparseVFC field and a Morpho vector field, and
+`music_state_from_reference` a MuSIC design; all are duck-typed, so that this
+module never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -129,3 +130,40 @@ def vecfld_from_reference(vecfld) -> dict:
     norm_dict, the init and optimal R and t, kernel_dict, ...) as numpy
     copies."""
     return {k: _host_copy(vecfld[k]) for k in VECFLD_KEYS if k in vecfld}
+
+
+def music_state_from_reference(model) -> dict:
+    """The design of a `spateo_tpu` `MuSIC` after `define_sig_inputs`, as
+    copies for the port's `MuSIC.load_state`: X (with the intercept column),
+    feature_names, targets_expr, coords, sample_names, ct_vec, x_chunk, the
+    subsampling dictionaries (present after `run_subsample`) and the
+    membrane-bound, secreted and niche spatial weights (scipy CSR; None where
+    the model type has none)."""
+    import copy
+
+    adata = getattr(model, "adata", None)
+    niche = None
+    if adata is not None and "spatial_weights" in adata.obsp:
+        niche = adata.obsp["spatial_weights"]
+
+    def csr(w):
+        return None if w is None else sparse.csr_matrix(w, copy=True)
+
+    ct = getattr(model, "ct_vec", None)
+    return {
+        "X": np.array(model.X, dtype=float),
+        "feature_names": list(model.feature_names),
+        "targets_expr": model.targets_expr.copy(),
+        "coords": np.array(model.coords, dtype=float),
+        "sample_names": list(map(str, model.sample_names)),
+        "ct_vec": None if ct is None else np.array(ct),
+        "x_chunk": np.array(model.x_chunk),
+        "subsampled": bool(getattr(model, "subsampled", False)),
+        **{
+            k: copy.deepcopy(getattr(model, k, {}))
+            for k in ("subsampled_indices", "n_samples_subsampled", "subsampled_sample_names", "neighboring_unsampled")
+        },
+        "spatial_weights_membrane_bound": csr(getattr(model, "spatial_weights_membrane_bound", None)),
+        "spatial_weights_secreted": csr(getattr(model, "spatial_weights_secreted", None)),
+        "spatial_weights_niche": csr(niche),
+    }

@@ -48,6 +48,9 @@ class LoggerManager:
     def __init__(self, namespace: str = "spateo"):
         self.main_logger = Logger(namespace)
 
+    def get_main_logger(self) -> Logger:
+        return self.main_logger
+
     def main_set_level(self, level):
         self.main_logger.setLevel(level)
 

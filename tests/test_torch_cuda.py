@@ -576,3 +576,103 @@ def test_sparsevfc_em_cholesky_failure_raises(cuda):
     one = torch.ones(1, device="cuda")
     with pytest.raises(torch.linalg.LinAlgError):
         vfc._run_em(K, U, Y, one, 3.0, 0.9, 5.0, 0.0, 1e-5, 12, False, one)
+
+
+def test_music_tf32_stays_off(cuda):
+    """MuSIC's distance dot takes `precision="highest"` in the JAX package and
+    `wt @ F` sums n products an entry: the port's products must stay f32."""
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("distr", ["gaussian", "poisson", "nb"])
+def test_music_iwls_batch_full_cuda_matches_cpu(cuda, distr):
+    """`iwls_batch_full` at 2,000 cells, k = 12, on the card and on the CPU:
+    betas, hats, inv_diag and preds within 1e-4 of scale; a CUDA weight
+    tensor stays on the card."""
+    from spateo_tpu_torch.tools.CCI_effects_modeling import regression_utils as ru
+
+    rng = np.random.default_rng(15)
+    n, k = 2000, 12
+    coords = rng.uniform(0, 100, (n, 2)).astype(np.float32)
+    X = rng.normal(0, 0.3, (n, k)).astype(np.float32)
+    X[:, 0] = 1.0
+    y = rng.poisson(np.exp(np.clip(X @ rng.normal(0, 0.4, k), -4, 4))).astype(np.float32)
+    W = np.exp(-((coords[:, None, :] - coords[None, :, :]) ** 2).sum(-1) / (2 * 8.0**2)).astype(np.float32)
+    kw = dict(distr=distr, ridge_lambda=0.3, clip=5.0)
+    g = ru.iwls_batch_full(y, X, torch.from_numpy(W).to(cuda), device="cpu", **kw)
+    c = ru.iwls_batch_full(y, X, W, device="cpu", **kw)
+    for a, b in zip(g, c):
+        assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max()
+
+
+@pytest.mark.parametrize("exclude_self", [False, True])
+@pytest.mark.parametrize("fixed,bw", [(True, 8.0), (False, 25)])
+def test_music_conditioned_weights_cuda_matches_cpu(cuda, fixed, bw, exclude_self):
+    """The conditioned weights on 2,000 points: within 2e-3 absolute, support
+    flips at most 1e-4 of the nonzeros."""
+    from spateo_tpu_torch.tools import find_neighbors as fn
+
+    rng = np.random.default_rng(16)
+    n = 2000
+    coords = rng.uniform(0, 100, (n, 2)).astype(np.float32)
+    ct = rng.integers(1, 4, n).astype(np.int32)
+    cond = rng.random(n) < 0.4
+    W = {}
+    for d in ("cuda", "cpu"):
+        c, ctd = torch.from_numpy(coords).to(d), torch.from_numpy(ct).to(d)
+        W[d] = fn._conditioned_kernel_weights_batch(
+            c, c, bw, ctd, ctd, torch.from_numpy(cond).to(d), fixed=fixed, exclude_self=exclude_self,
+            self_idx=torch.arange(n, device=d),
+        )
+    assert W["cuda"].is_cuda
+    g, c = W["cuda"].cpu().numpy(), W["cpu"].numpy()
+    assert np.abs(g - c).max() <= 2e-3
+    assert ((g > 0) != (c > 0)).sum() <= 1e-4 * (c > 0).sum()
+
+
+def test_music_moran_i_cuda_matches_cpu(cuda):
+    """`moran_i` on 2,000 cells x 20 genes, 199 permutations: I within 1e-5,
+    p-values equal except where a permuted I lies within 1e-5 of the
+    observed one."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.tools import spatial_degs as sd
+
+    rng = np.random.default_rng(17)
+    n, G = 2000, 20
+    coords = rng.uniform(0, 100, (n, 2)).astype(np.float32)
+    expr = rng.poisson(np.exp(np.sin(coords[:, :1] / 15.0 * np.arange(1, G + 1)[None, :] / 4))).astype(np.float32)
+    a = stt.AnnData(X=expr, obs=pd.DataFrame(index=[f"c{i}" for i in range(n)]))
+    a.obsm["spatial"] = coords
+    r = {d: sd.moran_i(a, permutations=199, seed=3, device=d) for d in ("cuda", "cpu")}
+    assert np.abs(r["cuda"]["moran_i"].values - r["cpu"]["moran_i"].values).max() <= 1e-5
+    differ = r["cuda"]["moran_p_val"].values != r["cpu"]["moran_p_val"].values
+    if differ.any():
+        rng_p = np.random.default_rng(3)
+        perm = torch.from_numpy(np.stack([rng_p.permutation(n) for _ in range(199)]))
+        Z = torch.from_numpy(expr - expr.mean(0, keepdims=True))
+        Wm = torch.from_numpy(sd._spatial_weights(coords.astype(float), 5).astype(np.float32))
+        I_obs, I_perm = sd._moran_replicates(Z, Wm, perm)
+        assert bool(((I_perm[:, differ] - I_obs[differ][None, :]).abs().min(0).values <= 1e-5).all())
+
+
+def test_music_fit_cuda_matches_cpu(cuda, tmp_path):
+    """One `MuSIC.fit` (lr model, 250 cells, bw 10 neighbours, poisson) on
+    the card and on the CPU: coefficients within `chip_smoke.MUSIC_FIT_BAR`
+    of scale; the weights of `mpi_fit` stay on the card."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    adata, _ = chip_smoke.music_slice(250, seed=11, n_targets=1)
+    fits = {}
+    for d in ("cuda", "cpu"):
+        model, coeffs, _, _, _, _ = chip_smoke.music_fit(adata, tmp_path / d, device=d, fixed_bw=10, search=(),
+                                                         distr="poisson")
+        fits[d] = coeffs["TGT1"].values
+        if d == "cuda":
+            assert model._conditioned_weights(model.targets_expr["TGT1"].values, 10, np.arange(4)).is_cuda
+    assert np.abs(fits["cuda"] - fits["cpu"]).max() <= chip_smoke.MUSIC_FIT_BAR * np.abs(fits["cpu"]).max()

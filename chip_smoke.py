@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
-EM+BP slice, the Morpho alignment slice, the digitization slice with its
+EM+BP slice and the rest of Starro, the Morpho alignment slice, the digitization slice with its
 labeling chain, the morphofield slice, the whole atlas chain, and MuSIC.
 Run from the repository root, with no arguments:
 
@@ -108,6 +108,30 @@ final ``ok`` line:
    absolute, support flips <= 1e-4 of the nonzeros); `moran_i` on 2,000 x 20
    genes, 199 permutations (I within 1e-5, p-values equal except at ties
    within 1e-5); one `MuSIC.fit` on 250 cells at a fixed bandwidth.
+
+16. The Starro tutorial through the port on `two_depth_tile(2048)`
+   (`bench.make_raster(2048, 2048, seed=0)` with a second NB(1, 0.5)
+   background on its right half), after a warm-up: `segment_densities`
+   (binsize 32, k 5, dk 3, the knee), the staged `score_and_mask_pixels`
+   (EM+BP with the bins: `bp_step` in f32, its delta read every iteration,
+   counted), `find_peaks_from_mask`, `watershed`,
+   `label_connected_components`, `expand_labels`; seconds per stage, bins,
+   labels, safe_erode's host reads, peak memory; the mask's IoU with the
+   planted disks (`planted_disks`). Then EM, EM+gauss, VI+BP and moran on
+   the same tile and bins (each warmed up on a 512² corner),
+   `mask_nuclei_from_stain` on a stain of the disks, the staged scoring and
+   the VI fit under the profiler (idle share, launches, top device ops),
+   `starro_em_bp_stream` of four 2048² tiles with `em_batch` 1 and
+   4 (identical outputs; Mpixels/s; the EM's launches an iteration under
+   the profiler), and a GEM round trip of a 512² tile (`read_bgi_agg`,
+   segmentation, `read_bgi` to cells x genes).
+17. The rest of Starro, card against CPU at 512² with two bins, a band
+   outside them and a certain mask: `_score_pixels` for EM+BP, VI+BP (from
+   one CPU fit) and EM (scores within 1e-3, Otsu masks IoU >= 0.999,
+   `label_connected_components` equal), the VI fits on both (5e-2
+   relative), `bp_kernel` on the binned phi (exact 0/1 outside the bins,
+   f32, checked every iteration) bit for bit against the plain loop with
+   the same iterations, and `safe_erode`'s bools.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
@@ -1590,6 +1614,294 @@ def phase_music_cuda_vs_cpu():
 MUSIC_FIT_BAR = 1e-5
 
 
+#: Phase 16's NB fits: 20,000 samples over the density bins (each bin its
+#: share), seed 0; `downsample` of 0.001 leaves a 256² or 512² bin a handful.
+TUTORIAL_EM = dict(seed=0, downsample=20000)
+TUTORIAL_VI = dict(seed=0, downsample=20000)
+#: The staged EM+BP mask's IoU with the planted disks of the two-depth tile.
+#: On the CPU, `starro_tutorial(two_depth_tile(512), 32, "cpu")` (15 bins)
+#: gives 0.72 and `starro_em_bp` on that tile 0.80; at 256² with binsize 4
+#: (55 bins of ~1,200 pixels, most without a cell, whose mixtures split the
+#: background) the staged mask gives 0.06, no bar to set one from.
+PLANTED_IOU_BAR = 0.6
+
+
+def planted_disks(n, seed=0):
+    """The cell disks `bench.make_raster(n, n, seed)` plants, from a replay
+    of its draws."""
+    rng = np.random.default_rng(seed)
+    rng.negative_binomial(1, 0.5, (n, n))
+    m = np.zeros((n, n), bool)
+    for _ in range((n * n) // 2500):
+        cy, cx = int(rng.integers(0, n)), int(rng.integers(0, n))
+        r = int(rng.integers(4, 10))
+        y0, y1, x0, x1 = max(cy - r, 0), min(cy + r + 1, n), max(cx - r, 0), min(cx + r + 1, n)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        m[y0:y1, x0:x1] |= disk
+        rng.negative_binomial(8, 0.35, int(disk.sum()))
+    return m
+
+
+def two_depth_tile(n, seed=0):
+    """`bench.make_raster(n, n, seed)` with an independent NB(1, 0.5)
+    background draw added to its right half: two tissue depths."""
+    from bench import make_raster
+
+    X = make_raster(n, n, seed=seed)
+    X[:, n // 2 :] += np.random.default_rng(seed + 10_000).negative_binomial(1, 0.5, (n, n - n // 2))
+    return X
+
+
+def starro_tutorial(X, binsize, device="cuda"):
+    """The Starro tutorial on one raster through the port's public API:
+    `segment_densities` (k 5, dk 3, the Ward cut at the knee), the staged
+    `score_and_mask_pixels(method="EM+BP")` with those bins,
+    `find_peaks_from_mask` (min_distance 3), `watershed`,
+    `label_connected_components` (into ``X_cc``) and `expand_labels`.
+    Returns (adata, {stage: seconds}, (bp_step launches, fused deltas) of
+    the scoring stage on the card, else None)."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.ops import bp_cuda
+
+    a = stt.AnnData(X=X)
+    stt.SKM.init_adata_type(a, stt.SKM.ADATA_AGG_TYPE)
+    stages, counts = {}, None
+
+    def timed(name, fn):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        stages[name] = time.perf_counter() - t0
+
+    timed("segment_densities", lambda: stt.cs.segment_densities(a, "X", binsize, 5, 3, device=device))
+    bp_cuda.bp_step.launches = bp_cuda.bp_step.delta_launches = 0
+    timed("score_and_mask_pixels", lambda: stt.cs.score_and_mask_pixels(
+        a, "X", 5, "EM+BP", bins_layer="X_bins", em_kwargs=TUTORIAL_EM, device=device))
+    if torch.device(device).type == "cuda":
+        counts = (bp_cuda.bp_step.launches, bp_cuda.bp_step.delta_launches)
+    timed("find_peaks_from_mask", lambda: stt.cs.find_peaks_from_mask(a, "X", 3, device=device))
+    timed("watershed", lambda: stt.cs.watershed(a, "X", device=device))
+    timed("label_connected_components",
+          lambda: stt.cs.label_connected_components(a, "X", out_layer="X_cc", device=device))
+    timed("expand_labels", lambda: stt.cs.expand_labels(a, "X", device=device))
+    return a, stages, counts
+
+
+def write_gem(X, path, n_genes=20, seed=0):
+    """A GEM file of raster X: one read row a nonzero pixel (x = row, y =
+    column), its count split over nothing, its gene drawn at random."""
+    import gzip
+
+    import pandas as pd
+
+    rows, cols = np.nonzero(X)
+    genes = np.random.default_rng(seed).integers(0, n_genes, rows.size)
+    df = pd.DataFrame({"geneID": [f"g{g}" for g in genes], "x": rows, "y": cols,
+                       "MIDCounts": X[rows, cols].astype(np.int64)})
+    with gzip.open(path, "wt") as f:
+        df.to_csv(f, sep="\t", index=False)
+
+
+def phase_starro_tutorial():
+    """Phase 16. Returns the scoring stage's (bp_step launches, deltas)."""
+    import tempfile
+
+    from bench import make_raster
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.ops import em
+    from spateo_tpu_torch.segmentation import starro as ts
+    from spateo_tpu_torch.segmentation import utils as sut
+
+    X = two_depth_tile(TILE, 0)
+    P = planted_disks(TILE, 0)
+    starro_tutorial(X, 32)  # warm-up: first-call costs of each op
+    torch.cuda.reset_peak_memory_stats()
+    reads = sut.safe_erode.host_reads
+    a, stages, (launches, deltas) = starro_tutorial(X, 32)
+    reads = sut.safe_erode.host_reads - reads
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bins, scores, mask = a.layers["X_bins"], a.layers["X_scores"], a.layers["X_mask"]
+    n_bins = len(np.unique(bins))
+    check(scores.shape == X.shape and bool(np.isfinite(scores).all()), "staged scores not finite or wrong shape")
+    check(mask.dtype == bool and 0.01 < mask.mean() < 0.3, f"staged mask share {mask.mean()}")
+    disk_iou = iou(mask, P)
+    check(disk_iou >= PLANTED_IOU_BAR, f"staged mask IoU with the planted disks {disk_iou} < {PLANTED_IOU_BAR}")
+    # the staged BP reads its delta after every iteration: one fused delta a launch
+    check(0 < launches <= 100 and deltas == launches, f"staged bp_step launches {launches}, fused deltas {deltas}")
+    n_labels = {k: int(a.layers[k].max()) for k in ("X_labels", "X_cc", "X_labels_expanded")}
+    n_cells = TILE * TILE // 2500  # disks planted, some touching
+    check(all(0.5 * n_cells < v < 2 * n_cells for v in n_labels.values()), f"labels {n_labels}, {n_cells} disks")
+    print(f"phase 16: Starro tutorial {TILE}x{TILE}, two depths (stages, s, host clock, synchronised): "
+          + ", ".join(f"{k}={v!r}" for k, v in stages.items()) + f"; total {sum(stages.values())!r} s; "
+          f"{n_bins} density bins (binsize 32, knee); mask share {float(mask.mean())!r}, IoU with the planted disks "
+          f"{disk_iou!r} (bar {PLANTED_IOU_BAR}); labels {n_labels}; bp_step launches {launches} with {deltas} fused "
+          f"deltas (f32, checked every iteration); safe_erode host reads {reads}; peak device memory {peak_gb!r} GB")
+
+    # the other methods on the same tile and bins, each warmed up first on a
+    # 512² corner (their ops' first calls compile kernels: 18 s for VI's)
+    others = {}
+    stain = (P * 200 + np.random.default_rng(1).integers(0, 10, P.shape)).astype(np.uint8)
+    corner = stt.AnnData(X=X[:512, :512], layers={"X_bins": bins[:512, :512], "stain": stain[:512, :512]})
+    stt.SKM.init_adata_type(corner, stt.SKM.ADATA_AGG_TYPE)
+    stt.cs.mask_nuclei_from_stain(corner)
+    for method in ("EM", "EM+gauss", "VI+BP", "moran"):
+        kw = dict(em_kwargs=TUTORIAL_EM) if "EM" in method else dict(vi_kwargs=TUTORIAL_VI) if "VI" in method else {}
+        stt.cs.score_and_mask_pixels(corner, "X", 5, method, **kw)
+        t, _ = host_ms(lambda: stt.cs.score_and_mask_pixels(a, "X", 5, method, scores_layer="s_" + method,
+                                                            mask_layer="m_" + method, **kw))
+        s, m = a.layers["s_" + method], a.layers["m_" + method]
+        check(s.shape == X.shape and bool(np.isfinite(s).all()) and 0.005 < m.mean() < 0.5,
+              f"{method}: scores finite {np.isfinite(s).all()}, mask share {m.mean()}")
+        others[method] = (t, float(m.mean()), iou(m, P))
+    a.layers["stain"] = stain
+    t_stain, _ = host_ms(lambda: stt.cs.mask_nuclei_from_stain(a))
+    stain_iou = iou(a.layers["stain_mask"], P)
+    check(stain_iou >= 0.8, f"mask_nuclei_from_stain IoU with the disks {stain_iou}")
+    print("phase 16: other methods on the same tile and bins (ms, mask share, IoU with the planted disks): "
+          + ", ".join(f"{k}=({v[0]!r}, {v[1]!r}, {v[2]!r})" for k, v in others.items())
+          + f"; mask_nuclei_from_stain on the disks' stain {t_stain!r} ms, IoU {stain_iou!r}")
+
+    # where the staged scoring and the VI fit spend their time
+    from spateo_tpu_torch.ops.image import conv2d
+    from spateo_tpu_torch.segmentation import icell, vi
+
+    _, wall, busy, nl, ops = device_profile(lambda: stt.cs.score_and_mask_pixels(
+        a, "X", 5, "EM+BP", em_kwargs=TUTORIAL_EM, scores_layer="s_profiled", mask_layer="m_profiled"))
+    res = conv2d(X, 5, bins=bins)
+    params = icell._initial_nb_params(res, bins)
+    _, vwall, _, vnl, vops = device_profile(lambda: vi.run_vi(res.cpu().numpy(), bins=bins, params=params,
+                                                              **TUTORIAL_VI))
+    vops = {k: v for k, v in vops.items() if not k.startswith("Optimizer.")}  # an annotation, not a device op
+    vbusy = sum(ms for ms, _ in vops.values())
+    top = lambda d: ", ".join(f"{short_op(k, 60)} {v[0]!r}/{v[1]}" for k, v in list(d.items())[:5])
+    print(f"phase 16: under torch.profiler (wall ms, device busy ms, idle share, kernel launches): staged EM+BP "
+          f"scoring ({wall!r}, {busy!r}, {1 - busy / wall!r}, {nl}), top ops (ms/events) {top(ops)}; the VI fit of "
+          f"{n_bins - (0 in bins)} bins, 500 Adam steps ({vwall!r}, {vbusy!r}, {1 - vbusy / vwall!r}, {vnl}), top ops "
+          f"{top(vops)}")
+
+    # the stream, per-tile fits against fits of 4 tiles at once
+    tiles = [make_raster(TILE, TILE, seed=s) for s in range(4)]
+    kw = dict(k=5, seed=0, bp_max_iter=50, mask_only=True)
+    for b in (1, 4):
+        list(stt.cs.starro_em_bp_stream(tiles, em_batch=b, **kw))  # warm-up
+    t1, out1 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=1, **kw)))
+    t4, out4 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=4, **kw)))
+    same = all(np.array_equal(m1, m4) and torch.equal(s1, s4) for (s1, m1), (s4, m4) in zip(out1, out4))
+    check(same, "em_batch=4 stream differs from the per-tile stream")
+    n_samples = ts._n_samples(TILE * TILE, 0.001)
+    phase_a = [ts._starro_density_init_sample(ts._upload(t, "cuda"), 5, n_samples, 0) for t in tiles]
+    per_iter = {}
+    for b in (1, 4):
+        stats = {}
+        args = [torch.stack([p[i] for p in phase_a[:b]]) for i in (1, 2, 3, 4)]
+        ones = torch.ones((b, n_samples), dtype=torch.bool, device="cuda")
+        _, wall, busy, nl, _ = device_profile(lambda: em._nbn_em_batched(args[0], ones, *args[1:], 2000, 1e-6,
+                                                                         stats=stats, rowwise=True))
+        per_iter[b] = (nl / stats["n_iter"], stats["n_iter"], wall)
+    mpx = 4 * TILE * TILE / 1e3
+    print(f"phase 16: stream of 4 tiles {TILE}x{TILE}: em_batch=1 {t1!r} ms ({mpx / t1!r} Mpixels/s), em_batch=4 "
+          f"{t4!r} ms ({mpx / t4!r} Mpixels/s), masks and scores identical {same}; the EM's launches an iteration "
+          f"(iterations, wall ms under the profiler): B=1 {per_iter[1]}, B=4 {per_iter[4]}")
+
+    # the GEM round trip
+    Xg = make_raster(512, 512, seed=5)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/tile.gem.gz"
+        write_gem(Xg, path)
+        t_agg, agg = host_ms(lambda: stt.io.read_bgi_agg(path))
+        check(np.array_equal(agg.X.toarray(), Xg.astype(np.uint16)), "read_bgi_agg did not give the raster back")
+        stt.cs.score_and_mask_pixels(agg, "X", 5, "EM+BP", em_kwargs=dict(seed=0))
+        stt.cs.find_peaks_from_mask(agg, "X", 3)
+        stt.cs.watershed(agg, "X")
+        t_cells, cells = host_ms(lambda: stt.io.read_bgi(path, segmentation_adata=agg, labels_layer="X_labels"))
+    labels = agg.layers["X_labels"]
+    check(stt.SKM.get_adata_type(cells) == "UMI" and cells.n_obs == len(np.unique(labels[labels > 0]))
+          and cells.n_vars == 20 and int(cells.X.sum()) == int(Xg[labels > 0].sum()),
+          f"read_bgi: {cells.n_obs} cells x {cells.n_vars} genes, {cells.X.sum()} counts")
+    print(f"phase 16: GEM round trip 512x512: read_bgi_agg {t_agg!r} ms, read_bgi {t_cells!r} ms, {cells.n_obs} cells "
+          f"x {cells.n_vars} genes, {int(cells.X.sum())} counts (those of the labelled pixels)")
+    return launches, deltas
+
+
+def phase_starro_cuda_vs_cpu():
+    """Phase 17: the staged methods, the binned BP, labels and safe erosion,
+    card against CPU at 512²."""
+    from spateo_tpu_torch.ops import bp_cuda, em
+    from spateo_tpu_torch.ops.image import conv2d
+    from spateo_tpu_torch.ops.threshold import threshold_otsu
+    from spateo_tpu_torch.segmentation import icell, vi
+    from spateo_tpu_torch.segmentation.label import _label_connected_components
+    from spateo_tpu_torch.segmentation.utils import _apply_threshold, safe_erode
+
+    n = 512
+    X = two_depth_tile(n, 2)
+    bins = np.ones((n, n), np.int64)
+    bins[:, n // 2 :] = 2
+    bins[: n // 16] = 0  # exact 0/1 potentials outside the bins
+    certain = np.zeros((n, n), bool)
+    certain[200:206, 300:306] = True
+    out = {}
+    real_vi = vi.run_vi
+    fits = {}
+
+    def vi_once(*args, **kwargs):  # the VI fit made once on the CPU, used on both sides
+        if "fit" not in fits:
+            fits["fit"] = real_vi(*args, **dict(kwargs, device="cpu"))
+        return fits["fit"]
+
+    vi.run_vi = vi_once
+    try:
+        for method in ("EM+BP", "VI+BP", "EM"):
+            kw = dict(em_kwargs=TUTORIAL_EM) if "EM" in method else dict(vi_kwargs=TUTORIAL_VI)
+            s = {dev: icell._score_pixels(X, 5, method, certain_mask=certain, bins=bins, device=dev, **kw).cpu()
+                 for dev in ("cuda", "cpu")}
+            # EM's posterior is NaN outside the bins (0 / 0, as in the JAX
+            # package): the masks threshold the finite scores at their Otsu cut
+            m = {dev: _apply_threshold(torch.nan_to_num(v, nan=0.0), 7, threshold_otsu(v[torch.isfinite(v)])).numpy()
+                 for dev, v in s.items()}
+            lab = {dev: _label_connected_components(m["cuda"], device=dev) for dev in ("cuda", "cpu")}
+            nan_same = bool(torch.equal(torch.isnan(s["cuda"]), torch.isnan(s["cpu"])))
+            err = float(torch.nan_to_num(s["cuda"] - s["cpu"], nan=0.0).abs().max()) if nan_same else float("inf")
+            out[method] = (err, iou(m["cuda"], m["cpu"]), bool(np.array_equal(lab["cuda"], lab["cpu"])))
+            check(err <= 1e-3 and out[method][1] >= 0.999 and out[method][2],
+                  f"{method} card vs CPU: scores max_abs_err {err}, mask IoU {out[method][1]}, labels equal "
+                  f"{out[method][2]}")
+    finally:
+        vi.run_vi = real_vi
+    res = conv2d(X, 5, bins=bins, device="cpu")
+    params = icell._initial_nb_params(res, bins)
+    fit_c = real_vi(res.numpy(), bins=bins, params=params, device="cuda", **TUTORIAL_VI)
+    fit_h = real_vi(res.numpy(), bins=bins, params=params, device="cpu", **TUTORIAL_VI)
+    vi_err = max(float(np.max(np.abs(fit_c[b][k] - fit_h[b][k]) / np.abs(fit_h[b][k]))) for b in fit_h for k in fit_h[b])
+    check(vi_err <= 5e-2, f"VI fits card vs CPU relative error {vi_err}")
+
+    # bp_kernel on the binned phi, f32, checked every iteration: bit for bit
+    fit = em.run_em(res.numpy(), bins=bins, params=params, device="cpu", **TUTORIAL_EM)
+    bg, cell = em.conditionals(res, fit, torch.as_tensor(bins))
+    phi = torch.stack([bg, cell], dim=-1)
+    phi = phi / torch.clamp_min(phi.sum(-1, keepdim=True), 1e-30)
+    check(bool((phi[: n // 16] == torch.tensor([1.0, 0.0])).all()), "phi outside the bins is not exactly (1, 0)")
+    st = {"cuda": {}, "cpu": {}}
+    marg = {dev: bp_cuda.bp_kernel(phi.to(dev), BP_P, BP_Q, 1e-6, 100, check_every=1, stats=st[dev]).cpu()
+            for dev in ("cuda", "cpu")}
+    bp_same = st["cuda"]["n_iter"] == st["cpu"]["n_iter"] and bool(torch.equal(marg["cuda"], marg["cpu"]))
+    check(bp_same, f"binned bp_kernel card vs plain: iterations {st}, max_abs_err "
+                   f"{float((marg['cuda'] - marg['cpu']).abs().max())}")
+
+    # safe erosion of the tile's large components
+    m = _apply_threshold(marg["cpu"], 7, threshold_otsu(marg["cpu"])).numpy()
+    se = {dev: safe_erode(m, 3, min_area=30, device=dev) for dev in ("cuda", "cpu")}
+    check(np.array_equal(se["cuda"], se["cpu"]), "safe_erode card vs CPU differ")
+    print("phase 17: 512x512 with bins and a certain mask, card vs CPU (scores max_abs_err (bar 1e-3), mask IoU "
+          "(bar 0.999), label_connected_components labels equal): "
+          + ", ".join(f"{k}={v}" for k, v in out.items())
+          + f" (VI+BP from one CPU fit; the VI fits themselves card vs CPU within {vi_err!r} relative, bar 5e-2); "
+          f"bp_kernel on the binned phi (f32, checked every iteration) {st['cuda']['n_iter']} iterations, "
+          f"bit-identical to the plain loop {bp_same}; safe_erode bools equal ({int(se['cuda'].sum())} pixels)")
+
+
 def main():
     # -- phase 0: environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -1714,6 +2026,10 @@ def main():
     phase_music_fit()
     phase_music_cuda_vs_cpu()
 
+    # -- phases 16-17: the rest of Starro ------------------------------------------------
+    staged_launches, staged_deltas = phase_starro_tutorial()
+    phase_starro_cuda_vs_cpu()
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -1721,8 +2037,10 @@ def main():
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/bp_step.cu",
             "replaces": "spateo_tpu/ops/bp_pallas.py:63",
-            "launches": launches,
-            "delta_launches": delta_launches,
+            "launches": launches + staged_launches,
+            "delta_launches": delta_launches + staged_deltas,
+            "launches_by_path": {"phase 3 (fused EM+BP)": launches, "phase 16 (staged EM+BP with bins)":
+                                 staged_launches},
             **kstats,
         },
         {

@@ -6,7 +6,12 @@ PyTorch and each TPU kernel on a ported path is a hand-written CUDA kernel
 defaults to ``"cuda"``. It never imports JAX.
 
     import spateo_tpu_torch as stt
-    stt.cs.score_and_mask_pixels(adata, "X", k=5, method="EM+BP")
+    agg = stt.io.read_bgi_agg("tile.gem.gz")
+    stt.cs.segment_densities(agg, "X", binsize=32, k=5, dk=3)
+    stt.cs.score_and_mask_pixels(agg, "X", k=5, method="EM+BP")
+    stt.cs.find_peaks_from_mask(agg, "X", min_distance=5)
+    stt.cs.watershed(agg, "X")
+    cells = stt.io.read_bgi("tile.gem.gz", segmentation_adata=agg, labels_layer="X_labels")
     stt.align.morpho_align([fixed, moving], spatial_key="spatial")
     stt.dd.digitize(adata, ctrs, 0, pnt_xy, pnt_Xy, pnt_xY, pnt_XY)
     stt.tdr.morphofield_sparsevfc_batch(aligned_slices, M=100, MaxIter=60)
@@ -15,6 +20,7 @@ defaults to ``"cuda"``. It never imports JAX.
 
 from . import alignment as align
 from . import digitization as dd
+from . import io
 from . import preprocessing as pp
 from . import segmentation as cs
 from . import svg, tdr

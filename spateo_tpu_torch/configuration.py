@@ -28,9 +28,25 @@ class SpateoAdataKeyManager:
     ADATA_AGG_TYPE = "AGG"  # aggregated UMI counts on a pixel raster
     ADATA_UMI_TYPE = "UMI"  # obs x genes (canonical)
 
+    UNS_PP_KEY = "pp"
+    UNS_SPATIAL_KEY = "spatial"
+    UNS_SPATIAL_BINSIZE_KEY = "binsize"
+    UNS_SPATIAL_SCALE_KEY = "scale"
+    UNS_SPATIAL_SCALE_UNIT_KEY = "scale_unit"
+
+    SPLICED_LAYER_KEY = "spliced"
+    UNSPLICED_LAYER_KEY = "unspliced"
+    STAIN_LAYER_KEY = "stain"
+    LABELS_LAYER_KEY = "labels"
     MASK_SUFFIX = "mask"
+    MARKERS_SUFFIX = "markers"
+    DISTANCES_SUFFIX = "distances"
     BINS_SUFFIX = "bins"
+    LABELS_SUFFIX = "labels"
     SCORES_SUFFIX = "scores"
+    EXPANDED_SUFFIX = "expanded"
+    AUGMENTED_SUFFIX = "augmented"
+    BOUNDARY_SUFFIX = "boundary"
 
     X_LAYER = "X"
 
@@ -128,6 +144,23 @@ class SpateoAdataKeyManager:
         if t is None:
             t = SpateoAdataKeyManager.ADATA_DEFAULT_TYPE
         adata.uns[SpateoAdataKeyManager.ADATA_TYPE_KEY] = t
+
+    @staticmethod
+    def init_uns_pp_namespace(adata: AnnData):
+        adata.uns.setdefault(SpateoAdataKeyManager.UNS_PP_KEY, {})
+
+    @staticmethod
+    def init_uns_spatial_namespace(adata: AnnData):
+        adata.uns.setdefault(SpateoAdataKeyManager.UNS_SPATIAL_KEY, {})
+
+    @staticmethod
+    def set_uns_spatial_attribute(adata: AnnData, key: str, value: object):
+        SpateoAdataKeyManager.init_uns_spatial_namespace(adata)
+        adata.uns[SpateoAdataKeyManager.UNS_SPATIAL_KEY][key] = value
+
+    @staticmethod
+    def get_uns_spatial_attribute(adata: AnnData, key: str) -> object:
+        return adata.uns[SpateoAdataKeyManager.UNS_SPATIAL_KEY][key]
 
 
 SKM = SpateoAdataKeyManager

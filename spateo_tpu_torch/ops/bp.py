@@ -89,6 +89,32 @@ def _bp_kernel(
     return belief[..., 1]
 
 
+def _cell_marginals_t(
+    background: torch.Tensor,
+    cell: torch.Tensor,
+    neighborhood: Optional[np.ndarray] = None,
+    p: float = 0.6,
+    q: float = 0.4,
+    precision: float = 1e-5,
+    max_iter: int = 100,
+) -> torch.Tensor:
+    """`cell_marginals` on tensors: the marginals on their device. A CUDA
+    tensor with the 4-neighbourhood takes `bp_kernel` (f32 messages, the
+    delta read after every iteration), as the JAX package takes its Pallas
+    loop on a TPU."""
+    if cell.shape != background.shape:
+        raise ValueError("`cell_probs` and `background_probs` must have the same shape")
+    neighborhood = (neighborhood > 0) if neighborhood is not None else circle(3).astype(bool)
+    if cell.dim() != neighborhood.ndim:
+        raise ValueError("`neighborhood` and `cell_probs` must have the same number of dimensions")
+    offsets = tuple(map(tuple, create_neighbor_offsets(neighborhood).tolist()))
+    phi = torch.stack([background.to(torch.float32), cell.to(torch.float32)], dim=-1)
+    phi = phi / torch.clamp_min(torch.sum(phi, dim=-1, keepdim=True), 1e-30)
+    if _use_cuda_bp(offsets, phi):
+        return bp_kernel(phi, float(p), float(q), float(precision), int(max_iter))
+    return _bp_kernel(phi, offsets, float(p), float(q), float(precision), int(max_iter))
+
+
 def cell_marginals(
     background_probs: np.ndarray,
     cell_probs: np.ndarray,
@@ -100,25 +126,15 @@ def cell_marginals(
     device="cuda",
 ) -> np.ndarray:
     """Marginal P(cell) per pixel by loopy BP on `device`; a host array."""
-    if cell_probs.shape != background_probs.shape:
-        raise ValueError("`cell_probs` and `background_probs` must have the same shape")
-    neighborhood = (neighborhood > 0) if neighborhood is not None else circle(3).astype(bool)
-    if np.asarray(cell_probs).ndim != neighborhood.ndim:
-        raise ValueError("`neighborhood` and `cell_probs` must have the same number of dimensions")
-    offsets = tuple(map(tuple, create_neighbor_offsets(neighborhood).tolist()))
-    phi = torch.stack(
-        [
-            torch.as_tensor(np.asarray(background_probs, np.float32), device=device),
-            torch.as_tensor(np.asarray(cell_probs, np.float32), device=device),
-        ],
-        dim=-1,
-    )
-    phi = phi / torch.clamp_min(torch.sum(phi, dim=-1, keepdim=True), 1e-30)
-    if _use_cuda_bp(offsets, phi):
-        marginals = bp_kernel(phi, float(p), float(q), float(precision), int(max_iter))
-    else:
-        marginals = _bp_kernel(phi, offsets, float(p), float(q), float(precision), int(max_iter))
-    return marginals.cpu().numpy()
+    up = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return _cell_marginals_t(up(background_probs), up(cell_probs), neighborhood, p, q, precision, max_iter).cpu().numpy()
+
+
+def _run_bp_t(background: torch.Tensor, cell: torch.Tensor, k: int = 3, square: bool = False, p: float = 0.6,
+              q: float = 0.4, precision: float = 1e-6, max_iter: int = 100) -> torch.Tensor:
+    """`run_bp` on tensors."""
+    neighborhood = np.ones((k, k)) if square else circle(k)
+    return _cell_marginals_t(background, cell, neighborhood, p, q, precision, max_iter)
 
 
 def run_bp(

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -258,9 +259,11 @@ def bp_kernel(
     max_iter: int,
     check_every: int = 1,
     msg_dtype: str = "float32",
+    stats: Optional[dict] = None,
 ) -> torch.Tensor:
     """Loopy-BP marginals P(cell) [H, W] with the fused iteration in the
-    loop; the counterpart of `bp_kernel_pallas`, step for step.
+    loop; the counterpart of `bp_kernel_pallas`, step for step. If `stats`
+    is given, it receives ``n_iter``, the iterations run.
 
     The L2 delta between successive messages is measured only on the last
     iteration of each block of `check_every`, by `bp_step(..., delta=True)`
@@ -278,8 +281,9 @@ def bp_kernel(
     phi_pl = torch.movedim(phi, -1, 0).to(torch.float32).contiguous()  # [2, H, W]
     M = torch.full((4, H, W), 0.5, dtype=_MSG_DTYPES[msg_dtype], device=phi.device)
 
+    i = 0
     if precision <= 0:
-        for _ in range(max_iter):
+        for i in range(1, max_iter + 1):
             M = bp_step(phi_pl, M, p, q)
     else:
         check = max(min(int(check_every), int(max_iter)), 1)
@@ -293,6 +297,8 @@ def bp_kernel(
             M, delta_t = bp_step(phi_pl, M, p, q, delta=True)
             delta = float(delta_t)
             i += n_free + 1
+    if stats is not None:
+        stats["n_iter"] = i
     M = M.to(torch.float32)
     belief0 = phi_pl[0] * M[0] * M[1] * M[2] * M[3]
     belief1 = phi_pl[1] * (1.0 - M[0]) * (1.0 - M[1]) * (1.0 - M[2]) * (1.0 - M[3])

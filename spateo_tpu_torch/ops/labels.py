@@ -39,7 +39,7 @@ def _shift(arr: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
 def _cc_kernel(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """Connected-component roots: each masked pixel ends with the minimum flat
     index of its component (+1); background is 0. Min-label propagation with
-    pointer jumping, one host read per pass."""
+    pointer jumping, one host read per pass (counted in `_cc_kernel.passes`)."""
     H, W = mask.shape
     idx = (torch.arange(H * W, dtype=torch.int32, device=mask.device) + 1).reshape(H, W)
     INF = H * W + 2
@@ -55,10 +55,14 @@ def _cc_kernel(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
         jumped = torch.where(new < INF, flat[torch.clamp(new - 1, 0, H * W - 1).long()].reshape(H, W), INF)
         jumped = torch.where(mask, torch.minimum(new, jumped), INF)
         changed = bool(torch.any(jumped != labels))
+        _cc_kernel.passes += 1
         labels = jumped
         if not changed:
             break
     return torch.where(mask, labels, 0)
+
+
+_cc_kernel.passes = 0
 
 
 def connected_components(mask, connectivity: int = 8, device="cuda") -> Tuple[np.ndarray, int]:

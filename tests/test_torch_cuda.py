@@ -676,3 +676,98 @@ def test_music_fit_cuda_matches_cpu(cuda, tmp_path):
         if d == "cuda":
             assert model._conditioned_weights(model.targets_expr["TGT1"].values, 10, np.arange(4)).is_cuda
     assert np.abs(fits["cuda"] - fits["cpu"]).max() <= chip_smoke.MUSIC_FIT_BAR * np.abs(fits["cpu"]).max()
+
+
+def _binned(n=192, seed=0):
+    """A raster with two tissue depths, two density bins, a band outside
+    both, and a certain mask."""
+    rng = np.random.default_rng(seed)
+    X = rng.negative_binomial(1, 0.5, (n, n)).astype(np.float32)
+    X[:, n // 2 :] += rng.negative_binomial(1, 0.5, (n, n - n // 2))
+    yy, xx = np.mgrid[:n, :n]
+    for _ in range(n * n // 400):
+        cy, cx, r = rng.integers(0, n), rng.integers(0, n), rng.integers(3, 7)
+        m = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        X[m] += rng.negative_binomial(8, 0.35, int(m.sum()))
+    bins = np.ones((n, n), np.int64)
+    bins[:, n // 2 :] = 2
+    bins[:10] = 0
+    certain = np.zeros((n, n), bool)
+    certain[50:54, 60:64] = True
+    return X, bins, certain
+
+
+def test_staged_em_bp_cuda_matches_cpu(cuda):
+    """The staged EM+BP with bins and a certain mask: the card (bp_step in
+    f32, checked every iteration, counted) against the CPU (the generic
+    loop): scores within 1e-3, Otsu masks with IoU >= 0.999."""
+    from spateo_tpu_torch.ops.threshold import threshold_otsu
+    from spateo_tpu_torch.segmentation import icell
+    from spateo_tpu_torch.segmentation.utils import _apply_threshold
+
+    X, bins, certain = _binned()
+    kw = dict(em_kwargs=dict(seed=0, downsample=5000), certain_mask=certain, bins=bins)
+    bp_cuda.bp_step.launches = bp_cuda.bp_step.delta_launches = 0
+    s_gpu = icell._score_pixels(X, 5, "EM+BP", device="cuda", **kw)
+    assert 0 < bp_cuda.bp_step.launches == bp_cuda.bp_step.delta_launches <= 100
+    s_cpu = icell._score_pixels(X, 5, "EM+BP", device="cpu", **kw)
+    torch.testing.assert_close(s_gpu.cpu(), s_cpu, atol=1e-3, rtol=0)
+    m_gpu = _apply_threshold(s_gpu, 7, threshold_otsu(s_gpu)).cpu().numpy()
+    m_cpu = _apply_threshold(s_cpu, 7, threshold_otsu(s_cpu)).numpy()
+    assert np.logical_and(m_gpu, m_cpu).sum() / max(np.logical_or(m_gpu, m_cpu).sum(), 1) >= 0.999
+
+
+def test_bp_kernel_on_binned_phi_matches_plain(cuda):
+    """bp_kernel on a binned phi (exactly (1, 0) outside the bins), f32,
+    checked every iteration: the same iterations and the same bits as the
+    plain loop on the CPU."""
+    from spateo_tpu_torch.ops.image import conv2d
+    from spateo_tpu_torch.segmentation import icell
+
+    X, bins, _ = _binned()
+    res = conv2d(X, 5, bins=bins, device="cpu")
+    fit = em.run_em(res.numpy(), bins=bins, params=icell._initial_nb_params(res, bins), seed=0,
+                    downsample=5000, device="cpu")
+    bg, cell = em.conditionals(res, fit, torch.as_tensor(bins))
+    phi = torch.stack([bg, cell], dim=-1)
+    phi = phi / torch.clamp_min(phi.sum(-1, keepdim=True), 1e-30)
+    assert bool((phi[:10] == torch.tensor([1.0, 0.0])).all())
+    st_gpu, st_cpu = {}, {}
+    out = bp_cuda.bp_kernel(phi.to(cuda), 0.6, 0.4, 1e-6, 100, check_every=1, stats=st_gpu)
+    ref = bp_cuda.bp_kernel(phi, 0.6, 0.4, 1e-6, 100, check_every=1, stats=st_cpu)
+    assert st_gpu["n_iter"] == st_cpu["n_iter"]
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_stream_em_batch_matches_per_tile_on_card(cuda):
+    """`starro_em_bp_stream(em_batch=4)` on the card yields exactly what the
+    per-tile stream yields, across a shape change."""
+    rng = np.random.default_rng(1)
+    tiles = [rng.negative_binomial(1, 0.5, (256, 256)).astype(np.float32) for _ in range(5)]
+    for t in tiles:
+        t[40:90, 60:120] += rng.negative_binomial(8, 0.35, (50, 60))
+    tiles[3] = tiles[3][:200]
+    kw = dict(k=5, seed=0, bp_max_iter=30, mask_only=True, device="cuda")
+    one = list(starro.starro_em_bp_stream(tiles, em_batch=1, **kw))
+    four = list(starro.starro_em_bp_stream(tiles, em_batch=4, **kw))
+    assert len(one) == len(four) == 5
+    for (s1, m1), (s4, m4) in zip(one, four):
+        np.testing.assert_array_equal(m1, m4)
+        assert torch.equal(s1, s4)
+
+
+def test_safe_erode_and_labels_cuda_match_cpu(cuda):
+    """safe_erode's bools and label_connected_components' labels: equal on
+    the card and on the CPU."""
+    from spateo_tpu_torch.segmentation.label import _label_connected_components
+    from spateo_tpu_torch.segmentation.utils import safe_erode
+
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[:160, :160]
+    m = np.zeros((160, 160), bool)
+    for _ in range(30):
+        cy, cx, r = rng.integers(0, 160), rng.integers(0, 160), rng.integers(4, 14)
+        m |= (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+    np.testing.assert_array_equal(safe_erode(m, 3, min_area=30, device="cuda"), safe_erode(m, 3, min_area=30, device="cpu"))
+    np.testing.assert_array_equal(_label_connected_components(m, 300, min_area=30, device="cuda"),
+                                  _label_connected_components(m, 300, min_area=30, device="cpu"))

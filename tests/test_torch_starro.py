@@ -135,9 +135,9 @@ def test_fused_with_injected_uniforms(jax_state):
     _, mj = js._starro_em_bp_fused(
         jnp.asarray(s["X"]), s["key"], 3, 5, s["n_samples"], 2000, 1e-6, OFFSETS, 0.6, 0.4, 1e-6, 50
     )
-    _, mt = ts._starro_em_bp_fused(
-        torch.from_numpy(s["X"]), 3, 5, s["n_samples"], 2000, 1e-6, OFFSETS, 0.6, 0.4, 1e-6, 50,
-        uniform=torch.from_numpy(_jax_uniform(3, s["X"].size)),
+    ((_, mt),) = ts._starro_em_bp_fused(
+        [torch.from_numpy(s["X"])], 3, 5, s["n_samples"], 2000, 1e-6, OFFSETS, 0.6, 0.4, 1e-6, 50,
+        uniforms=[torch.from_numpy(_jax_uniform(3, s["X"].size))],
     )
     assert _iou(mt.numpy(), np.asarray(mj)) >= 0.999
 
@@ -168,17 +168,33 @@ def test_public_score_and_mask_pixels(seed):
 
 
 def test_score_and_mask_pixels_rejects_unported_options():
+    """The UMI type check and `mesh=` (ROADMAP item 13) still raise; the
+    options that once raised (EM+gauss, a threshold, density bins) now run
+    the staged path and match the JAX package: scores within 1e-4, masks
+    with IoU >= 0.99 (a mask of ~900 pixels here: a threshold-straddling
+    pixel, widened by close/open, moves the IoU by ~0.5%)."""
     a = stt.AnnData(X=_tile((64, 96), 0))
     stt.SKM.init_adata_type(a, stt.SKM.ADATA_UMI_TYPE)
     with pytest.raises(stt.ConfigurationError):
         stt.cs.score_and_mask_pixels(a, "X", k=3, method="EM+BP", device="cpu")
     stt.SKM.init_adata_type(a, stt.SKM.ADATA_AGG_TYPE)
-    for kwargs in (dict(method="EM+gauss"), dict(method="EM+BP", threshold=0.5), dict(method="EM+BP", mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            stt.cs.score_and_mask_pixels(a, "X", k=3, device="cpu", **kwargs)
-    a.layers["X_bins"] = np.ones(a.shape, np.int32)
-    with pytest.raises(NotImplementedError, match="bins"):
-        stt.cs.score_and_mask_pixels(a, "X", k=3, method="EM+BP", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        stt.cs.score_and_mask_pixels(a, "X", k=3, method="EM+BP", mesh=object(), device="cpu")
+    bins = np.ones(a.shape, np.int32)
+    bins[:, 48:] = 2
+    em = dict(seed=0, downsample=0.05)
+    for kwargs, layers in (
+        (dict(method="EM+gauss", em_kwargs=em), {}),
+        (dict(method="EM+BP", threshold=0.5, em_kwargs=em, bp_kwargs=dict(max_iter=20)), {}),
+        (dict(method="EM+BP", em_kwargs=em, bp_kwargs=dict(max_iter=20)), {"X_bins": bins}),
+    ):
+        a_ref = st.AnnData(X=_tile((64, 96), 0), layers=dict(layers))
+        st.SKM.init_adata_type(a_ref, st.SKM.ADATA_AGG_TYPE)
+        a_port = adata_from_reference(a_ref)
+        st.cs.score_and_mask_pixels(a_ref, "X", k=3, **kwargs)
+        stt.cs.score_and_mask_pixels(a_port, "X", k=3, device="cpu", **kwargs)
+        np.testing.assert_allclose(a_port.layers["X_scores"], a_ref.layers["X_scores"], atol=1e-4)
+        assert _iou(a_port.layers["X_mask"], a_ref.layers["X_mask"]) >= 0.99
 
 
 def test_stream_matches_per_tile_calls():
@@ -194,8 +210,12 @@ def test_stream_matches_per_tile_calls():
         np.testing.assert_array_equal(m_st, m_ref)
         torch.testing.assert_close(s_st, s_ref, atol=0, rtol=0)
     assert list(ts.starro_em_bp_stream([], k=3, device="cpu")) == []
-    with pytest.raises(NotImplementedError):
-        list(ts.starro_em_bp_stream(tiles, em_batch=2, device="cpu"))
+    assert list(ts.starro_em_bp_stream([], k=3, em_batch=2, device="cpu")) == []
+    # em_batch=2 fits tiles 0 and 1 together, tile 2 (another shape) alone
+    batched = list(ts.starro_em_bp_stream(tiles, em_batch=2, **kw))
+    for (s_b, m_b), (s_st, m_st) in zip(batched, streamed):
+        np.testing.assert_array_equal(m_b, m_st)
+        torch.testing.assert_close(s_b, s_st, atol=0, rtol=0)
 
 
 def test_upload_is_lossless():

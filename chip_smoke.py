@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
 EM+BP slice and the rest of Starro, the Morpho alignment slice, the digitization slice with its
-labeling chain, the morphofield slice, the whole atlas chain, and MuSIC.
+labeling chain, the morphofield slice, the whole atlas chain, MuSIC, and SVG
+detection with PASTE.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -132,6 +133,33 @@ final ``ok`` line:
    relative), `bp_kernel` on the binned phi (exact 0/1 outside the bins,
    f32, checked every iteration) bit for bit against the plain loop with
    the same iterations, and `safe_erode`'s bools.
+18. SVG detection and PASTE (`cortex_section`: 20,000 cells jittered over a
+   10,000 x 6,000 DNB domain, 4,000 genes, 60 planted in 6 bands). (a, b)
+   `svg.smoothing_and_sampling` to 400 cells and `svg.svg_iden_reg` over
+   all genes (geodesic, 8 neighbours, cutoffs 500 and 1,000): seconds per
+   stage, genes/s of the scan, the planted genes' recall in the top 60 by
+   z-score (bar from the port's CPU run), the scan alone under the profiler
+   (idle share, launches, ops); (c) `cal_wass_dist_bs` over 60 planted +
+   140 null genes, 30 rounds, rank p-values; (d) `cal_gro_wass_bs` between
+   two sections' samples, 20 genes, 5 rounds (seconds to NaN: every solve
+   ends NaN on a zero-count cell), and the same scan on the counts plus 1,
+   2 rounds, where every solve runs to its stop (finite, positive, seconds
+   a solve, outer iterations); (e) `align.paste_align_ref` on a section and
+   its rotated, shifted copy with counts drawn anew and thinned, in units
+   of 1,000 DNB (2,000-cell TRN references, 200 outer iterations): seconds
+   a pair, FGW outer iterations, the rotation error (PASTE misses this
+   rotation in both packages: held to within 1 deg of the port's CPU answer
+   on the same pair), the first 20 outer iterations under the profiler; (f) `tdr.cell_directions` between the aligned
+   references and `align.paste_center_align` on 3 x 1,000 cells at its
+   defaults. No kernel of `csrc/` is on this path.
+19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 200
+   genes (1e-4 relative, the same sweeps); the between-slice scan's solves
+   on 18d's samples plus 1, 20 genes x 2 rounds, on DNB costs cut to one
+   outer iteration (3x the CPU's own spread when a cost matrix moves by
+   one ulp) and 2 genes on the costs over their largest entry (1e-4 of
+   scale, the same outer iterations); a 500-cell PASTE pair after 1 outer iteration (plan 1e-4 of
+   scale, objective 1e-4) and after 50 (2e-3, the same iterations), and the
+   center's KL NMF (W @ H 1e-6, the same iterations).
 
 The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
@@ -1902,6 +1930,536 @@ def phase_starro_cuda_vs_cpu():
           f"bit-identical to the plain loop {bp_same}; safe_erode bools equal ({int(se['cuda'].sum())} pixels)")
 
 
+#: Phase 18's synthetic cortical section: 20,000 cells at jittered lattice
+#: positions in a 10,000 x 6,000 DNB-unit domain (about 5 x 3 mm at
+#: Stereo-seq's 500 nm pitch), 4,000 genes, the first 60 of them planted
+#: layer-specific (each in one of 6 horizontal bands), the rest Poisson
+#: background at rates 0.1-0.5.
+SVG_CELLS, SVG_GENES, SVG_PLANTED, SVG_BANDS = 20_000, 4_000, 60, 6
+SVG_DOMAIN = (10_000.0, 6_000.0)
+#: The reference defaults of the SVG path: 400 cells after smoothing and
+#: sampling, the geodesic distance over 8 neighbours with these cutoffs.
+SVG_DOWNSAMPLE, SVG_KW = 400, dict(n_neighbors=8, min_dis_cutoff=500, max_dis_cutoff=1000)
+#: Bootstrap rounds of phase 18c, cut from the reference's 100 to keep
+#: phases 18-19 nearer their time (PERF.md section 4).
+SVG_BOOTSTRAP = 30
+#: Bootstrap rounds of phase 18d's scan on pseudocounted counts, where
+#: every GW solve runs to its stop (20 genes x 2 rounds).
+SVG_GW_PSEUDO_BOOTSTRAP = 1
+#: Recall of the planted genes among the top 60 by z-score that phase 18b
+#: must reach: the port's CPU run at the same size (`svg_scan(
+#: cortex_section(), "cpu")`) found 59 of 60 (0.983); the bar allows two
+#: borderline genes more to change places on the card, so that a faster
+#: wrong answer fails.
+SVG_RECALL_BAR = 0.95
+#: PASTE's entropic FGW takes eps = 5e-3 in absolute units, so PASTE runs on
+#: coordinates in units of 1,000 DNB (0.5 mm): on DNB units grad / eps is
+#: too large for float32 to resolve (ROADMAP Queue 3).
+PASTE_UNIT = 1_000.0
+PASTE_ANGLE, PASTE_SHIFT = 30.0, (0.5, -0.3)
+#: PASTE at its defaults does not recover the planted rotation of phase
+#: 18e's pair (the second section's counts drawn anew): the entropic FGW
+#: (absolute eps 5e-3, alpha 0.1) locks into a hard plan some units off and
+#: the rotation misses by ~120 deg, in the JAX package too (ROADMAP Queue
+#: 3). The card's rotation error is held to within `PASTE_ANGLE_BAR`
+#: degrees of the port's CPU answer on the same pair (`paste_main(
+#: paste_sections(), "cpu")`, measured once).
+PASTE_CPU_ROTATION_ERR, PASTE_ANGLE_BAR = 121.13259961448202, 1.0
+#: Outer iterations of the FGW run under the profiler (of its 200): the
+#: profiler's host records of ~2,200 launches an outer iteration take
+#: minutes to read for all 200.
+PASTE_PROFILED_ITERS = 20
+
+
+def svg_gene_names(n_genes=SVG_GENES, n_planted=SVG_PLANTED):
+    return [f"L{i % SVG_BANDS}_{i}" if i < n_planted else f"g{i}" for i in range(n_genes)]
+
+
+def cortex_section(n_cells=SVG_CELLS, n_genes=SVG_GENES, n_planted=SVG_PLANTED, seed=0, theta_deg=0.0,
+                   shift=(0.0, 0.0), unit=1.0, expr_seed=None):
+    """The port's AnnData of one synthetic section (sparse float32 X,
+    coordinates in DNB units / `unit`). Positions come from `seed`; the
+    expression from `expr_seed` (default: `seed`), so two sections can share
+    positions and differ in counts. The section may be rotated by
+    `theta_deg` about the domain's centre and shifted by `shift` (in the
+    output units)."""
+    import pandas as pd
+    import scipy.sparse as sp
+
+    import spateo_tpu_torch as stt
+
+    rng = np.random.default_rng(seed)
+    W, H = SVG_DOMAIN
+    ny = max(int(round(np.sqrt(n_cells * H / W))), 1)
+    nx = -(-n_cells // ny)
+    xs, ys = np.meshgrid((np.arange(nx) + 0.5) * W / nx, (np.arange(ny) + 0.5) * H / ny)
+    c = np.c_[xs.ravel(), ys.ravel()][:n_cells]
+    c = c + rng.uniform(-0.4, 0.4, c.shape) * [W / nx, H / ny]
+    erng = np.random.default_rng(seed + 1000 if expr_seed is None else expr_seed)
+    rates = np.random.default_rng(seed + 2000).uniform(0.1, 0.5, n_genes)
+    band = np.minimum((c[:, 1] * SVG_BANDS // H).astype(int), SVG_BANDS - 1)
+    planted = np.arange(min(n_planted, n_genes))
+    blocks = []
+    for r0 in range(0, len(c), 2000):  # counts in row blocks: int64 draws of the whole X would take 640 MB
+        rows = slice(r0, r0 + 2000)
+        X = erng.poisson(rates, (len(c[rows]), n_genes)).astype(np.float32)
+        in_band = band[rows, None] == (planted % SVG_BANDS)[None, :]
+        X[:, planted] += np.where(in_band, erng.poisson(1.0, in_band.shape), 0).astype(np.float32)
+        blocks.append(sp.csr_matrix(X))
+    th = np.deg2rad(theta_deg)
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    c = ((c - [W / 2, H / 2]) @ R.T + [W / 2, H / 2]) / unit + np.asarray(shift)
+    adata = stt.AnnData(X=sp.vstack(blocks).tocsr(), var=pd.DataFrame(index=svg_gene_names(n_genes, n_planted)),
+                        obs=pd.DataFrame(index=[f"c{i}" for i in range(len(c))]))
+    adata.obsm["spatial"] = c.astype(np.float64)
+    stt.SKM.init_adata_type(adata, stt.SKM.ADATA_UMI_TYPE)
+    return adata
+
+
+class timed_calls:
+    """Within the block, the functions named by (module, attribute) pairs
+    record their calls' seconds (synchronised on `device`) in `seconds`."""
+
+    def __init__(self, device, **targets):
+        self.device, self.targets, self.seconds = device, targets, {}
+
+    def __enter__(self):
+        self.saved = {}
+        for name, (mod, attr) in self.targets.items():
+            orig = getattr(mod, attr)
+            self.saved[name] = (mod, attr, orig)
+
+            def wrapped(*args, _orig=orig, _name=name, **kwargs):
+                t = time.perf_counter()
+                out = _orig(*args, **kwargs)
+                sync(self.device)
+                self.seconds[_name] = self.seconds.get(_name, 0.0) + time.perf_counter() - t
+                return out
+
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, orig in self.saved.values():
+            setattr(mod, attr, orig)
+
+
+class fgw_log:
+    """Within the block, each entropic FGW solve of the port records its
+    seconds (synchronised on `device`), its outer iterations and whether its
+    objective is finite."""
+
+    def __init__(self, device):
+        self.device, self.seconds, self.iterations, self.finite = device, [], [], []
+
+    def __enter__(self):
+        from spateo_tpu_torch.ops import ot
+
+        self.orig = orig = ot._fgw_entropic_run
+
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = orig(*args, **kwargs)
+            sync(self.device)
+            self.seconds.append(time.perf_counter() - t)
+            self.iterations.append(out[2])
+            self.finite.append(bool(torch.isfinite(out[1])))
+            return out
+
+        ot._fgw_entropic_run = run
+        return self
+
+    def __exit__(self, *exc):
+        from spateo_tpu_torch.ops import ot
+
+        ot._fgw_entropic_run = self.orig
+
+
+def svg_scan(section, device="cuda"):
+    """Phase 18a-b: `smoothing_and_sampling` (the reference defaults) and
+    `svg_iden_reg` on the 400 cells over all genes, with each
+    stage's seconds. Returns the scan's table, the 400-cell AnnData and the
+    stage seconds."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.svg import get_svg as tgs
+    from spateo_tpu_torch.svg import utils as tsu
+
+    t0 = time.perf_counter()
+    small, _ = stt.svg.smoothing_and_sampling(section, downsampling=SVG_DOWNSAMPLE, device=device)
+    t_smooth = time.perf_counter() - t0
+    with timed_calls(device, graph=(tsu, "_knn_distance_graph"), floyd_warshall=(tsu, "floyd_warshall"),
+                     scan=(tgs, "cal_wass_dis_batch"), loess=(tgs, "loess_1d")) as tc:
+        t0 = time.perf_counter()
+        w0 = stt.svg.svg_iden_reg(small, device=device, **SVG_KW)
+        sync(device)
+        total = time.perf_counter() - t0
+    return w0, small, dict(smoothing_and_sampling=t_smooth, svg_iden_reg=total, **tc.seconds)
+
+
+def scan_inputs(small):
+    """The cost matrix and the genes' histograms (float32) that
+    `svg_iden_reg` hands its scan, built as `bin_scale_adata_get_distance`
+    and `cal_wass_dis_for_genes` build them."""
+    from spateo_tpu_torch.svg import utils as tsu
+
+    b = tsu.cal_geodesic_distance(tsu.scale_to(small), **SVG_KW)
+    A = np.asarray(b.X, np.float64).T
+    sums = A.sum(1, keepdims=True)
+    A = np.where(sums > 0, A / np.maximum(sums, 1e-300), 1.0 / A.shape[1])
+    return np.asarray(b.obsp["distance"], np.float32), A.astype(np.float32)
+
+
+def svg_recall(w0, n_planted=SVG_PLANTED):
+    """Share of the planted genes among the top `n_planted` by z-score."""
+    top = w0["zscore"].nlargest(n_planted).index
+    return float(np.mean([g.startswith("L") for g in top]))
+
+
+def paste_sections(n_cells=SVG_CELLS, n_genes=SVG_GENES, seed=0):
+    """Phase 18e's pair, in units of `PASTE_UNIT` DNB: a section, and the
+    same cells rotated by `PASTE_ANGLE` degrees about the domain's centre
+    and shifted by `PASTE_SHIFT`, with counts drawn anew (their own seed,
+    the same rates and bands), then thinned: each count kept with
+    probability 0.8, plus Poisson(0.1) counts."""
+    import scipy.sparse as sp
+
+    a = cortex_section(n_cells, n_genes, seed=seed, unit=PASTE_UNIT)
+    b = cortex_section(n_cells, n_genes, seed=seed, theta_deg=PASTE_ANGLE, shift=PASTE_SHIFT, unit=PASTE_UNIT,
+                       expr_seed=seed + 500)
+    rng = np.random.default_rng(seed + 7)
+    X = b.X.tocsr().astype(np.float32)
+    X.data = rng.binomial(X.data.astype(np.int64), 0.8).astype(np.float32)
+    b.X = (X + sp.csr_matrix(rng.poisson(0.1, b.shape).astype(np.float32))).tocsr()
+    return a, b
+
+
+def rotation_error_deg(R, theta_deg=PASTE_ANGLE):
+    """How far PASTE's Procrustes rotation (which maps the second slice back
+    onto the first) lies from undoing the planted rotation, in degrees."""
+    got = np.rad2deg(np.arctan2(R[1, 0], R[0, 0]))
+    return float(abs((got + theta_deg + 180) % 360 - 180))
+
+
+def paste_main(models, device="cuda", n_sampling=2000):
+    """Phase 18e-f: `align.paste_align_ref` (TRN references of `n_sampling`
+    cells, 200 outer iterations), then `tdr.cell_directions` between the
+    aligned references. Returns the aligned models, the references, the
+    plan, the FGW log and the stage seconds."""
+    import spateo_tpu_torch as stt
+
+    with fgw_log(device) as log:
+        t0 = time.perf_counter()
+        aligned, refs, pis = stt.align.paste_align_ref([m.copy() for m in models], n_sampling=n_sampling,
+                                                       sampling_method="trn", numItermax=200, verbose=False,
+                                                       device=device)
+        t_pair = time.perf_counter() - t0
+    a, b = refs[0].copy(), refs[1].copy()
+    t0 = time.perf_counter()
+    stt.tdr.cell_directions(a, b, device=device)
+    t_dir = time.perf_counter() - t0
+    return aligned, (a, b), pis[0], log, dict(paste_align_ref=t_pair, cell_directions=t_dir)
+
+
+def phase_svg_paste():
+    """Phase 18: the SVG scan, its bootstrap, the between-slice GW scan,
+    PASTE, cell directions and the PASTE center on the card. Returns what
+    phase 19 compares: the 400-cell sample, the between-slice scan's
+    pseudocounted samples and its genes."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.svg import utils as tsu
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    t_phase = t0 = time.perf_counter()
+    section = cortex_section(seed=0)
+    t_data = time.perf_counter() - t0
+    # warm-up: first calls of the scan's ops on a 64-gene, 2,000-cell section
+    svg_scan(cortex_section(2_000, 64, seed=3), "cuda")
+
+    # (a, b) smoothing and sampling, then the no-bootstrap scan over all genes
+    w0, small, st_b = svg_scan(section, "cuda")
+    recall = svg_recall(w0)
+    check(len(w0) == SVG_GENES and bool(np.isfinite(w0["zscore"]).all()), f"scan table {w0.shape}")
+    check(recall >= SVG_RECALL_BAR, f"planted recall {recall} < {SVG_RECALL_BAR}")
+    M, A = scan_inputs(small)
+    reads = tsu._sinkhorn_batch_run.host_reads
+    _, wall, busy, launches, ops = device_profile(lambda: tsu.cal_wass_dis_batch(M, A, device="cuda"))
+    blocks = tsu._sinkhorn_batch_run.host_reads - reads
+    chunk = tsu.scan_chunk(M.shape[0], A.shape[0])
+    top = ", ".join(f"{short_op(k, 60)} {v[0]:.1f}/{v[1]}" for k, v in list(ops.items())[:4])
+    print(f"phase 18: section {SVG_CELLS} cells x {SVG_GENES} genes ({SVG_PLANTED} planted in {SVG_BANDS} bands), "
+          f"made in {t_data!r} s; svg_iden_reg on {small.n_obs} cells (geodesic, {SVG_KW}): "
+          f"{SVG_GENES / st_b['scan']!r} genes/s of the scan, stages (s, synchronised) "
+          + ", ".join(f"{k} {v!r}" for k, v in st_b.items())
+          + f"; planted recall in the top {SVG_PLANTED} by z-score {recall!r} (bar {SVG_RECALL_BAR})")
+    print(f"phase 18: the scan alone under torch.profiler ({M.shape[0]} cells, chunk {chunk}, "
+          f"{-(-A.shape[0] // chunk)} chunks, {blocks} blocks of 10 sweeps): wall {wall!r} ms, device busy {busy!r} "
+          f"ms, idle share {1 - busy / wall!r}, {launches} launches; ops by busy ms/events: {top}")
+
+    # (c) the bootstrap scan: 60 planted + 140 null genes, `SVG_BOOTSTRAP` rounds
+    genes = list(w0.index[w0.index.str.startswith("L")]) + [f"g{i}" for i in range(SVG_PLANTED, SVG_PLANTED + 140)]
+    t0 = time.perf_counter()
+    w_bs, _ = stt.svg.cal_wass_dist_bs(small, gene_set=genes, bootstrap=SVG_BOOTSTRAP, rank_p=True, device="cuda",
+                                       **SVG_KW)
+    t_bs = time.perf_counter() - t0
+    z_planted = float(np.median(w_bs.loc[genes[:SVG_PLANTED], "zscore"]))
+    z_null = float(np.median(w_bs.loc[genes[SVG_PLANTED:], "zscore"]))
+    check(len(w_bs) == 200 and bool(np.isfinite(w_bs["rank_p"]).all()), "bootstrap table")
+    check(z_planted > z_null, f"bootstrap z: planted median {z_planted} <= null median {z_null}")
+    print(f"phase 18: cal_wass_dist_bs {len(genes)} genes x {SVG_BOOTSTRAP} bootstrap rounds (rank_p): {t_bs!r} s "
+          f"({(SVG_BOOTSTRAP + 1) * len(genes) / t_bs!r} gene-scans/s); median z planted {z_planted!r}, null "
+          f"{z_null!r}")
+
+    # (d) the between-slice GW scan
+    gw_genes = genes[:10] + genes[-10:]
+    pseudo = between_slice_scan(small, gw_genes)
+
+    # (e, f) PASTE through 2,000-cell references, cell directions, the center
+    pair = paste_sections()
+    torch.cuda.reset_peak_memory_stats()
+    aligned, refs, pi, log, st_e = paste_main(pair)
+    err = rotation_error_deg(refs[1].uns["models_align"]["R"])
+    check(pi.shape == (refs[0].n_obs, refs[1].n_obs) and bool(np.isfinite(pi).all()), "PASTE plan")
+    check(abs(err - PASTE_CPU_ROTATION_ERR) <= PASTE_ANGLE_BAR,
+          f"PASTE rotation error {err} deg, the CPU's {PASTE_CPU_ROTATION_ERR} (bar {PASTE_ANGLE_BAR})")
+    check("align_spatial" in aligned[1].obsm and "V_mapping" in refs[0].obsm, "PASTE outputs")
+    from spateo_tpu_torch.alignment.methods.paste import paste_pairwise_align
+
+    _, wall, busy, launches, _ = device_profile(
+        lambda: paste_pairwise_align(refs[0], refs[1], spatial_key="spatial", numItermax=PASTE_PROFILED_ITERS,
+                                     verbose=False, device="cuda"))
+    print(f"phase 18: paste_align_ref {SVG_CELLS}-cell pair through {refs[0].n_obs}- and {refs[1].n_obs}-cell TRN "
+          f"references (units of {PASTE_UNIT} DNB, planted rotation {PASTE_ANGLE} deg): {st_e['paste_align_ref']!r} "
+          f"s a pair, FGW {log.seconds[0]!r} s, {log.iterations[0]} outer iterations; rotation error {err!r} deg "
+          f"(the CPU's {PASTE_CPU_ROTATION_ERR} +- {PASTE_ANGLE_BAR}); the FGW pair's first {PASTE_PROFILED_ITERS} "
+          f"outer iterations under torch.profiler wall {wall!r} ms, busy {busy!r} ms, idle "
+          f"share {1 - busy / wall!r}, {launches} launches; cell_directions {st_e['cell_directions']!r} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9!r} GB")
+    sections = [cortex_section(1_000, 200, seed=s, unit=PASTE_UNIT) for s in (4, 5, 6)]
+    with fgw_log("cuda") as log:
+        t0 = time.perf_counter()
+        center, pis = stt.align.paste_center_align(sections[0].copy(), sections, verbose=False, device="cuda")
+        t_c = time.perf_counter() - t0
+    check(len(pis) == 3 and center.uns["paste_W"].shape == (1_000, 15) and np.asarray(center.X).min() >= 0,
+          "paste_center_align outputs")
+    print(f"phase 18: paste_center_align 3 x 1,000 cells x 200 genes (n_components 15, max_iter 10): {t_c!r} s, "
+          f"{len(log.seconds)} FGW solves ({sum(log.seconds)!r} s, outer iterations {log.iterations}); phase 18 "
+          f"took {time.perf_counter() - t_phase!r} s")
+    return small, pseudo, gw_genes
+
+
+def between_slice_scan(small, gw_genes):
+    """Phase 18d: `cal_gro_wass_bs` between `small` and a second section's
+    400-cell sample over `gw_genes`, on the counts and on the counts plus
+    1. Returns the two pseudocounted samples, for phase 19."""
+    import spateo_tpu_torch as stt
+
+    # 5 bootstrap rounds. A gene with a zero count in some cell makes its GW
+    # NaN in the first outer iteration (log 0 rows), which stops the loop;
+    # the table reports 0, as in the JAX package (ROADMAP Queue 3), so these
+    # seconds are a time to NaN. The same scan on the counts plus a
+    # pseudocount (no zero bin) runs every solve to its stop; phase 19 holds
+    # it against the CPU.
+    small2, _ = stt.svg.smoothing_and_sampling(cortex_section(seed=1), downsampling=SVG_DOWNSAMPLE, device="cuda")
+    with fgw_log("cuda") as log:
+        t0 = time.perf_counter()
+        gw, b1, b2 = stt.svg.cal_gro_wass_bs(small, small2, gene_set=gw_genes, bootstrap=5, device="cuda", **SVG_KW)
+        t_gw = time.perf_counter() - t0
+    d = gw["Gromov-wasserstein_distance"].values
+    n_nan = log.finite.count(False)
+    check(len(gw) == len(gw_genes) and bool(np.isfinite(d).all() and (d >= -1e-6).all()), f"GW table {gw.shape}")
+    check(0 < len(log.iterations) <= 6 * len(gw_genes) and all(fin or it == 1 for it, fin in zip(log.iterations, log.finite)),
+          f"GW solves: iterations {log.iterations}, finite {log.finite}")
+    print(f"phase 18: cal_gro_wass_bs {len(gw_genes)} genes x 6 rounds ({len(log.seconds)} GW solves at {b1.n_obs}x{b2.n_obs}): "
+          f"{t_gw!r} s; {n_nan} solves NaN at the first outer iteration (a zero-count cell), reported as 0; the "
+          f"rest ({log.finite.count(True)}) ran {sorted(set(i for i, f in zip(log.iterations, log.finite) if f))} "
+          f"outer x 100 inner iterations")
+    pseudo = [pseudocounted(x) for x in (small, small2)]
+    n_solves = len(gw_genes) * (SVG_GW_PSEUDO_BOOTSTRAP + 1)
+    with fgw_log("cuda") as log:
+        t0 = time.perf_counter()
+        gw_p, _, _ = stt.svg.cal_gro_wass_bs(*pseudo, gene_set=gw_genes, bootstrap=SVG_GW_PSEUDO_BOOTSTRAP,
+                                             device="cuda", **SVG_KW)
+        t_gwp = time.perf_counter() - t0
+    d = gw_p["Gromov-wasserstein_distance"].values
+    check(len(log.iterations) == n_solves and all(log.finite) and min(log.iterations) >= 2,
+          f"GW solves on pseudocounts: iterations {log.iterations}, finite {log.finite}")
+    check(bool((d > 0).all() and np.isfinite(gw_p["zscore"]).all()), f"GW table on pseudocounts {d}")
+    print(f"phase 18: cal_gro_wass_bs on the counts + 1 (no zero bin), {len(gw_genes)} genes x "
+          f"{SVG_GW_PSEUDO_BOOTSTRAP + 1} "
+          f"rounds: {t_gwp!r} s, {n_solves} GW solves, all finite, {sum(log.seconds) / n_solves!r} s a solve, outer "
+          f"iterations min {min(log.iterations)} median {float(np.median(log.iterations))!r} max "
+          f"{max(log.iterations)} (of 30); GW in [{float(d.min())!r}, {float(d.max())!r}]")
+    return pseudo
+
+
+def pseudocounted(adata):
+    """A copy of `adata` with dense counts plus 1 in every cell and gene."""
+    out = adata.copy()
+    X = out.X.toarray() if hasattr(out.X, "toarray") else np.asarray(out.X)
+    out.X = (X + 1).astype(np.float32)
+    return out
+
+
+class outer_iterations:
+    """Within the block, every `ops.ot.fgw` call runs `n` outer iterations
+    (whatever its caller asks); `n` None leaves it as it is."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        from spateo_tpu_torch.ops import ot
+
+        self.orig = orig = ot.fgw
+        if self.n is not None:
+            ot.fgw = lambda *args, **kwargs: orig(*args, **dict(kwargs, max_iter=self.n))
+        return self
+
+    def __exit__(self, *exc):
+        from spateo_tpu_torch.ops import ot
+
+        ot.fgw = self.orig
+
+
+def gw_scan(inputs, genes, device, seeds=(0, 1), outer=None):
+    """`cal_gw_dis_on_genes` as `cal_gro_wass_bs` calls it, for each
+    bootstrap seed (0 the observed round): the GW values of all seeds and
+    the outer iterations of each solve."""
+    from spateo_tpu_torch.svg.get_svg_between_slice import cal_gw_dis_on_genes
+
+    with fgw_log(device) as log, outer_iterations(outer):
+        d = [cal_gw_dis_on_genes(inputs, (seed, genes), device=device)[1] for seed in seeds]
+    return np.concatenate(d), log.iterations
+
+
+def slice_pair(n=500, g=30, angle_deg=20.0, shift=(2.0, -1.0), noise=0.03, seed=0, unit=1.0):
+    """tests/test_alignment.py's `make_slice_pair` (sin/cos expression
+    fields, B a rotated and shifted copy of A with noise) as the port's
+    AnnData, coordinates times `unit`."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+
+    rng = np.random.default_rng(seed)
+    coordsA = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    th = np.deg2rad(angle_deg)
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], dtype=np.float32)
+    coordsB = coordsA @ R.T + np.asarray(shift, np.float32) + rng.normal(0, noise, (n, 2)).astype(np.float32)
+    f1, f2 = np.linspace(0.3, 2.0, g), np.linspace(0.2, 1.5, g)
+
+    def expr(c):
+        out = np.stack([np.sin(c[:, 0] * a) + np.cos(c[:, 1] * b) for a, b in zip(f1, f2)], 1)
+        return np.abs(out - out.min() + 0.1).astype(np.float32)
+
+    expA = expr(coordsA) + np.abs(rng.normal(0, 0.02, (n, g)))
+    expB = expr(coordsA) + np.abs(rng.normal(0, 0.02, (n, g)))
+    out = []
+    for X, c in ((expA, coordsA), (expB, coordsB)):
+        a = stt.AnnData(X=X, var=pd.DataFrame(index=[f"g{i}" for i in range(g)]))
+        a.obsm["spatial"] = (c * np.float32(unit)).astype(np.float32)
+        stt.SKM.init_adata_type(a, "UMI")
+        out.append(a)
+    return out
+
+
+#: Phase 19's bars, card against CPU. After 50 outer iterations a PASTE
+#: plan has sharpened (99% of its entries 0) and float32 differences have
+#: grown: the JAX package and the port's CPU path lie 6.8e-4 (plan, of
+#: scale) and 4.8e-4 (objective) apart on this pair on the CPU, so
+#: that comparison is held to `PLAN_BAR_50`; after one outer iteration they
+#: lie 2.3e-5 and 5.1e-6 apart, held to `PLAN_BAR`.
+SCAN_REL_BAR, PLAN_BAR, PLAN_BAR_50, OBJ_BAR, NMF_BAR = 1e-4, 1e-4, 2e-3, 1e-4, 1e-6
+
+
+def rel_err(a, b):
+    """Largest absolute difference over the largest magnitude of `b`."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
+    """Phase 19: the scan, the between-slice scan's GW, PASTE and the NMF on
+    the card against the CPU, on the same inputs (the scan on phase 18's
+    400-cell sample, the between-slice scan on 18d's pseudocounted
+    samples and genes)."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.alignment.methods import paste as tpaste
+    from spateo_tpu_torch.svg import utils as tsu
+    from spateo_tpu_torch.svg.get_svg import bin_scale_adata_get_distance
+
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    t_phase = time.perf_counter()
+    # the scan: 400 cells x 200 genes, one chunk, both devices
+    M, A = scan_inputs(small)
+    A = A[:200]
+    eps = float(max(M.max() * 5e-3, 1e-6))
+    res = {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        t = [torch.from_numpy(x).to(dev) for x in (A, np.full(len(M), 1 / len(M), np.float32), M)]
+        d, it = tsu._sinkhorn_batch_run(*t, eps, 200)
+        res[key] = (d.cpu().numpy(), it)
+    scan_err = rel_err(res["card"][0], res["cpu"][0])
+    check(scan_err <= SCAN_REL_BAR and res["card"][1] == res["cpu"][1],
+          f"scan card vs CPU {scan_err}, sweeps {res['card'][1]} / {res['cpu'][1]}")
+    # the between-slice scan's solves (18d's pseudocounted samples and genes,
+    # its eps, alpha 1), the observed round and one bootstrap round. On its
+    # DNB costs |grad| / eps reaches ~1e6 in the log-domain plan, which
+    # float32 resolves to a few % an entry (ROADMAP Queue 3): there each
+    # solve is cut to one outer iteration and the card is held to 3x the
+    # CPU's own spread when one cost matrix moves by one ulp. On the same
+    # costs over their largest entry (the same plans in exact arithmetic) two
+    # genes run all their outer iterations, to OBJ_BAR.
+    (b1, C1), (b2, C2) = (bin_scale_adata_get_distance(x, **SVG_KW) for x in pseudo)
+    C1, C2 = C1.astype(np.float32), C2.astype(np.float32)
+    dnb = {key: gw_scan((c1, c2, b1, b2), gw_genes, dev, outer=1) for key, dev, c1, c2 in (
+        ("card", "cuda", C1, C2), ("cpu", "cpu", C1, C2), ("C1 up", "cpu", np.nextafter(C1, np.float32(np.inf)), C2),
+        ("C2 down", "cpu", C1, np.nextafter(C2, np.float32(0))))}
+    spread = max(rel_err(dnb[k][0], dnb["cpu"][0]) for k in ("C1 up", "C2 down"))
+    dnb_err, dnb_bar = rel_err(dnb["card"][0], dnb["cpu"][0]), max(3 * spread, OBJ_BAR)
+    check(dnb_err <= dnb_bar and dnb["card"][1] == dnb["cpu"][1] == [1] * 2 * len(gw_genes),
+          f"between-slice scan on DNB costs card vs CPU after one outer iteration {dnb_err} (bar {dnb_bar}), solves "
+          f"{dnb['card'][1]} / {dnb['cpu'][1]}")
+    scale = float(max(C1.max(), C2.max()))
+    two = [gw_genes[0], gw_genes[-1]]
+    unit = {key: gw_scan((C1 / scale, C2 / scale, b1, b2), two, dev, seeds=(0,)) for key, dev in (("card", "cuda"),
+                                                                                                  ("cpu", "cpu"))}
+    unit_err = rel_err(unit["card"][0], unit["cpu"][0])
+    check(unit_err <= OBJ_BAR and unit["card"][1] == unit["cpu"][1],
+          f"between-slice GW on unit costs card vs CPU {unit_err}, outer iterations {unit['card'][1]} / "
+          f"{unit['cpu'][1]}")
+    # a 500-cell PASTE pair: one outer iteration (the mirror step's
+    # arithmetic), and 50, over which float32 differences grow as the plan
+    # sharpens (ROADMAP Queue 3)
+    A5, B5 = slice_pair(500, unit=0.05)
+    out = {}
+    for k in (1, 50):
+        for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+            with fgw_log(dev) as log:
+                pi, obj = stt.align.paste_pairwise_align(A5, B5, numItermax=k, verbose=False, device=dev)
+            out[k, key] = (pi, obj, log.iterations[0])
+    plan_err = {k: rel_err(out[k, "card"][0], out[k, "cpu"][0]) for k in (1, 50)}
+    obj_err = {k: abs(out[k, "card"][1] - out[k, "cpu"][1]) / abs(out[k, "cpu"][1]) for k in (1, 50)}
+    for k, bar in ((1, PLAN_BAR), (50, PLAN_BAR_50)):
+        check(plan_err[k] <= bar and obj_err[k] <= bar and out[k, "card"][2] == out[k, "cpu"][2],
+              f"PASTE card vs CPU after {k} outer iterations: plan {plan_err[k]}, objective {obj_err[k]} (bar {bar}), "
+              f"outer iterations {out[k, 'card'][2]} / {out[k, 'cpu'][2]}")
+    # the NMF of the center loop
+    X = np.asarray(cortex_section(1_000, 200, seed=4).X.toarray(), np.float64)
+    nmf = {key: tpaste.KLNMF(15, 0, device=dev) for key, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    WH = {key: m.fit_transform(X) @ m.components_ for key, m in nmf.items()}
+    nmf_err = rel_err(WH["card"], WH["cpu"])
+    check(nmf_err <= NMF_BAR and nmf["card"].n_iter_ == nmf["cpu"].n_iter_, f"NMF card vs CPU {nmf_err}")
+    print(f"phase 19: card vs CPU: scan {A.shape[0]} genes x {len(M)} cells scores {scan_err!r} relative (bar "
+          f"{SCAN_REL_BAR}), {res['card'][1]} sweeps on both; the between-slice scan on the counts + 1, "
+          f"{len(gw_genes)} genes x 2 rounds on DNB costs after one outer iteration a solve {dnb_err!r} of scale (bar "
+          f"{dnb_bar!r}: 3x the CPU's one-ulp spread {spread!r}), on unit costs 2 genes {unit_err!r} (bar {OBJ_BAR}), "
+          f"outer iterations {unit['card'][1]} on both; PASTE 500-cell pair after 1 outer iteration plan "
+          f"{plan_err[1]!r} of scale, objective {obj_err[1]!r} (bar {PLAN_BAR}), after 50 plan {plan_err[50]!r}, "
+          f"objective {obj_err[50]!r} (bar {PLAN_BAR_50}), {out[50, 'card'][2]} outer iterations on both; NMF 1,000 x "
+          f"200, 15 components W @ H {nmf_err!r} (bar {NMF_BAR}), {nmf['card'].n_iter_} iterations on both; phase 19 "
+          f"took {time.perf_counter() - t_phase!r} s")
+
+
 def main():
     # -- phase 0: environment --------------------------------------------------
     if not torch.cuda.is_available():
@@ -2029,6 +2587,9 @@ def main():
     # -- phases 16-17: the rest of Starro ------------------------------------------------
     staged_launches, staged_deltas = phase_starro_tutorial()
     phase_starro_cuda_vs_cpu()
+
+    # -- phases 18-19: SVG detection and PASTE -------------------------------------------
+    phase_svg_paste_cuda_vs_cpu(*phase_svg_paste())
 
     print(card)
     print(json.dumps({"kernels": [

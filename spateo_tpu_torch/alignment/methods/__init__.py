@@ -1,4 +1,4 @@
-"""Alignment methods ported so far (Morpho pairwise)."""
+"""Alignment methods ported so far: Morpho pairwise and PASTE."""
 
 from .math import (
     calc_distance,
@@ -12,3 +12,24 @@ from .math import (
     voxel_data,
 )
 from .morpho import Morpho_pairwise, filter_common_genes, get_rep
+from .paste import KLNMF, center_NMF, generalized_procrustes_analysis, paste_center_align, paste_pairwise_align
+
+
+def empty_cache(device="cuda"):
+    """Release the caching allocator's unused device memory (the reference
+    calls torch.cuda.empty_cache, reference morpho_alignment.py:109); nothing
+    to do for the CPU."""
+    import torch
+
+    if torch.device(device).type == "cuda" and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def calc_exp_dissimilarity(X_A, X_B, dissimilarity: str = "kl", device="cuda"):
+    """Expression dissimilarity matrix on `device`, returned to the host
+    (parity: reference methods/deprecated_utils.py `calc_exp_dissimilarity`,
+    used by paste)."""
+    from ...core.bridge import to_device
+
+    [D] = calc_distance(to_device(X_A, device), to_device(X_B, device), metric=dissimilarity)
+    return D.cpu().numpy()

@@ -1,28 +1,75 @@
 """Morphometric vector field via SparseVFC (counterpart of
 `spateo_tpu.tdr.morphometrics.morphofield.sparsevfc`; reference
 spateo/tdr/morphometrics/morphofield/sparsevfc.py:18,103,241). The field is
-learned by the port's `ops.vfc.SparseVFC` on `device`."""
+learned by the port's `ops.vfc.SparseVFC` on `device`; `cell_directions` maps
+cells across stages with PASTE's FGW on `device`."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import pandas as pd
 
+from ....alignment.methods.paste import paste_pairwise_align
+from ....alignment.utils import get_optimal_mapping_relationship
 from ....core.anndata import AnnData
 from ....logging import logger_manager as lm
 from ....ops.vfc import SparseVFC, SparseVFC_batch
 from ...interpolations import get_X_Y_grid
 
 
-def cell_directions(adataA: AnnData, adataB: AnnData, *args, **kwargs):
+def cell_directions(
+    adataA: AnnData,
+    adataB: AnnData,
+    layer: str = "X",
+    genes: Optional[Union[list, np.ndarray]] = None,
+    spatial_key: str = "align_spatial",
+    key_added: str = "mapping",
+    alpha: float = 0.001,
+    numItermax: int = 200,
+    numItermaxEmd: int = 100000,
+    dtype: str = "float32",
+    device="cuda",
+    keep_all: bool = False,
+    inplace: bool = True,
+    **kwargs,
+) -> Tuple[Optional[AnnData], np.ndarray]:
     """Optimal mapping + developmental direction between two stages (parity:
-    sparsevfc.py:18). It maps cells with PASTE's FGW optimal transport,
-    which is not ported yet."""
-    raise NotImplementedError(
-        "cell_directions needs PASTE (FGW optimal transport), which is not ported to PyTorch yet "
-        "(ROADMAP Queue 1 item 10, SVG and OT)."
+    sparsevfc.py:18): PASTE's FGW plan on `device`, then each A cell's
+    highest-probability partner in B (host). Adds ``X_{key_added}`` (the
+    partner's coordinates) and ``V_{key_added}`` (the displacement) to
+    ``adataA.obsm``."""
+    pi, _ = paste_pairwise_align(
+        sampleA=adataA.copy(),
+        sampleB=adataB.copy(),
+        spatial_key=spatial_key,
+        layer=layer,
+        genes=genes,
+        alpha=alpha,
+        numItermax=numItermax,
+        device=device,
+        verbose=False,
+        **kwargs,
     )
+    max_index, pi_value, _, _ = get_optimal_mapping_relationship(
+        X=np.asarray(adataA.obsm[spatial_key]).copy(),
+        Y=np.asarray(adataB.obsm[spatial_key]).copy(),
+        pi=pi,
+        keep_all=keep_all,
+    )
+    mapping_data = pd.DataFrame(
+        {
+            "index_x": max_index[:, 0].astype(np.int32),
+            "index_y": max_index[:, 1].astype(np.int32),
+            "pi_value": pi_value[:, 0].astype(np.float64),
+        }
+    )
+    mapping_data.sort_values(by=["index_x", "pi_value"], ascending=[True, False], inplace=True)
+    mapping_data.drop_duplicates(subset=["index_x"], keep="first", inplace=True)
+    adataA.obsm[f"X_{key_added}"] = np.asarray(adataB.obsm[spatial_key])[mapping_data["index_y"].values]
+    adataA.obsm[f"V_{key_added}"] = adataA.obsm[f"X_{key_added}"] - np.asarray(adataA.obsm[spatial_key])
+    return (None if inplace else adataA), pi
 
 
 def _morphofield_sparsevfc(

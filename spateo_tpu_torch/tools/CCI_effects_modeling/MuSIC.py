@@ -25,8 +25,8 @@ the constructor, default ``"cuda"``).
 
 The CCI databases are read as data from the JAX package's
 `tools/database/` directory by file path (``cci_dir=`` overrides it); no code
-of that package runs. `normalize=True` and `smooth=True` need modules not
-ported yet and raise. `load_state` takes a design built elsewhere (for
+of that package runs. `normalize=True` needs a module not ported yet and
+raises; `smooth=True` takes `svg.get_svg.smooth`. `load_state` takes a design built elsewhere (for
 example the JAX package's, through `core.bridge.music_state_from_reference`).
 """
 
@@ -220,9 +220,9 @@ class MuSIC:
                 "item 11); normalize the AnnData before fitting"
             )
         if self.smooth:
-            raise NotImplementedError(
-                "MuSIC(smooth=True) needs svg.get_svg.smooth, not ported to PyTorch yet (ROADMAP Queue 1 item 10)"
-            )
+            from ...svg.get_svg import smooth as smooth_fn
+
+            self.adata = smooth_fn(self.adata)
         if self.log_transform:
             from ...preprocessing.transform import log1p
 

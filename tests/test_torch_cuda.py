@@ -771,3 +771,102 @@ def test_safe_erode_and_labels_cuda_match_cpu(cuda):
     np.testing.assert_array_equal(safe_erode(m, 3, min_area=30, device="cuda"), safe_erode(m, 3, min_area=30, device="cpu"))
     np.testing.assert_array_equal(_label_connected_components(m, 300, min_area=30, device="cuda"),
                                   _label_connected_components(m, 300, min_area=30, device="cpu"))
+
+
+def _scan_inputs(N=300, G=120, seed=0, zero_bins=0):
+    from scipy.spatial.distance import cdist
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 5000, (N, 2))
+    M = cdist(x, x).astype(np.float32)
+    A = rng.dirichlet(np.ones(N) * 0.5, G).astype(np.float32)
+    b = rng.dirichlet(np.ones(N)).astype(np.float32)
+    b[:zero_bins] = 0
+    return A, (b / b.sum()).astype(np.float32), M
+
+
+@pytest.mark.parametrize("zero_bins,sweeps", [(0, None), (4, 20)])
+def test_svg_scan_cuda_matches_cpu(cuda, zero_bins, sweeps):
+    """The batched Sinkhorn (`_sinkhorn_batch_run`) on the card and on the
+    CPU: scores within 1e-4 relative, the same sweeps (20 with zero target
+    bins: the NaN stop), and `cal_wass_dis_batch` over ragged chunks."""
+    from spateo_tpu_torch.svg import utils as tsu
+
+    A, b, M = _scan_inputs(zero_bins=zero_bins)
+    eps = float(M.max() * 5e-3)
+    (dg, itg), (dc, itc) = (tsu._sinkhorn_batch_run(*[torch.from_numpy(x).to(d) for x in (A, b, M)], eps, 200)
+                            for d in ("cuda", "cpu"))
+    assert itg == itc and (sweeps is None or itg == sweeps)
+    assert float((dg.cpu() - dc).abs().max() / dc.abs().max()) <= 1e-4
+    g = tsu.cal_wass_dis_batch(M, A[:21], b=b, chunk=8, device="cuda")
+    c = tsu.cal_wass_dis_batch(M, A[:21], b=b, chunk=8, device="cpu")
+    assert np.abs(g - c).max() <= 1e-4 * np.abs(c).max()
+
+
+@pytest.mark.parametrize("alpha", [0.1, 1.0])
+def test_fgw_cuda_matches_cpu(cuda, alpha):
+    """Entropic (F)GW on the card and on the CPU (100 x 90 points, unit
+    costs, 30 outer iterations): objectives within 1e-4 relative, the same
+    outer iterations; FGW plans within 1e-4 of scale (GW plans move ~1e-4
+    under one ulp of their inputs in float32, tests/test_torch_ot.py: 1e-3)."""
+    from scipy.spatial.distance import cdist
+
+    from spateo_tpu_torch.ops import ot
+
+    rng = np.random.default_rng(0)
+    x, y = rng.uniform(0, 1, (100, 2)), rng.uniform(0, 1, (90, 2))
+    ins = [cdist(x, x), cdist(y, y), rng.dirichlet(np.ones(100) * 5), rng.dirichlet(np.ones(90) * 5)]
+    M = rng.uniform(0, 1, (100, 90))
+    eps = 5e-3 if alpha < 1 else float(ins[0].max()) * 1e-2
+    out = {}
+    for d in ("cuda", "cpu"):
+        t = [torch.from_numpy(np.asarray(v, np.float32)).to(d) for v in (M, *ins)]
+        T, obj, it = ot._fgw_entropic_run(*t, alpha, eps, 30, 100, 1e-8)
+        out[d] = (T.cpu().numpy(), float(obj), it)
+    assert out["cuda"][2] == out["cpu"][2]
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-4 * abs(out["cpu"][1])
+    plan = np.abs(out["cuda"][0] - out["cpu"][0]).max() / np.abs(out["cpu"][0]).max()
+    assert plan <= (1e-4 if alpha < 1 else 1e-3)
+
+
+def test_sinkhorn_log_cuda_matches_cpu(cuda):
+    from spateo_tpu_torch.ops import ot
+
+    A, b, M = _scan_inputs(N=80, G=1)
+    M = M / M.max()
+    (Tg, itg), (Tc, itc) = (ot._sinkhorn_log_run(*[torch.from_numpy(x).to(d) for x in (A[0], b, M)], 1e-2, 1000,
+                                                 1e-5) for d in ("cuda", "cpu"))
+    assert itg == itc and float((Tg.cpu() - Tc).abs().max() / Tc.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("outer,bar", [(1, 1e-4), (50, 2e-3)])
+def test_paste_and_nmf_cuda_match_cpu(cuda, outer, bar):
+    """A 500-cell PASTE pair (`chip_smoke.slice_pair`, phase 19's) on the
+    card and on the CPU: after one outer iteration plan and objective within
+    1e-4 (of scale, relative); after 50, as the plan sharpens, float32
+    differences grow (the JAX package and the port's CPU path lie 6.8e-4
+    apart there), so 2e-3; the same outer iterations. The center's KL NMF
+    (float64): W @ H within 1e-6 relative, the same iterations."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.alignment.methods.paste import KLNMF
+
+    A, B = chip_smoke.slice_pair(500, unit=0.05)
+    out = {}
+    for d in ("cuda", "cpu"):
+        with chip_smoke.fgw_log(d) as log:
+            pi, obj = stt.align.paste_pairwise_align(A, B, numItermax=outer, verbose=False, device=d)
+        out[d] = (pi, obj, log.iterations[0])
+    assert out["cuda"][2] == out["cpu"][2]
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= bar * np.abs(out["cpu"][0]).max()
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= bar * abs(out["cpu"][1])
+    X = np.random.default_rng(1).gamma(0.5, 2.0, (300, 80))
+    m = {d: KLNMF(15, 0, device=d) for d in ("cuda", "cpu")}
+    WH = {d: k.fit_transform(X) @ k.components_ for d, k in m.items()}
+    assert m["cuda"].n_iter_ == m["cpu"].n_iter_
+    assert np.abs(WH["cuda"] - WH["cpu"]).max() <= 1e-6 * np.abs(WH["cpu"]).max()

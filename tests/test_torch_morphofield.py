@@ -378,9 +378,8 @@ def test_gaussian_process_field_matches_jax(morpho_field):
 
 
 def test_unported_paths_raise():
-    a = _adata(stt, np.zeros((4, 2), np.float32))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        stt.tdr.cell_directions(a, a)
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        stt.align.methods.center_NMF(5, 0, dissimilarity="euclidean", device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         stt.tdr.morphofield_sparsevfc(_adata(stt, *[np.random.default_rng(0).uniform(size=(50, 2))] * 2), NX=None,
                                       grid_num=[3, 3], M=10, restart_num=0, mesh=object(), device="cpu")

@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
 EM+BP slice and the rest of Starro, the Morpho alignment slice, the digitization slice with its
 labeling chain, the morphofield slice, the whole atlas chain, MuSIC, and SVG
-detection with PASTE.
+detection with PASTE, and rigid slice alignment with mesh correction, `st.pp`
+normalization and the k-means paths.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -160,6 +161,37 @@ final ``ok`` line:
    scale, the same outer iterations); a 500-cell PASTE pair after 1 outer iteration (plan 1e-4 of
    scale, objective 1e-4) and after 50 (2e-3, the same iterations), and the
    center's KL NMF (W @ H 1e-6, the same iterations).
+
+20. Rigid slice alignment, mesh correction and `st.pp` (`e95_stack`: an
+   ellipsoid embryo of semi-axes 1.0, 0.5, 1.6 whose mesh is the convex hull
+   of 10,000 surface points, ~20,000 faces, cut into 20 sections of 5,000
+   cells, each shifted by up to 0.15 and rotated by up to 5 deg):
+   `tl.align_slices_pca` of every section and `tl.procrustes` of one
+   section onto its rotated, shifted copy (seconds, the residual against
+   the planted transform); `align.Mesh_correction(label_num=15,
+   fastpd_iter=100)` with its contours and **2 annealed steps of the
+   default 10** (the time limit): seconds a step, ICPs/s, the shares of the
+   cost tables, their section extraction and `fastpd`, one step under the
+   profiler (idle share, launches), the best loss, and the residual drift
+   after `perform_correction`, which must fall below the planted drift;
+   `pp.normalize_total` and `pp.calcNormFactors(method="TMM")` on 20,000
+   cells x 2,000 genes of sparse Poisson counts, `align.group_pca` of two
+   5,000-cell sections (2,000 HVGs of 3,000 genes, 50 components); the
+   k-means paths with no scikit-learn on the machine: `KMeans(500,
+   n_init=10)` of 10,000 cells, `tl.MuSIC(spatial_subsample=True).fit` on
+   them, and `align.morpho_align_ref(sampling_method="kmeans")` on the
+   20,000-cell pair (2,000 k-means references). No kernel of `csrc/` is on
+   this path.
+21. The same, card against CPU on a small case (4 sections of 800 cells,
+   L = 5, one step): the ten cost tables (at most 1% of entries may differ,
+   where an ICP meets a degenerate covariance) and the `fastpd` labels, TMM
+   factors (1e-12), the PCA up to column signs (1e-8 of scale), and both
+   k-means' labels (equal) and centres (1e-8).
+
+`python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
+and 8 (the environment, the build, and the kernels' checks against their
+plain versions that the kernels line reports); the launches of a main path
+not run are 0 there. With no arguments every phase runs.
 
 The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
@@ -2460,38 +2492,252 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
           f"took {time.perf_counter() - t_phase!r} s")
 
 
-def main():
-    # -- phase 0: environment --------------------------------------------------
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"phase 0: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+#: The E9.5-like stack of phase 20: an ellipsoid embryo (semi-axes x, y, z,
+#: the long axis along z) whose mesh is the convex hull of E95_SURFACE
+#: surface points (~2 x E95_SURFACE faces), cut into E95_SECTIONS sections of
+#: E95_CELLS cells, each shifted by up to E95_SHIFT and rotated by up to
+#: E95_ROT_DEG about the axis (planted).
+E95_AXES = (1.0, 0.5, 1.6)
+E95_SURFACE, E95_SECTIONS, E95_CELLS = 10_000, 20, 5_000
+E95_SHIFT, E95_ROT_DEG = 0.15, 5.0
+#: `Mesh_correction`'s defaults but the annealing steps: 2 of 10 (the time limit).
+E95_LABELS, E95_FASTPD_ITER, E95_STEPS = 15, 100, 2
+#: `st.pp` at the scale of a Stereo-seq section's cell bins.
+PP_CELLS, PP_GENES, PCA_CELLS, PCA_GENES, PCA_HVG, PCA_COMPS = 20_000, 2_000, 5_000, 3_000, 2_000, 50
 
-    from bench import make_raster
+
+def e95_stack(n_sections=E95_SECTIONS, n_cells=E95_CELLS, n_surface=E95_SURFACE, seed=0):
+    """The ellipsoid mesh (`tdr.Mesh`) and its drifted sections (AnnData with
+    `.obsm['spatial']`), their heights, planted shifts and rotations (deg)."""
+    from scipy.spatial import ConvexHull
+
     import spateo_tpu_torch as stt
-    from spateo_tpu_torch.ops import _build, bp_cuda, em
-    from spateo_tpu_torch.segmentation import starro as ts
 
-    # -- phase 1: build -------------------------------------------------------
+    rng = np.random.default_rng(seed)
+    ax = np.asarray(E95_AXES)
+    sp = rng.normal(size=(n_surface, 3))
+    sp = sp / np.linalg.norm(sp, axis=1, keepdims=True) * ax
+    mesh = stt.tdr.Mesh(sp, ConvexHull(sp).simplices)
+    z_heights = np.linspace(-0.85, 0.85, n_sections) * ax[2]
+    slices, shifts, angles = [], [], []
+    for z in z_heights:
+        a = np.sqrt(1 - (z / ax[2]) ** 2)
+        th, rr = rng.uniform(0, 2 * np.pi, n_cells), np.sqrt(rng.uniform(0, 1, n_cells))
+        pts = np.stack([a * ax[0] * rr * np.cos(th), a * ax[1] * rr * np.sin(th)], 1)
+        ang = rng.uniform(-E95_ROT_DEG, E95_ROT_DEG)
+        c, s = np.cos(np.deg2rad(ang)), np.sin(np.deg2rad(ang))
+        shift = rng.uniform(-E95_SHIFT, E95_SHIFT, 2)
+        ad = stt.AnnData(X=np.ones((n_cells, 2), np.float32))
+        stt.SKM.init_adata_type(ad, "UMI")
+        ad.obsm["spatial"] = pts @ np.array([[c, -s], [s, c]]).T + shift
+        slices.append(ad)
+        shifts.append(shift)
+        angles.append(ang)
+    return mesh, slices, z_heights, np.asarray(shifts), np.asarray(angles)
+
+
+def mesh_correction_run(device, n_sections, n_cells, label_num, steps, n_surface=E95_SURFACE, fastpd_iter=E95_FASTPD_ITER):
+    """`Mesh_correction` on an `e95_stack`: contours, `steps` annealed steps,
+    the correction. Returns the model, the stack's planted shifts, the
+    seconds of the contours, the steps and the correction, and the mean
+    distance of the corrected and the drifted sections' centroids from the
+    axis."""
+    import spateo_tpu_torch as stt
+
+    mesh, slices, z, shifts, _ = e95_stack(n_sections, n_cells, n_surface)
+    mc = stt.align.Mesh_correction(slices, z, mesh, label_num=label_num, fastpd_iter=fastpd_iter, max_iter=steps,
+                                   device=device)
     t0 = time.perf_counter()
-    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    check({"bp_step", "estep", "inlier", "jacobi"} <= set(sources), f"CUDA sources missing: {sources}")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = [f.result() for f in [pool.submit(_build.build, name) for name in sources]]
-    for name in sources:
-        _build.load(name)
-    print(f"phase 1: built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+    mc.extract_contours(alpha_shape_kwargs={"alpha": 2.0})
+    t1 = time.perf_counter()
+    mc.run_discrete_optimization()
+    t2 = time.perf_counter()
+    out = mc.perform_correction()
+    t3 = time.perf_counter()
+    resid = float(np.mean([np.linalg.norm(o[:, :2].mean(0)) for o in out]))
+    drift = float(np.mean([np.linalg.norm(s.obsm["spatial"].mean(0)) for s in slices]))
+    return mc, shifts, (t1 - t0, t2 - t1, t3 - t2), resid, drift
 
-    # -- phase 2: kernel vs plain version ----------------------------------------
-    kstats = phase_kernel_vs_plain(bp_cuda)
 
-    # -- phase 3: main path ------------------------------------------------------
+def pp_counts(n_cells, n_genes, seed=0):
+    """Sparse Poisson counts, gene means from Gamma(0.5, 1): CSR float32."""
+    from scipy import sparse
+
+    rng = np.random.default_rng(seed)
+    lam = rng.gamma(0.5, 1.0, n_genes)
+    return sparse.csr_matrix(rng.poisson(lam, (n_cells, n_genes)).astype(np.float32))
+
+
+def phase_e95(stt):
+    """Phase 20: coarse alignment, mesh correction, `st.pp` and the two
+    k-means on the card at full width."""
+    import tempfile
+
+    import bench
+    from spateo_tpu_torch.ops import kmeans as km
+
+    t_phase = time.perf_counter()
+    # warm-up: first calls of the batched ops at a small size
+    mesh_correction_run("cuda", 4, 400, 5, 1, n_surface=400)
+
+    mesh, slices, z, shifts, angles = e95_stack()
+    t0 = time.perf_counter()
+    pca = [stt.tl.align_slices_pca(s) for s in slices]
+    t_pca = time.perf_counter() - t0
+    err = [abs((np.rad2deg(np.arctan2(p.uns["pca_align_R"][0, 1], p.uns["pca_align_R"][0, 0])) - a + 90) % 180 - 90)
+           for p, a in zip(pca, angles)]
+    # the sample principal axis of 5,000 cells in a 2:1 ellipse lies ~0.5 deg (sd) off the true one
+    check(max(err) < 3.0, f"align_slices_pca: principal axis {max(err)} deg off the planted rotation")
+    X = np.asarray(slices[10].obsm["spatial"])
+    th = np.deg2rad(20.0)
+    R20 = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    Y = X @ R20.T + np.array([0.3, -0.2])
+    t0 = time.perf_counter()
+    d, Zp, tform = stt.tl.procrustes(X, Y)
+    t_proc = time.perf_counter() - t0
+    # Y @ T maps Y back onto X, so T is the planted rotation itself
+    rot_err = np.rad2deg(float(np.abs(tform["rotation"] - R20).max()))
+    check(float(np.abs(Zp - X).max()) < 1e-9 and rot_err < 1e-6, f"procrustes: residual {np.abs(Zp - X).max()}, "
+          f"rotation {rot_err} deg off")
+    print(f"phase 20: align_slices_pca on {E95_SECTIONS} sections of {E95_CELLS:,} cells: {t_pca!r} s, principal "
+          f"axes {max(err)!r} deg (max) off the planted rotations; procrustes of one section onto its 20 deg "
+          f"rotated, shifted copy: {t_proc!r} s, residual {float(np.abs(Zp - X).max())!r}, rotation error "
+          f"{rot_err!r} deg")
+
+    # mesh correction at the defaults, 2 annealed steps of 10
+    torch.cuda.reset_peak_memory_stats()
+    mc, shifts, (t_cont, t_opt, t_corr), resid, drift = mesh_correction_run(
+        "cuda", E95_SECTIONS, E95_CELLS, E95_LABELS, E95_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(len(mc.step_stats) == E95_STEPS and mc.best_loss < 1.0, f"mesh correction: best loss {mc.best_loss}")
+    check(resid < drift, f"mesh correction: residual drift {resid} not below the planted {drift}")
+    for i, s in enumerate(mc.step_stats):
+        icps = s["icps"]
+        print(f"phase 20: Mesh_correction step {i + 1} (L {E95_LABELS}, {E95_SECTIONS} x {E95_CELLS:,} cells, "
+              f"{mesh.n_faces:,} faces): {s['step_s']!r} s; tables {s['tables_s']!r} s (sections {s['sections_s']!r}), "
+              f"fastpd {s['fastpd_s']!r} s, chosen loss {s['loss_s']!r} s; {icps:,} ICPs, {icps / s['step_s']!r} "
+              f"ICPs/s; shares: tables {s['tables_s'] / s['step_s']!r} (sections "
+              f"{s['sections_s'] / s['step_s']!r}), fastpd {s['fastpd_s'] / s['step_s']!r}")
+    _, wall, busy, launches, ops = device_profile(mc.discrete_optimization_step)
+    top = ", ".join(f"{short_op(k)} {v[0]:.1f} ms" for k, v in list(ops.items())[:4])
+    print(f"phase 20: one step under the profiler: {wall!r} ms, device busy {busy!r} ms, idle share "
+          f"{1 - busy / wall!r}, {launches} launches; top ops {top}")
+    print(f"phase 20: contours {t_cont!r} s, {E95_STEPS} steps {t_opt!r} s, correction {t_corr!r} s; best loss "
+          f"{mc.best_loss!r}, best transformation {mc.best_transformation}; residual drift {resid!r} against the "
+          f"planted {drift!r}; peak device memory {peak_gb!r} GB")
+
+    # st.pp: normalize_total and TMM on 20,000 x 2,000, group_pca of two sections
+    counts = pp_counts(PP_CELLS, PP_GENES)
+    ad = stt.AnnData(X=counts.copy())
+    t0 = time.perf_counter()
+    stt.pp.normalize_total(ad, target_sum=1e4)
+    t_norm = time.perf_counter() - t0
+    stt.pp.calcNormFactors(counts[:1000], method="TMM")  # warm-up
+    t0 = time.perf_counter()
+    f = stt.pp.calcNormFactors(counts, method="TMM")
+    t_tmm = time.perf_counter() - t0
+    sums = np.asarray(ad.X.sum(1)).ravel()
+    check(np.allclose(sums[sums > 0], 1e4) and f.shape == (PP_CELLS,) and bool(np.isfinite(f).all() and (f > 0).all()),
+          "normalize_total / TMM")
+    pair = []
+    for k in range(2):
+        a = stt.AnnData(X=pp_counts(PCA_CELLS, PCA_GENES, seed=10 + k))
+        stt.pp.log1p(a)
+        pair.append(a)
+    t0 = time.perf_counter()
+    stt.align.group_pca(pair, hvg_top=PCA_HVG, n_comps=PCA_COMPS)
+    t_gpca = time.perf_counter() - t0
+    check(all(a.obsm["X_pca"].shape == (PCA_CELLS, PCA_COMPS) and np.isfinite(a.obsm["X_pca"]).all() for a in pair),
+          "group_pca")
+    print(f"phase 20: normalize_total {PP_CELLS:,} x {PP_GENES:,} ({counts.nnz:,} nonzeros) {t_norm!r} s; "
+          f"calcNormFactors TMM {t_tmm!r} s (factors in [{float(f.min())!r}, {float(f.max())!r}]); group_pca of "
+          f"2 x {PCA_CELLS:,} cells ({PCA_HVG:,} HVGs, {PCA_COMPS} components) {t_gpca!r} s")
+
+    # the k-means paths, with no scikit-learn on this machine
+    adata, _ = music_slice(10_000)
+    coords = np.asarray(adata.obsm["spatial"], float)
+    t0 = time.perf_counter()
+    kmu = km.KMeans(n_clusters=500, random_state=0, n_init=10).fit(coords)
+    t_km = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        model = stt.tl.MuSIC(
+            adata=adata, mod_type="lr", species="human", output_path=f"{tmp}/music.csv", distr="poisson",
+            custom_ligands=["TGFB1", "DLL1"], custom_receptors=["TGFBR1", "TGFBR2", "NOTCH1"],
+            custom_targets=["TGT1"], kernel="bisquare", bw_fixed=False, bw=20, fit_intercept=True,
+            spatial_subsample=True,
+        )
+        t0 = time.perf_counter()
+        model.fit(verbose=False)
+        t_music = time.perf_counter() - t0
+    n_sub = len(model.subsampled_indices["TGT1"])
+    check(0 < n_sub < 10_000 and len(np.unique(kmu.labels_)) == 500, f"MuSIC subsample: {n_sub} cells")
+    pts, ptsA, Xg = bench._make_slice_pair(20000, seed=2)
+    t0 = time.perf_counter()
+    aligned, aligned_ref, _, _ = stt.align.morpho_align_ref(
+        [bench._mk_adata(stt, pts, Xg), bench._mk_adata(stt, ptsA, Xg)], n_sampling=2000, sampling_method="kmeans",
+        spatial_key="spatial", key_added="align", max_iter=200, verbose=False)
+    t_ref = time.perf_counter() - t0
+    rms = float(np.sqrt(((aligned[1].obsm["align"] - pts) ** 2).sum(1).mean()))
+    n_ref = [m.n_obs for m in aligned_ref]
+    check(rms < 0.1 and all(1000 < n <= 2000 for n in n_ref), f"morpho_align_ref(kmeans): RMS {rms}, refs {n_ref}")
+    print(f"phase 20: KMeans(500, n_init 10) of 10,000 cells {t_km!r} s ({kmu.n_iter_} Lloyd iterations); "
+          f"MuSIC(spatial_subsample=True).fit on 10,000 cells {t_music!r} s, TGT1 fitted on {n_sub:,} cells; "
+          f"morpho_align_ref(sampling_method='kmeans') 20,000-cell pair through {n_ref} k-means references: "
+          f"{t_ref!r} s, RMS to the truth {rms!r}; phase 20 {time.perf_counter() - t_phase!r} s")
+
+
+def phase_e95_cuda_vs_cpu(stt):
+    """Phase 21: the slice on the card against the CPU, at a small size."""
+    from spateo_tpu_torch.alignment.methods import mesh_correction as mcm
+    from spateo_tpu_torch.native import fastpd
+    from spateo_tpu_torch.ops import kmeans as km
+    from spateo_tpu_torch.tools.dimensionality_reduction import randomized_pca_centered
+
+    t_phase = time.perf_counter()
+    mesh, slices, z, _, _ = e95_stack(4, 800, 800, seed=1)
+    m = {}
+    for d in ("cuda", "cpu"):
+        mc = stt.align.Mesh_correction(slices, z, mesh, label_num=5, fastpd_iter=E95_FASTPD_ITER, max_iter=1,
+                                       device=d)
+        mc.extract_contours(alpha_shape_kwargs={"alpha": 2.0})
+        mc.contours_subsample, mc.z_heights_subsample = mc.contours, mc.z_heights
+        mc.max_translation = mc.max_translation_scale * mc.slices_scale
+        mc.best_transformation = {"rotation": np.zeros(3), "translation": 0.0, "scaling": 1.0}
+        labels = mc.generate_labels()
+        tables = mc.binary_tables(labels, mcm._make_pairs())
+        m[d] = (tables, fastpd(mcm._getUnaries(5), tables, mcm._make_pairs(), E95_FASTPD_ITER))
+    n_diff = sum(int((a != b).sum()) for a, b in zip(m["cuda"][0], m["cpu"][0]))
+    # an entry differs only where an ICP meets a degenerate covariance (rounding noise): at most 1%
+    check(n_diff <= 0.01 * 10 * 25, f"cost tables: {n_diff} of 250 entries differ")
+    check(np.array_equal(m["cuda"][1], m["cpu"][1]) or n_diff > 0, "fastpd labels differ on equal tables")
+    counts = pp_counts(2000, 300, seed=3).toarray().astype(float)
+    f = {d: stt.pp.calcNormFactors(counts, method="TMM", device=d) for d in ("cuda", "cpu")}
+    tmm_err = float(np.abs(f["cuda"] - f["cpu"]).max())
+    check(tmm_err <= 1e-12, f"TMM card vs CPU {tmm_err}")
+    X = pp_counts(1000, 400, seed=4)
+    p = {d: randomized_pca_centered(X, 20, device=d)[0] for d in ("cuda", "cpu")}
+    sgn = np.sign((p["cuda"] * p["cpu"]).sum(0))
+    pca_err = float(np.abs(p["cuda"] * sgn - p["cpu"]).max() / np.abs(p["cpu"]).max())
+    check(pca_err <= 1e-8, f"PCA card vs CPU {pca_err} of scale")
+    pts = np.random.default_rng(5).uniform(0, 100, (5000, 2))
+    km_err = {}
+    for cls, kw in ((km.KMeans, dict(n_clusters=250, n_init=4)), (km.MiniBatchKMeans, dict(n_clusters=400, n_init=3))):
+        g, c = (cls(random_state=0, device=d, **kw).fit(pts) for d in ("cuda", "cpu"))
+        check(np.array_equal(g.labels_, c.labels_), f"{cls.__name__}: labels differ")
+        km_err[cls.__name__] = float(np.abs(g.cluster_centers_ - c.cluster_centers_).max())
+        check(km_err[cls.__name__] <= 1e-10 * 100, f"{cls.__name__}: centres {km_err[cls.__name__]}")
+    print(f"phase 21: card vs CPU: cost tables of 4 sections at L 5, {n_diff} of 250 entries differ (bar 1%: a "
+          f"degenerate ICP covariance), fastpd labels {m['cuda'][1].tolist()} / {m['cpu'][1].tolist()}; TMM "
+          f"factors {tmm_err!r} (bar 1e-12); PCA {pca_err!r} of scale up to column signs (bar 1e-8); k-means labels "
+          f"equal, centres {km_err} (bar 1e-8); phase 21 {time.perf_counter() - t_phase!r} s")
+
+
+def phase_starro_main(stt, bp_cuda, em, ts, make_raster):
+    """Phase 3: the Starro main path on a 2048x2048 tile and a 4-tile stream.
+    Returns the `bp_step` launches and fused-delta launches of the main path,
+    and the tile's mask."""
     X = make_raster(TILE, TILE, seed=0)
+
     phase_stages(X, ts, em, bp_cuda, report=False)  # warm-up: first-call costs of each op
     bp_iters, stage_mask = phase_stages(X, ts, em, bp_cuda, report=True)
 
@@ -2536,8 +2782,11 @@ def main():
         f"peak device memory {peak_gb!r} GB; bp_step launches in the main path {launches}, fused delta launches "
         f"{delta_launches}"
     )
+    return launches, delta_launches, mask
 
-    # -- phase 4: CUDA vs CPU at 512^2 ---------------------------------------------
+
+def phase_starro_cuda_vs_cpu_512(em, ts, make_raster):
+    """Phase 4: one 512x512 raster scored on the card and on the CPU."""
     X4 = make_raster(512, 512, seed=1)
     dev = ts._upload(X4, "cuda")
     n4 = ts._n_samples(X4.size, 0.001)
@@ -2551,45 +2800,116 @@ def main():
     check(iou4 >= 0.999, f"512x512 CUDA vs CPU mask IoU {iou4} < 0.999")
     print(f"phase 4: 512x512 CUDA (kernel, bf16) vs CPU (plain, f32): mask IoU {iou4!r}, scores max_abs_err {serr!r}")
 
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases to run besides 0-2, 5 and 8 (the build and the kernels line); "
+                             "all when omitted")
+    phases = parser.parse_args(argv).phases
+    phases = None if phases is None else {int(p) for p in phases.split(",") if p.strip()}
+    if phases is not None and phases & {9, 10}:
+        phases.add(3)  # the labeling chain of phase 9 runs on phase 3's mask
+    if phases is not None and phases & {18, 19}:
+        phases |= {18, 19}  # phase 19 compares phase 18's samples
+
+    def want(n):
+        return phases is None or n in phases
+
+    # -- phase 0: environment --------------------------------------------------
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"phase 0: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+
+    from bench import make_raster
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.ops import _build, bp_cuda, em
+    from spateo_tpu_torch.segmentation import starro as ts
+
+    # -- phase 1: build -------------------------------------------------------
+    t0 = time.perf_counter()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    check({"bp_step", "estep", "inlier", "jacobi"} <= set(sources), f"CUDA sources missing: {sources}")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = [f.result() for f in [pool.submit(_build.build, name) for name in sources]]
+    for name in sources:
+        _build.load(name)
+    print(f"phase 1: built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
+
+    # -- phase 2: kernel vs plain version ----------------------------------------
+    kstats = phase_kernel_vs_plain(bp_cuda)
+
+    # -- phase 3: main path ------------------------------------------------------
+    launches = delta_launches = 0
+    if want(3):
+        launches, delta_launches, mask = phase_starro_main(stt, bp_cuda, em, ts, make_raster)
+    if want(4):
+        phase_starro_cuda_vs_cpu_512(em, ts, make_raster)
+
     # -- phases 5-7: Morpho ---------------------------------------------------------
     estats = phase_estep_kernels()
     istats = phase_inlier_kernel()
-    est_launches = phase_morpho_main()
-    phase_morpho_cuda_vs_cpu()
+    est_launches = phase_morpho_main() if want(6) else {"colnorm": 0, "rowred": 0, "inlier": 0}
+    if want(7):
+        phase_morpho_cuda_vs_cpu()
 
     # -- phases 8-10: digitization and labeling ---------------------------------------
     from spateo_tpu_torch.ops import jacobi_cuda
 
     jstats = phase_jacobi_kernel()
     jacobi_cuda.jacobi_block.launches = jacobi_cuda.jacobi_block.err_launches = 0
-    pde_launches = phase_pde_configs()
-    dig_launches = phase_digitize(stt)
+    if want(9):
+        pde_launches = phase_pde_configs()
+        dig_launches = phase_digitize(stt)
     jacobi_launches = jacobi_cuda.jacobi_block.launches
     reduce_launches = jacobi_cuda.jacobi_block.err_launches
-    check(jacobi_launches > 0 and jacobi_launches >= pde_launches + dig_launches,
-          f"jacobi_block launches in the main path {jacobi_launches}")
-    check(reduce_launches > 0, "the fused reduction never ran in the main path")
-    print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}, fused-reduction launches "
-          f"{reduce_launches}")
-    phase_labeling(mask)
-    phase_digitization_cuda_vs_cpu(stt)
+    if want(9):
+        check(jacobi_launches > 0 and jacobi_launches >= pde_launches + dig_launches,
+              f"jacobi_block launches in the main path {jacobi_launches}")
+        check(reduce_launches > 0, "the fused reduction never ran in the main path")
+        print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}, fused-reduction launches "
+              f"{reduce_launches}")
+        phase_labeling(mask)
+    if want(10):
+        phase_digitization_cuda_vs_cpu(stt)
 
     # -- phases 11-13: morphofields, and the atlas chain through the port ---------
-    phase_morphofield_main(stt)
-    phase_morphofield_cuda_vs_cpu(stt)
-    phase_atlas_chain()
+    if want(11):
+        phase_morphofield_main(stt)
+    if want(12):
+        phase_morphofield_cuda_vs_cpu(stt)
+    if want(13):
+        phase_atlas_chain()
 
     # -- phases 14-15: MuSIC ----------------------------------------------------------
-    phase_music_bench()
-    phase_music_fit()
-    phase_music_cuda_vs_cpu()
+    if want(14):
+        phase_music_bench()
+        phase_music_fit()
+    if want(15):
+        phase_music_cuda_vs_cpu()
 
     # -- phases 16-17: the rest of Starro ------------------------------------------------
-    staged_launches, staged_deltas = phase_starro_tutorial()
-    phase_starro_cuda_vs_cpu()
+    staged_launches, staged_deltas = phase_starro_tutorial() if want(16) else (0, 0)
+    if want(17):
+        phase_starro_cuda_vs_cpu()
 
     # -- phases 18-19: SVG detection and PASTE -------------------------------------------
-    phase_svg_paste_cuda_vs_cpu(*phase_svg_paste())
+    if want(18):
+        phase_svg_paste_cuda_vs_cpu(*phase_svg_paste())
+
+    # -- phases 20-21: rigid alignment, mesh correction, st.pp, k-means --------------------
+    if want(20):
+        phase_e95(stt)
+    if want(21):
+        phase_e95_cuda_vs_cpu(stt)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -1,4 +1,5 @@
-"""Alignment methods ported so far: Morpho pairwise and PASTE."""
+"""Alignment methods (counterpart of `spateo_tpu.alignment.methods`): Morpho
+pairwise, PASTE, mesh correction and point-cloud sampling."""
 
 from .math import (
     calc_distance,
@@ -11,8 +12,10 @@ from .math import (
     normalize_coords,
     voxel_data,
 )
+from .mesh_correction import Mesh_correction
 from .morpho import Morpho_pairwise, filter_common_genes, get_rep
 from .paste import KLNMF, center_NMF, generalized_procrustes_analysis, paste_center_align, paste_pairwise_align
+from .sampling import sample_indices
 
 
 def empty_cache(device="cuda"):

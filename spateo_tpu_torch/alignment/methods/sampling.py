@@ -1,7 +1,8 @@
 """Point-cloud downsampling methods (counterpart of
 `spateo_tpu.alignment.methods.sampling`; reference
 spateo/alignment/methods/sampling.py:17-303: random / kmeans / TRN / LHS).
-Host numpy, copied from the JAX package."""
+Host numpy, copied from the JAX package, but for the k-means, which is
+`ops.kmeans.MiniBatchKMeans` (scikit-learn's, ported) on `device`."""
 
 from __future__ import annotations
 
@@ -13,12 +14,14 @@ def random_sample(X: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
     return rng.choice(X.shape[0], size=min(n, X.shape[0]), replace=False)
 
 
-def kmeans_sample(X: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
-    """Cluster into n k-means centers; pick the point closest to each center."""
+def kmeans_sample(X: np.ndarray, n: int, seed: int = 0, device="cuda") -> np.ndarray:
+    """Cluster into n k-means centers on `device`; pick the point closest to
+    each center."""
     from scipy.spatial import cKDTree
-    from sklearn.cluster import MiniBatchKMeans
 
-    km = MiniBatchKMeans(n_clusters=min(n, X.shape[0]), random_state=seed, n_init=3).fit(X)
+    from ...ops.kmeans import MiniBatchKMeans
+
+    km = MiniBatchKMeans(n_clusters=min(n, X.shape[0]), random_state=seed, n_init=3, device=device).fit(X)
     _, idx = cKDTree(X).query(km.cluster_centers_, k=1)
     return np.unique(idx)
 
@@ -69,14 +72,14 @@ def lhs_sample(X: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
     return np.unique(idx)
 
 
-def sample_indices(X: np.ndarray, n: int, method: str = "random", seed: int = 0) -> np.ndarray:
+def sample_indices(X: np.ndarray, n: int, method: str = "random", seed: int = 0, device="cuda") -> np.ndarray:
     """Downsampling by `method` ('random', 'kmeans', 'trn', 'lhs'),
-    returning indices into X."""
+    returning indices into X. Only 'kmeans' uses `device`."""
     X = np.asarray(X)
     if method == "random":
         return random_sample(X, n, seed)
     if method == "kmeans":
-        return kmeans_sample(X, n, seed)
+        return kmeans_sample(X, n, seed, device)
     if method == "trn":
         return trn_sample(X, n, seed)
     if method in ("lhs", "LHS"):

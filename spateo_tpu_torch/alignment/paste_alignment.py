@@ -88,7 +88,8 @@ def paste_align_ref(
     if models_ref is None:
         models_sampling = [model.copy() for model in models]
         models_ref = downsampling(
-            models=models_sampling, n_sampling=n_sampling, sampling_method=sampling_method, spatial_key=spatial_key
+            models=models_sampling, n_sampling=n_sampling, sampling_method=sampling_method, spatial_key=spatial_key,
+            device=device,
         )
 
     align_models_ref, pis = paste_align(

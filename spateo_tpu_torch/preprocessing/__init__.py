@@ -1,8 +1,18 @@
-"""Preprocessing layer (`stt.pp`): the expression transforms MuSIC needs,
-copied from `spateo_tpu.preprocessing.transform`, and spatial binning
-(`bin_adata`, `spateo_tpu.preprocessing.aggregate`). Filters,
-normalization and the rest of `spateo_tpu.preprocessing` are not ported yet
-(ROADMAP Queue 1 item 11)."""
+"""Preprocessing layer (`stt.pp`): filters, normalization (total counts,
+the edgeR factors with TMM on the device, Seurat HVFs), the expression
+transforms and spatial binning, ported from `spateo_tpu.preprocessing`.
+`auxseg` and `image` are not ported yet (ROADMAP Queue 1 item 11)."""
 
+from . import filter
 from .aggregate import bin_adata
+from .filter import filter_by_coordinates, filter_cells, filter_genes
+from .normalize import (
+    calcFactorRLE,
+    calcFactorTMM,
+    calcFactorTMMwsp,
+    calcNormFactors,
+    factor_normalization,
+    normalize_total,
+    select_hvf_seurat,
+)
 from .transform import log1p, log1p_array, log1p_sparse, scale

@@ -1,7 +1,10 @@
 """Expression transforms: log1p, scale (parity: reference spateo/preprocessing/transform.py:18,118).
 
 A copy of `spateo_tpu.preprocessing.transform` (numpy, host side), so that
-MuSIC's `log_transform=True` runs without the JAX package."""
+MuSIC's `log_transform=True` runs without the JAX package. Sparse row and
+column scalings are exact scalings of the CSR/CSC `.data`, as
+`sklearn.utils.sparsefuncs.inplace_{row,column}_scale` do them (the GPU
+machine has no scikit-learn)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,26 @@ import scipy.sparse
 
 from ..core.anndata import AnnData
 from ..logging import logger_manager as lm
+
+
+def inplace_row_scale(X, scale: np.ndarray) -> None:
+    """Multiply row i of a CSR or CSC matrix by ``scale[i]``, in place."""
+    if scipy.sparse.isspmatrix_csr(X) or isinstance(X, scipy.sparse.csr_array):
+        X.data *= np.repeat(scale, np.diff(X.indptr))
+    elif scipy.sparse.isspmatrix_csc(X) or isinstance(X, scipy.sparse.csc_array):
+        X.data *= scale.take(X.indices, mode="clip")
+    else:
+        raise TypeError(f"Expected a CSR or CSC sparse matrix, got {type(X)}.")
+
+
+def inplace_column_scale(X, scale: np.ndarray) -> None:
+    """Multiply column j of a CSR or CSC matrix by ``scale[j]``, in place."""
+    if scipy.sparse.isspmatrix_csr(X) or isinstance(X, scipy.sparse.csr_array):
+        X.data *= scale.take(X.indices, mode="clip")
+    elif scipy.sparse.isspmatrix_csc(X) or isinstance(X, scipy.sparse.csc_array):
+        X.data *= np.repeat(scale, np.diff(X.indptr))
+    else:
+        raise TypeError(f"Expected a CSR or CSC sparse matrix, got {type(X)}.")
 
 
 def log1p_array(X, base: Optional[float] = None, copy: bool = False):
@@ -102,9 +125,7 @@ def scale_sparse(
     mean, var = _get_mean_var(X)
     std = np.sqrt(var)
     std[std == 0] = 1
-    from sklearn.utils import sparsefuncs
-
-    sparsefuncs.inplace_column_scale(X, 1 / std)
+    inplace_column_scale(X, 1 / std)
     if max_value is not None:
         X.data[X.data > max_value] = max_value
     if return_mean_std:

@@ -25,8 +25,9 @@ the constructor, default ``"cuda"``).
 
 The CCI databases are read as data from the JAX package's
 `tools/database/` directory by file path (``cci_dir=`` overrides it); no code
-of that package runs. `normalize=True` needs a module not ported yet and
-raises; `smooth=True` takes `svg.get_svg.smooth`. `load_state` takes a design built elsewhere (for
+of that package runs. `normalize=True` takes `preprocessing.normalize_total`,
+`smooth=True` `svg.get_svg.smooth`, and `spatial_subsample=True` the strata
+of `ops.kmeans.KMeans`. `load_state` takes a design built elsewhere (for
 example the JAX package's, through `core.bridge.music_state_from_reference`).
 """
 
@@ -215,10 +216,9 @@ class MuSIC:
         self.n_samples = self.adata.n_obs
         self.x_chunk = np.arange(self.n_samples)
         if self.normalize:
-            raise NotImplementedError(
-                "MuSIC(normalize=True) needs preprocessing.normalize, not ported to PyTorch yet (ROADMAP Queue 1 "
-                "item 11); normalize the AnnData before fitting"
-            )
+            from ...preprocessing.normalize import normalize_total
+
+            normalize_total(self.adata)
         if self.smooth:
             from ...svg.get_svg import smooth as smooth_fn
 
@@ -856,10 +856,10 @@ class MuSIC:
         if self.spatial_subsample:
             if verbose:
                 self.logger.info("Performing stratified subsampling from different regions of the data...")
-            from sklearn.cluster import KMeans
+            from ...ops.kmeans import KMeans
 
             n_clust = max(int(0.05 * n_samples), 2)
-            km = KMeans(n_clusters=n_clust, random_state=0, n_init=10).fit(coords)
+            km = KMeans(n_clusters=n_clust, random_state=0, n_init=10, device=self.device).fit(coords)
             spatial_clusters = km.predict(coords).astype(int)
 
             for target in y_arr.columns:

@@ -24,6 +24,20 @@ COORD_TOL = 2e-3
 ROT_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch and for numpy's and scikit-learn's
+    pools: the tier-1 run shares the CPU among its workers, where those
+    pools only contend."""
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(n)
+
+
 def _slices(n_slices, n, g, seed):
     """A chain of rotated, shifted copies of one synthetic slice with smooth
     expression gradients and a categorical 'region' label."""
@@ -195,3 +209,148 @@ def test_transformation_functions_match_jax(tmp_path):
     from_disk = stt.align.morpho_align_apply_transformation(models, transformation_path=path, spatial_key="spatial",
                                                             verbose=False)
     np.testing.assert_array_equal(from_disk[2].obsm["align_spatial"], applied_t[2].obsm["align_spatial"])
+
+
+# ---------------------------------------------------------------------------
+# The rest of alignment: utilities, deformation grids, deprecated shims
+# ---------------------------------------------------------------------------
+
+
+
+
+def _pair_adatas(n=200, seed=3):
+    from spateo_tpu_torch.core.bridge import adata_from_reference
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0, 10, (n, 3))
+    a = st.AnnData(
+        X=rng.poisson(2.0, (n, 6)).astype(np.float32),
+        obs=pd.DataFrame({"ct": rng.choice(["A", "B", "C"], n)}, index=[f"c{i}" for i in range(n)]),
+        var=pd.DataFrame(index=[f"g{j}" for j in range(6)]),
+    )
+    a.obsm["spatial"] = pts
+    st.SKM.init_adata_type(a, "UMI")
+    return a, adata_from_reference(a)
+
+
+def test_alignment_utilities_match_jax():
+    """`rigid_transformation`, `tps_deformation`, `split_slice`,
+    `generate_label_transfer_prior`, `get_labels_based_on_coords` and
+    `align_preprocess`: copies of the JAX package's host code, equal."""
+    a, b = _pair_adatas()
+    a2d, b2d = _pair_adatas(seed=4)
+    for m in (a2d, b2d):
+        m.obsm["spatial"] = np.asarray(m.obsm["spatial"])[:, :2]
+    st.align.rigid_transformation(a2d, "spatial", "rigid", theta=0.4, translation=np.array([1.0, 2.0]))
+    stt.align.rigid_transformation(b2d, "spatial", "rigid", theta=0.4, translation=np.array([1.0, 2.0]))
+    np.testing.assert_array_equal(b2d.obsm["rigid"], a2d.obsm["rigid"])
+    st.align.tps_deformation(a2d, "spatial", "tps", tps_noise_scale=0.5, seed=2)
+    out = stt.align.tps_deformation(b2d, "spatial", "tps", tps_noise_scale=0.5, seed=2, inplace=False)
+    np.testing.assert_array_equal(out.obsm["tps"], a2d.obsm["tps"])
+    assert "tps" not in b2d.obsm
+    sj, s_t = st.align.split_slice(a, "spatial", split_num=4), stt.align.split_slice(b, "spatial", split_num=4)
+    assert [list(x.obs_names) for x in s_t] == [list(x.obs_names) for x in sj]
+    assert [list(x.obs["slice"]) for x in s_t] == [list(x.obs["slice"]) for x in sj]
+    for kw in ({}, {"positive_pairs": [{"left": ["A"], "right": ["B"], "value": 5.0}]},
+               {"negative_pairs": [{"left": ["A"], "right": ["A"], "value": 0.1}]}):
+        assert stt.align.generate_label_transfer_prior(["A", "B"], ["A", "B", "C"], **kw) == \
+            st.align.generate_label_transfer_prior(["A", "B"], ["A", "B", "C"], **kw)
+    q = np.random.default_rng(0).uniform(0, 10, (30, 3))
+    pd.testing.assert_frame_equal(stt.align.get_labels_based_on_coords(b, q, "ct", spatial_key="spatial"),
+                                  st.align.get_labels_based_on_coords(a, q, "ct", spatial_key="spatial"))
+    for kw in ({}, {"normalize_c": True, "normalize_g": True, "genes": ["g1", "g3", "g4"]}):
+        rj = st.align.align_preprocess([a, a2d], **kw)
+        rt = stt.align.align_preprocess([b, b2d], **kw)
+        assert rt[6] == rj[6]
+        for k in (2, 3):
+            for x, y in zip(rt[k], rj[k]):
+                np.testing.assert_array_equal(x, y)
+        if kw:
+            np.testing.assert_array_equal(rt[4], rj[4])
+
+
+def test_kmeans_downsampling_matches_jax():
+    """`downsampling(sampling_method="kmeans")` (the port's MiniBatchKMeans,
+    `morpho_align_ref`'s and `paste_align_ref`'s sampler) keeps the JAX
+    package's cells."""
+    a, b = _pair_adatas(n=800, seed=5)
+    [dj] = st.align.downsampling([a], n_sampling=120, sampling_method="kmeans")
+    [dt] = stt.align.downsampling([b], n_sampling=120, sampling_method="kmeans", device="cpu")
+    assert list(dt.obs_names) == list(dj.obs_names)
+
+
+def test_grid_deformation_matches_jax():
+    """One saved Morpho field warps the grid through both packages: the same
+    lines, warped points to 1e-5 (float32 `BA_transform`), the velocity
+    scalar on the deformed grid only."""
+    from spateo_tpu_torch.core.bridge import adata_from_reference, vecfld_from_reference
+
+    _, chain = _slices(2, 250, 10, seed=12)
+    models, _ = st.align.morpho_align([_adata(st, *c) for c in chain], max_iter=30, batch_size=150, verbose=False)
+    mj = models[1]
+    mj.uns["VecFld_morpho"]["Coff"] = np.asarray(mj.uns["VecFld_morpho"]["Coff"]) + 0.05
+    mt = adata_from_reference(mj)
+    mt.uns["VecFld_morpho"] = vecfld_from_reference(mj.uns["VecFld_morpho"])
+    gj, dj = st.align.grid_deformation(mj, spatial_key="align_spatial", grid_num=[5, 5], grid_density=20)
+    gt, dt = stt.align.grid_deformation(mt, spatial_key="align_spatial", grid_num=[5, 5], grid_density=20,
+                                        device="cpu")
+    np.testing.assert_array_equal(gt.points, gj.points)
+    np.testing.assert_array_equal(gt.lines, gj.lines)
+    np.testing.assert_allclose(dt.points, dj.points, rtol=0, atol=1e-5)
+    assert np.all(np.asarray(gt.point_data["deformation"]) == 0)
+    np.testing.assert_allclose(dt.point_data["deformation"], dj.point_data["deformation"], rtol=0, atol=1e-5)
+    assert len(mt.uns["deformation"]["grid_lines"]) == 10
+
+
+def test_deprecated_shims_match_jax():
+    """test_deprecated_api.py's cases through both packages: `BA_align`
+    writes the same keys and the same rigid and non-rigid coordinates
+    (to COORD_TOL), `P` comes back on the host as [B, A]; `BA_align_sparse`
+    runs the sparse mode from its own module path."""
+    from spateo_tpu.alignment.methods.deprecated_morpho import BA_align as jBA
+    from spateo_tpu_torch.alignment.methods.deprecated_morpho import BA_align as tBA
+    from spateo_tpu_torch.alignment.methods.deprecated_morpho_sparse import BA_align_sparse
+
+    rng = np.random.default_rng(0)
+    n = 120
+    pts = rng.uniform(0, 10, (n, 2)).astype(np.float32)
+    X = rng.poisson(2.0, (n, 10)).astype(np.float32)
+    th = 0.25
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    moved = pts @ R.T + np.array([1.0, -0.5], np.float32)
+    region = np.array(["r"] * n)
+    (_, Bj), Pj = jBA(sampleA=_adata(st, pts, X, region), sampleB=_adata(st, moved, X, region), max_iter=30,
+                      vecfld_key_added="VecFld", verbose=False)
+    (_, Bt), Pt = tBA(sampleA=_adata(stt, pts, X, region), sampleB=_adata(stt, moved, X, region), max_iter=30,
+                      vecfld_key_added="VecFld", verbose=False, device="cpu")
+    assert isinstance(Pt, np.ndarray) and Pt.shape == Pj.shape == (n, n)
+    np.testing.assert_allclose(Pt, np.asarray(Pj), rtol=0, atol=COORD_TOL * float(np.asarray(Pj).max()))
+    for k in ("align_spatial_rigid", "align_spatial_nonrigid"):
+        np.testing.assert_allclose(Bt.obsm[k], np.asarray(Bj.obsm[k]), atol=COORD_TOL)
+    assert "VecFld" in Bt.uns
+    (_, Bs), Ps = BA_align_sparse(sampleA=_adata(stt, pts, X, region), sampleB=_adata(stt, moved, X, region),
+                                  max_iter=20, verbose=False, device="cpu")
+    assert "align_spatial_rigid" in Bs.obsm and Ps.shape == (n, n)
+
+
+def test_methods_utils_copy_matches_jax():
+    """The `check_*` helpers, `construct_knn_graph`, `normalize_exps` and
+    `torch_like_split` of `alignment.methods.utils`."""
+    from spateo_tpu.alignment.methods import utils as ju
+    from spateo_tpu_torch.alignment.methods import utils as tu
+
+    a, b = _pair_adatas(n=80, seed=6)
+    np.testing.assert_array_equal(tu.check_spatial_coords(b), ju.check_spatial_coords(a))
+    np.testing.assert_array_equal(tu.check_exp(b), ju.check_exp(a))
+    assert tu.check_rep_layer([b], ["X", "ct"], ["layer", "obs"]) and tu.check_obs(["X", "ct"], ["layer", "obs"]) == "ct"
+    np.testing.assert_array_equal(tu.check_label_transfer(None, None, b, b, "ct"),
+                                  ju.check_label_transfer(None, None, a, a, "ct"))
+    coords = np.asarray(a.obsm["spatial"])
+    assert (tu.construct_knn_graph(coords, 5) != ju.construct_knn_graph(coords, 5)).nnz == 0
+    E = [np.random.default_rng(k).uniform(0, 3, (20, 4)) for k in range(2)]
+    for x, y in zip(tu.normalize_exps(E, verbose=False), ju.normalize_exps(E, verbose=False)):
+        np.testing.assert_array_equal(x, y)
+    assert (tu.sparse_tensor_to_scipy(torch.eye(3)) != ju.sparse_tensor_to_scipy(np.eye(3))).nnz == 0
+    assert [x.tolist() for x in tu.torch_like_split(np.arange(7), 3)] == [[0, 1, 2], [3, 4, 5], [6]]
+    with pytest.raises(KeyError):
+        tu.check_spatial_coords(b, "nope")

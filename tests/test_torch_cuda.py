@@ -870,3 +870,84 @@ def test_paste_and_nmf_cuda_match_cpu(cuda, outer, bar):
     WH = {d: k.fit_transform(X) @ k.components_ for d, k in m.items()}
     assert m["cuda"].n_iter_ == m["cpu"].n_iter_
     assert np.abs(WH["cuda"] - WH["cpu"]).max() <= 1e-6 * np.abs(WH["cpu"]).max()
+
+
+def test_icp_batch_and_a_cost_table_cuda_match_cpu(cuda):
+    """Mesh correction's batched ICP (60 ragged problems) and one [L, L]
+    cost table of tests/test_mesh_correction.py:92's case on the card and on
+    the CPU: gamma equal, R and t within 1e-10; the table equal but where an
+    entry's ICP meets a degenerate cross-covariance (every inlier on one
+    contour point: the rotation is then set by rounding noise), at most 1% of
+    entries."""
+    from scipy.spatial import ConvexHull
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.alignment.methods import mesh_correction as mc
+
+    rng = np.random.default_rng(0)
+    c1, c2 = [], []
+    for _ in range(60):
+        n1, n2 = rng.integers(20, 200, 2)
+        th = rng.uniform(0, 2 * np.pi, n1)
+        c1.append(np.c_[np.cos(th), np.sin(th)] * rng.uniform(0.5, 2))
+        th = rng.uniform(0, 2 * np.pi, n2)
+        c2.append(np.c_[np.cos(th), 0.8 * np.sin(th)] + rng.normal(0, 0.1, 2))
+    out = {d: [x.cpu().numpy() for x in mc._icp_batch(*mc._padded(c1, d), *mc._padded(c2, d), max_iter=10,
+                                                        allow_rotation=True)] for d in ("cuda", "cpu")}
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    for k in (1, 3):
+        np.testing.assert_allclose(out["cuda"][k], out["cpu"][k], rtol=0, atol=1e-10)
+    sp = rng.normal(size=(400, 3))
+    sp = sp / np.linalg.norm(sp, axis=1, keepdims=True) * np.array([1.0, 0.8, 0.6])
+    mesh = stt.tdr.Mesh(sp, ConvexHull(sp).simplices)
+    slices = []
+    for z in np.linspace(-0.45, 0.45, 4):
+        a = np.sqrt(max(1 - (z / 0.6) ** 2, 1e-6))
+        th, rr = rng.uniform(0, 2 * np.pi, 400), np.sqrt(rng.uniform(0, 1, 400))
+        ad = stt.AnnData(X=np.ones((400, 2), np.float32))
+        stt.SKM.init_adata_type(ad, "UMI")
+        ad.obsm["spatial"] = np.stack([a * rr * np.cos(th), 0.8 * a * rr * np.sin(th)], 1) + rng.uniform(-0.15, 0.15, 2)
+        slices.append(ad)
+    m = stt.align.Mesh_correction(slices, np.linspace(-0.45, 0.45, 4), mesh, label_num=5, max_rotation_angle=15,
+                                  max_translation_scale=0.2, max_scaling=1.15, device="cpu")
+    m.extract_contours(alpha_shape_kwargs={"alpha": 2.0})
+    m.max_translation, m.best_transformation = 0.2 * m.slices_scale, {"rotation": np.zeros(3), "translation": 0.0,
+                                                                      "scaling": 1.0}
+    labels = m.generate_labels()
+    tables = {d: mc._get_binary_values(m.contours, m.mesh_points, m.mesh_faces, m.z_heights, (0, 3), labels, d)
+              for d in ("cuda", "cpu")}
+    assert (tables["cuda"] != tables["cpu"]).sum() <= 0.01 * tables["cpu"].size
+
+
+def test_kmeans_cuda_match_cpu(cuda):
+    """`KMeans` and `MiniBatchKMeans` on the card and on the CPU: the draws are
+    the host's, the centre sums atomics on the card, so labels and steps
+    equal and centres within 1e-10 of the coordinates' scale."""
+    from spateo_tpu_torch.ops.kmeans import KMeans, MiniBatchKMeans
+
+    X = np.random.default_rng(0).uniform(0, 100, (5000, 2))
+    for cls, kw in ((KMeans, dict(n_clusters=250, n_init=4)), (MiniBatchKMeans, dict(n_clusters=400, n_init=3))):
+        g, c = (cls(random_state=0, device=d, **kw).fit(X) for d in ("cuda", "cpu"))
+        np.testing.assert_array_equal(g.labels_, c.labels_)
+        np.testing.assert_allclose(g.cluster_centers_, c.cluster_centers_, rtol=0, atol=1e-10 * 100)
+
+
+def test_tmm_and_pca_cuda_match_cpu(cuda):
+    """TMM factors (float64, masked ranks) within 1e-12, on continuous counts
+    and on integer ones, where many genes tie (the logarithms are the host's,
+    so the card ranks the same keys); the randomized PCA of a sparse matrix
+    within 1e-8 of scale, up to column signs."""
+    from scipy import sparse
+
+    from spateo_tpu_torch.preprocessing.normalize import calcNormFactors
+    from spateo_tpu_torch.tools.dimensionality_reduction import randomized_pca_centered
+
+    rng = np.random.default_rng(0)
+    counts = rng.gamma(2.0, 3.0, size=(500, 400)) * (rng.random((500, 400)) > 0.3)
+    for c in (counts, rng.poisson(rng.gamma(0.5, 1.0, 300), (2000, 300)).astype(float)):
+        f = {d: calcNormFactors(c, method="TMM", device=d) for d in ("cuda", "cpu")}
+        np.testing.assert_allclose(f["cuda"], f["cpu"], rtol=0, atol=1e-12)
+    X = sparse.random(800, 300, density=0.1, format="csr", random_state=1)
+    p = {d: randomized_pca_centered(X, 20, device=d)[0] for d in ("cuda", "cpu")}
+    s = np.sign((p["cuda"] * p["cpu"]).sum(0))
+    assert np.abs(p["cuda"] * s - p["cpu"]).max() <= 1e-8 * np.abs(p["cpu"]).max()

@@ -47,6 +47,19 @@ WEIGHT_ATOL, FLIP_SHARE = 2e-3, 1e-4
 FIT_TOL = 5e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for torch and for numpy's pools: the tier-1 run
+    shares the CPU among its workers, where those pools only contend."""
+    from threadpoolctl import threadpool_limits
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(n)
+
+
 def _scaled(a, b):
     a, b = np.asarray(a, float), np.asarray(b, float)
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
@@ -560,11 +573,19 @@ def test_log_transform_and_subsample_match_jax(lr_adata):
 
 @pytest.mark.parametrize("option", ["normalize"])
 def test_unported_options_raise(lr_adata, option):
+    """The last option that raised, `normalize=True`, is ported: it no
+    longer raises, and `normalize_total` (copied host code) leaves the JAX
+    package's X, bit for bit; the fit on it matches too."""
     with tempfile.TemporaryDirectory() as tmp:
-        m = stt.tl.MuSIC(adata=adata_from_reference(lr_adata), output_path=f"{tmp}/o.csv", device="cpu",
-                         **{option: True})
-        with pytest.raises(NotImplementedError, match="item 11"):
+        mj, mt = _pair(lr_adata, tmp, **dict(MODELS["lr"], **{option: True}))
+        for m in (mj, mt):
             m.load_and_process()
+        np.testing.assert_array_equal(np.asarray(mt.adata.X), np.asarray(mj.adata.X))
+        mj.fit(verbose=False)
+        _share_weights(tmp)
+        mt.fit(verbose=False)
+        np.testing.assert_allclose(mt.coeffs["TGT1"].values, mj.coeffs["TGT1"].values, rtol=0,
+                                   atol=1e-4 * np.abs(mj.coeffs["TGT1"].values).max())
 
 
 def test_smooth_option_matches_jax(lr_adata):

@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the Starro
 EM+BP slice and the rest of Starro, the Morpho alignment slice, the digitization slice with its
 labeling chain, the morphofield slice, the whole atlas chain, MuSIC, and SVG
-detection with PASTE, and rigid slice alignment with mesh correction, `st.pp`
-normalization and the k-means paths.
+detection with PASTE, rigid slice alignment with mesh correction, `st.pp`
+normalization and the k-means paths, and the 3D reconstruction (`stt.tdr`
+models and morphometrics).
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -187,6 +188,29 @@ final ``ok`` line:
    where an ICP meets a degenerate covariance) and the `fastpd` labels, TMM
    factors (1e-12), the PCA up to column signs (1e-8 of scale), and both
    k-means' labels (equal) and centres (1e-8).
+
+22. 3D reconstruction (`stt.tdr`) at full width: the cells of phase 20's
+   stack with no drift (20 x 5,000 = 100,000 cells, `tdr.construct_pc`)
+   and 100,000 points on the ellipsoid's surface. `construct_surface(
+   cs_method="poisson", max_resolution=128)` with estimated normals: res,
+   CG iterations and host reads, ms of the splat + solve (CUDA events), of
+   marching tetrahedra and of the normals, the solve's idle share under the
+   profiler; the mesh's volume within 1% of 4/3 pi 0.8, and the splat equal
+   bit for bit on two runs. The alpha shape and `voxelize_mesh` (host) on a
+   **20,000-cell subsample** (a cut: host scipy). `construct_backbone` by
+   ElPiGraph at 50 nodes on the 100,000 cells (seconds, growth steps,
+   candidate fits, host reads, mean cell-to-node distance), and the port's
+   CPU path against the card at 20,000 cells x 10 nodes (edges equal);
+   SimplePPT and PrinCurve (500 epochs; ms an Adam epoch);
+   `model_morphology`, `pc_KDE` of the 100,000 cells, a SparseVFC field of
+   the cloud and `construct_field_streams` (100 x 100),
+   `pairwise_shape_similarity`. No kernel of `csrc/` is on this path.
+23. The same, card against CPU at a small size: Poisson at res 32 on 5,000
+   points (chi and rho 1e-5 of scale, CG iterations within 1, meshes within
+   a Chamfer distance of 1e-3 of a cell), ElPiGraph on 5,000 cells x 15
+   nodes (edges equal, nodes 1e-9), SimplePPT (nodes 1e-4 of scale) and
+   NLPCA after 100 epochs (weights 1e-4) in float32, `pc_KDE` (1e-10
+   relative).
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
@@ -2732,6 +2756,218 @@ def phase_e95_cuda_vs_cpu(stt):
           f"equal, centres {km_err} (bar 1e-8); phase 21 {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 22: the E9.5 stack's cells, stacked at their planted heights with
+#: no drift (E95_SECTIONS x E95_CELLS = 100,000), and TDR_SURFACE points on
+#: the same ellipsoid's surface, the screened-Poisson input. The alpha shape
+#: is host scipy (27 s at 100,000 cells on one CPU): it runs on
+#: TDR_ALPHA_CELLS of the cells, a listed cut.
+TDR_SURFACE, TDR_RES, TDR_ALPHA_CELLS = 100_000, 128, 20_000
+TDR_NODES, TDR_CPU_CELLS, TDR_CPU_NODES, TDR_EPOCHS = 50, 20_000, 10, 500
+TDR_STREAMS, TDR_STEPS, TDR_VOLUME_BAR = 100, 100, 0.01
+#: Phase 23's bars, card against CPU (float32 paths: SimplePPT's EM, the
+#: NLPCA's Adam steps; float64: ElPiGraph, the kernel density).
+TDR_PPT_BAR, TDR_NLPCA_BAR = 1e-4, 1e-4
+
+
+def e95_cloud(seed=0):
+    """The cells of `e95_stack(seed=seed)` with the planted shifts and
+    rotations undone, at their sections' heights: [sections x cells, 3]."""
+    _, slices, z, shifts, angles = e95_stack(seed=seed)
+    out = []
+    for s, zk, sh, ang in zip(slices, z, shifts, angles):
+        c, si = np.cos(np.deg2rad(ang)), np.sin(np.deg2rad(ang))
+        xy = (np.asarray(s.obsm["spatial"]) - sh) @ np.array([[c, -si], [si, c]])
+        out.append(np.c_[xy, np.full(len(xy), zk)])
+    return np.concatenate(out)
+
+
+def ellipsoid_surface(n, seed=0):
+    p = np.random.default_rng(seed).normal(size=(n, 3))
+    return p / np.linalg.norm(p, axis=1, keepdims=True) * np.asarray(E95_AXES)
+
+
+def chamfer(a, b):
+    """Symmetric mean nearest-neighbour distance between two point sets."""
+    from scipy.spatial import cKDTree
+
+    return 0.5 * (cKDTree(b).query(a)[0].mean() + cKDTree(a).query(b)[0].mean())
+
+
+def phase_tdr(stt):
+    """Phase 22: 3D reconstruction (`stt.tdr`) at full width on the E9.5
+    stack's 100,000 cells and a 100,000-point surface."""
+    from scipy.spatial import cKDTree
+
+    from spateo_tpu_torch.tdr.models.models_backbone import backbone_methods as bm
+    from spateo_tpu_torch.tdr.models.models_individual import reconstruction as rec
+    from spateo_tpu_torch.tdr.models.models_individual.voxel import _marching_tetrahedra
+
+    t_phase = time.perf_counter()
+    cells = e95_cloud()
+    ad = stt.AnnData(X=np.ones((len(cells), 2), np.float32))
+    ad.obsm["spatial"] = cells
+    ad.obs["section"] = np.repeat(np.arange(E95_SECTIONS), E95_CELLS).astype(str)
+    pc, _ = stt.tdr.construct_pc(ad, groupby="section")
+    surf = ellipsoid_surface(TDR_SURFACE)
+    # warm-up: the first calls of each op at a small size
+    stt.tdr.construct_surface(stt.tdr.PointCloud(surf[:3000]), cs_method="poisson", cs_args={"max_resolution": 32})
+    bm.ElPiGraph_tree(cells[:2000], NumNodes=5)
+
+    # 1. screened Poisson at max_resolution 128, normals estimated
+    t0 = time.perf_counter()
+    normals = rec.estimate_normals(surf)
+    t_normals = time.perf_counter() - t0
+    rec._splat_and_solve.host_reads = 0
+    t0 = time.perf_counter()
+    mesh, _, _ = stt.tdr.construct_surface(stt.tdr.PointCloud(surf), cs_method="poisson",
+                                           cs_args={"max_resolution": TDR_RES, "normals": normals})
+    t_surface = time.perf_counter() - t0
+    iters, reads = rec._splat_and_solve.last_iterations, rec._splat_and_solve.host_reads
+    vol, target = mesh.volume, 4.0 / 3.0 * np.pi * float(np.prod(E95_AXES))
+    check(abs(vol - target) <= TDR_VOLUME_BAR * target, f"Poisson mesh volume {vol} against {target}")
+    res, cell, origin = rec._poisson_frame(surf, 8, 0, 1.1, TDR_RES)
+    pts_g = (surf - origin) / cell
+    solve_ms = cuda_ms(lambda: rec._splat_and_solve(pts_g, normals, res, 4.0, 1e-5, 8 * res), n=3)
+    (chi, rho), wall, busy, launches, ops = device_profile(
+        lambda: rec._splat_and_solve(pts_g, normals, res, 4.0, 1e-5, 8 * res))
+    top = ", ".join(f"{short_op(k)} {v[0]:.1f} ms" for k, v in list(ops.items())[:4])
+    chi_np = chi.cpu().numpy().astype(float)
+    t_mt, raw = host_ms(lambda: _marching_tetrahedra(chi_np, float(np.mean(rec._trilinear_sample(chi_np, pts_g))),
+                                                     origin, cell))
+    pg, nr = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (pts_g, normals))
+    bits = rec._splat_bits(len(pg), 1.0)
+    check(torch.equal(rec._splat(pg, nr, res, bits), rec._splat(pg, nr, res, bits)), "the splat's bits differ")
+    print(f"phase 22: poisson construct_surface of {TDR_SURFACE:,} surface points: res {res}, {iters} CG iterations, "
+          f"{reads} host reads; {t_surface!r} s in all; splat + solve {solve_ms!r} ms (CUDA events), marching "
+          f"tetrahedra {t_mt!r} ms, normals {t_normals * 1e3!r} ms (host); the solve under the profiler {wall!r} ms, "
+          f"device busy {busy!r} ms, idle share {1 - busy / wall!r}, {launches} launches ({launches / max(iters, 1)!r} "
+          f"an iteration); top ops {top}; volume {vol!r} (smoothed; unsmoothed {raw.volume!r}) against {target!r}; "
+          f"{mesh.n_points:,} vertices, {mesh.n_faces:,} faces; the splat equal bit for bit on two runs")
+
+    # 2. the alpha shape and voxels (host) on a subsample: a cut
+    sub = cells[np.random.default_rng(1).choice(len(cells), TDR_ALPHA_CELLS, replace=False)]
+    t0 = time.perf_counter()
+    amesh, _, _ = stt.tdr.construct_surface(stt.tdr.PointCloud(sub))
+    t_alpha = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vox, _ = stt.tdr.voxelize_mesh(amesh, voxel_pc=pc)
+    t_vox = time.perf_counter() - t0
+    check(amesh.n_faces > 0 and vox.n_points > 0, "alpha shape / voxels empty")
+    print(f"phase 22: alpha-shape construct_surface of {TDR_ALPHA_CELLS:,} cells {t_alpha!r} s ({amesh.n_faces:,} "
+          f"faces, volume {amesh.volume!r}); voxelize_mesh {t_vox!r} s ({vox.n_points:,} voxels)")
+
+    # 3. ElPiGraph at 50 nodes on the 100,000 cells; the CPU path against the card at 20,000 x 10
+    for k in ("host_reads", "steps", "fits"):
+        setattr(bm.ElPiGraph_tree, k, 0)
+    t0 = time.perf_counter()
+    bb, length, _ = stt.tdr.construct_backbone(pc, rd_method="ElPiGraph", num_nodes=TDR_NODES)
+    t_elpi = time.perf_counter() - t0
+    steps, fits, reads = bm.ElPiGraph_tree.steps, bm.ElPiGraph_tree.fits, bm.ElPiGraph_tree.host_reads
+    dist = float(cKDTree(bb.points).query(cells)[0].mean())
+    check(bb.n_points == TDR_NODES and len(bb.edges) == TDR_NODES - 1 and steps == TDR_NODES - 2, "ElPiGraph tree")
+    small = cells[np.random.default_rng(2).choice(len(cells), TDR_CPU_CELLS, replace=False)]
+    t0 = time.perf_counter()
+    ng, eg = bm.ElPiGraph_tree(small, NumNodes=TDR_CPU_NODES)
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nc, ec = bm.ElPiGraph_tree(small, NumNodes=TDR_CPU_NODES, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    check(np.array_equal(eg, ec) and np.abs(ng - nc).max() <= 1e-9, "ElPiGraph card vs CPU at 20,000 x 10")
+    print(f"phase 22: construct_backbone ElPiGraph {len(cells):,} cells, {TDR_NODES} nodes: {t_elpi!r} s, {steps} "
+          f"growth steps, {fits} candidate fits, {reads} host reads; length {length!r}, mean cell-to-node distance "
+          f"{dist!r}; {TDR_CPU_CELLS:,} cells x {TDR_CPU_NODES} nodes: card {t_gpu!r} s, the port's CPU path "
+          f"{t_cpu!r} s (x{t_cpu / t_gpu!r}), edges equal, nodes {float(np.abs(ng - nc).max())!r} apart")
+
+    # 4. SimplePPT and PrinCurve
+    t0 = time.perf_counter()
+    bp, _, _ = stt.tdr.construct_backbone(pc, rd_method="SimplePPT", num_nodes=TDR_NODES)
+    t_ppt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bc, _, _ = stt.tdr.construct_backbone(pc, rd_method="PrinCurve", num_nodes=TDR_NODES, epochs=TDR_EPOCHS)
+    t_pc = time.perf_counter() - t0
+    X32 = torch.from_numpy((cells - cells.min(0)).astype(np.float32)).cuda()
+    solver = bm.NLPCA().init_params(3, TDR_NODES)
+    opt = torch.optim.Adam(solver.parameters(), lr=0.01)
+
+    def epoch():
+        opt.zero_grad(set_to_none=True)
+        torch.sum((X32 - solver(X32)[0]) ** 2).backward()
+        opt.step()
+
+    ms_epoch = cuda_ms(epoch, n=50)
+    check(bp.n_points == TDR_NODES and bc.n_points == TDR_NODES, "SimplePPT / PrinCurve nodes")
+    print(f"phase 22: construct_backbone SimplePPT {t_ppt!r} s; PrinCurve ({TDR_EPOCHS} epochs) {t_pc!r} s, "
+          f"{ms_epoch!r} ms an Adam epoch (CUDA events, {len(cells):,} cells, {TDR_NODES} hidden units)")
+
+    # 5. morphometrics and the field streams
+    t0 = time.perf_counter()
+    morph = stt.tdr.model_morphology(mesh, pc=pc)
+    t_morph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kde, _ = stt.tdr.pc_KDE(pc, bandwidth=0.1)
+    t_kde = time.perf_counter() - t0
+    dens = kde.point_data["kde"]
+    check(bool(np.isfinite(dens).all() and (dens > 0).all()), "pc_KDE")
+    ad.obsm["V_mapping"] = np.cross([0.0, 0.0, 1.0], cells)
+    t0 = time.perf_counter()
+    stt.tdr.morphofield_sparsevfc(ad, spatial_key="spatial", V_key="V_mapping")
+    t_vfc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streams, _ = stt.tdr.construct_field_streams(ad, n_streams=TDR_STREAMS, n_steps=TDR_STEPS)
+    t_streams = time.perf_counter() - t0
+    check(streams.n_points == TDR_STREAMS * (TDR_STEPS + 1) and bool(np.isfinite(streams.points).all()), "streams")
+    t0 = time.perf_counter()
+    sim = stt.tdr.pairwise_shape_similarity(cells, raw.points)
+    t_sim = time.perf_counter() - t0
+    print(f"phase 22: model_morphology {t_morph!r} s ({morph}); pc_KDE of {len(cells):,} cells {t_kde!r} s; "
+          f"morphofield_sparsevfc {t_vfc!r} s; construct_field_streams {TDR_STREAMS} x {TDR_STEPS} {t_streams!r} s; "
+          f"pairwise_shape_similarity (cells, Poisson mesh) {sim!r} in {t_sim!r} s; phase 22 "
+          f"{time.perf_counter() - t_phase!r} s")
+
+
+def phase_tdr_cuda_vs_cpu(stt):
+    """Phase 23: the 3D reconstruction's device programs, card against CPU,
+    at a small size."""
+    from spateo_tpu_torch.tdr.models.models_backbone import backbone_methods as bm
+    from spateo_tpu_torch.tdr.models.models_individual import reconstruction as rec
+    from spateo_tpu_torch.tdr.morphometrics.morphology import kde_log_density
+
+    t_phase = time.perf_counter()
+    surf = ellipsoid_surface(5000, seed=3)
+    normals = rec.estimate_normals(surf)
+    res, cell, origin = rec._poisson_frame(surf, 8, 0, 1.1, 32)
+    pts_g = (surf - origin) / cell
+    out, iters, meshes = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        chi, rho = rec._splat_and_solve(pts_g, normals, res, 4.0, 1e-5, 8 * res, device=d)
+        out[d], iters[d] = (chi.cpu().numpy(), rho.cpu().numpy()), rec._splat_and_solve.last_iterations
+        meshes[d] = rec.poisson_reconstruction(surf, normals=normals, max_resolution=32, device=d)
+    chi_err, rho_err = (float(np.abs(g - c).max() / np.abs(c).max()) for g, c in zip(out["cuda"], out["cpu"]))
+    ch = chamfer(meshes["cuda"].points, meshes["cpu"].points)
+    check(chi_err <= 1e-5 and rho_err <= 1e-5 and abs(iters["cuda"] - iters["cpu"]) <= 1 and ch <= 1e-3 * cell,
+          f"Poisson card vs CPU: chi {chi_err}, rho {rho_err}, iterations {iters}, Chamfer {ch}")
+    cells = e95_cloud(seed=1)[::20]
+    e = {d: bm.ElPiGraph_tree(cells, NumNodes=15, device=d) for d in ("cuda", "cpu")}
+    elpi_err = float(np.abs(e["cuda"][0] - e["cpu"][0]).max())
+    check(np.array_equal(e["cuda"][1], e["cpu"][1]) and elpi_err <= 1e-9, f"ElPiGraph card vs CPU {elpi_err}")
+    p = {d: bm.SimplePPT_tree(cells, NumNodes=20, device=d) for d in ("cuda", "cpu")}
+    ppt_err = float(np.abs(p["cuda"][0] - p["cpu"][0]).max() / np.abs(p["cpu"][0]).max())
+    check(np.array_equal(p["cuda"][1], p["cpu"][1]) and ppt_err <= TDR_PPT_BAR, f"SimplePPT card vs CPU {ppt_err}")
+    X = cells - cells.min(0)
+    w = {d: bm.NLPCA(device=d).fit(X, epochs=100, nodes=25).params for d in ("cuda", "cpu")}
+    nl_err = max(float(np.abs(w["cuda"][k] - w["cpu"][k]).max()) for k in w["cpu"])
+    check(nl_err <= TDR_NLPCA_BAR, f"NLPCA card vs CPU {nl_err}")
+    kde_err = max(float(np.abs(np.exp(kde_log_density(cells, k, 0.2, "cuda"))
+                               / np.exp(kde_log_density(cells, k, 0.2, "cpu")) - 1).max())
+                  for k in ("gaussian", "cosine"))
+    check(kde_err <= 1e-10, f"pc_KDE card vs CPU {kde_err}")
+    print(f"phase 23: card vs CPU: Poisson res {res} on 5,000 points chi {chi_err!r}, rho {rho_err!r} of scale (bar "
+          f"1e-5), CG iterations {iters['cuda']} / {iters['cpu']}, meshes' Chamfer {float(ch / cell)!r} of a cell (bar 1e-3); "
+          f"ElPiGraph {len(cells):,} cells x 15 nodes edges equal, nodes {elpi_err!r} (bar 1e-9); SimplePPT nodes "
+          f"{ppt_err!r} of scale (bar {TDR_PPT_BAR}); NLPCA 100 epochs weights {nl_err!r} (bar {TDR_NLPCA_BAR}); "
+          f"pc_KDE {kde_err!r} relative (bar 1e-10); phase 23 {time.perf_counter() - t_phase!r} s")
+
+
 def phase_starro_main(stt, bp_cuda, em, ts, make_raster):
     """Phase 3: the Starro main path on a 2048x2048 tile and a 4-tile stream.
     Returns the `bp_step` launches and fused-delta launches of the main path,
@@ -2910,6 +3146,12 @@ def main(argv=None):
         phase_e95(stt)
     if want(21):
         phase_e95_cuda_vs_cpu(stt)
+
+    # -- phases 22-23: 3D reconstruction ------------------------------------------------------
+    if want(22):
+        phase_tdr(stt)
+    if want(23):
+        phase_tdr_cuda_vs_cpu(stt)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -6,9 +6,10 @@ the copy is asynchronous on the current stream. `adata_from_reference` builds
 the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
 fields, `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho solve's
 EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
-learned SparseVFC field and a Morpho vector field, and
-`music_state_from_reference` a MuSIC design; all are duck-typed, so that this
-module never imports the JAX package.
+learned SparseVFC field and a Morpho vector field,
+`music_state_from_reference` a MuSIC design, and `nlpca_from_reference` the
+weights of an NLPCA principal curve; all are duck-typed, so that this module
+never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -167,3 +168,21 @@ def music_state_from_reference(model) -> dict:
         "spatial_weights_secreted": csr(getattr(model, "spatial_weights_secreted", None)),
         "spatial_weights_niche": csr(niche),
     }
+
+
+NLPCA_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3", "w4", "b4")
+
+
+def nlpca_from_reference(params, device="cuda"):
+    """The port's `tdr.NLPCA` module on `device` holding the weights of a
+    `spateo_tpu` `NLPCA.params` (a dict of arrays `w1` ... `b4`), as float32
+    copies."""
+    from ..tdr.models.models_backbone.backbone_methods import NLPCA
+
+    w = {k: np.array(params[k], dtype=np.float32) for k in NLPCA_KEYS}
+    num_dim, nodes = w["w1"].shape
+    solver = NLPCA(device=device).init_params(num_dim, nodes)
+    with torch.no_grad():
+        for k in NLPCA_KEYS:
+            getattr(solver, k).copy_(to_device(w[k], device))
+    return solver

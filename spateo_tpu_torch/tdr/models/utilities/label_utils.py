@@ -1,13 +1,16 @@
 """Model label/color utilities (capability parity: reference
 spateo/tdr/models/utilities/label_utils.py). A copy of
-`spateo_tpu.tdr.models.utilities.label_utils`; matplotlib is imported
-inside the function."""
+`spateo_tpu.tdr.models.utilities.label_utils` whose colors resolve through
+`colors.py` (matplotlib's rules, without matplotlib: the GPU machine has
+none); matplotlib is imported only to sample a colormap."""
 
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from .colors import COLORMAP_NAMES, colormap_hex, to_hex, to_rgba
 
 
 def add_model_labels(
@@ -31,8 +34,6 @@ def add_model_labels(
     labels are stored as-is and the colormap is handed back as plot_cmap for
     the plotting layer to resolve. Returns (model or None-if-inplace,
     plot_cmap)."""
-    import matplotlib as mpl
-
     m = model if inplace else model.copy()
     labels = np.asarray(labels).flatten()
 
@@ -40,22 +41,21 @@ def add_model_labels(
         cu_arr = np.sort(np.unique(labels), axis=0).astype(object)
         raw_hex = labels.copy().astype(object)
         raw_alpha = labels.copy().astype(object)
-        raw_hex[raw_hex == "mask"] = mpl.colors.to_hex(mask_color)
+        raw_hex[raw_hex == "mask"] = to_hex(mask_color)
         raw_alpha[raw_alpha == "mask"] = mask_alpha
 
         if isinstance(colormap, str):
-            if colormap in list(mpl.colormaps()):
-                lscmap = mpl.colormaps[colormap]
-                hex_list = [mpl.colors.to_hex(lscmap(i)) for i in np.linspace(0, 1, len(cu_arr))]
+            if colormap in COLORMAP_NAMES:
+                hex_list = colormap_hex(colormap, len(cu_arr))
                 for label, color in zip(cu_arr, hex_list):
                     raw_hex[raw_hex == label] = color
             else:
-                raw_hex[raw_hex != mpl.colors.to_hex(mask_color)] = mpl.colors.to_hex(colormap)
+                raw_hex[raw_hex != to_hex(mask_color)] = to_hex(colormap)
         elif isinstance(colormap, dict):
             for label, color in colormap.items():
-                raw_hex[raw_hex == label] = mpl.colors.to_hex(color)
+                raw_hex[raw_hex == label] = to_hex(color)
         elif isinstance(colormap, (list, np.ndarray)):
-            hex_list = np.array([mpl.colors.to_hex(color) for color in colormap]).astype(object)
+            hex_list = np.array([to_hex(color) for color in colormap]).astype(object)
             for label, color in zip(cu_arr, hex_list):
                 raw_hex[raw_hex == label] = color
         else:
@@ -73,7 +73,7 @@ def add_model_labels(
             raise ValueError("`alphamap` value is wrong.\nAvailable `alphamap` types are: `float`, `list` and `dict`.")
 
         rgba = np.array(
-            [mpl.colors.to_rgba(c, alpha=float(a)) for c, a in zip(raw_hex, raw_alpha)], dtype=np.float32
+            [to_rgba(c, alpha=float(a)) for c, a in zip(raw_hex, raw_alpha)], dtype=np.float32
         )
         getattr(m, where)[f"{key_added}_rgba"] = rgba
         plot_cmap = None

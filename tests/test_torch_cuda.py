@@ -951,3 +951,64 @@ def test_tmm_and_pca_cuda_match_cpu(cuda):
     p = {d: randomized_pca_centered(X, 20, device=d)[0] for d in ("cuda", "cpu")}
     s = np.sign((p["cuda"] * p["cpu"]).sum(0))
     assert np.abs(p["cuda"] * s - p["cpu"]).max() <= 1e-8 * np.abs(p["cpu"]).max()
+
+
+def _ellipsoid_points(n, seed=0, axes=(1.0, 0.5, 1.6)):
+    p = np.random.default_rng(seed).normal(size=(n, 3))
+    return p / np.linalg.norm(p, axis=1, keepdims=True) * np.asarray(axes)
+
+
+def test_poisson_solve_cuda_matches_cpu(cuda):
+    """The screened-Poisson splat and CG at res 32 on 5,000 points, card
+    against CPU: the splat gives equal bits on two card runs; rho and chi
+    within 1e-5 of their scale, the CG iterations within 1; the meshes of
+    `poisson_reconstruction` within a symmetric Chamfer distance of 1e-3 of
+    a cell."""
+    from scipy.spatial import cKDTree
+
+    from spateo_tpu_torch.tdr.models.models_individual import reconstruction as R
+
+    p = _ellipsoid_points(5000)
+    normals = R.estimate_normals(p)
+    res = 32
+    cell = 1.1 * np.ptp(p, axis=0).max() / (res - 3)
+    pts_g = (p - (p.min(0) + p.max(0)) / 2 + cell * (res - 1) / 2) / cell
+    pg, nr = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (pts_g, normals))
+    bits = R._splat_bits(len(p), 1.0)
+    assert torch.equal(R._splat(pg, nr, res, bits), R._splat(pg, nr, res, bits))
+    out, iters = {}, {}
+    for d in ("cuda", "cpu"):
+        chi, rho = R._splat_and_solve(pts_g, normals, res, 4.0, 1e-5, 8 * res, device=d)
+        out[d], iters[d] = (chi.cpu().numpy(), rho.cpu().numpy()), R._splat_and_solve.last_iterations
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert np.abs(g - c).max() <= 1e-5 * np.abs(c).max()
+    assert abs(iters["cuda"] - iters["cpu"]) <= 1
+    m = {d: R.poisson_reconstruction(p, max_resolution=res, normals=normals, device=d) for d in ("cuda", "cpu")}
+    ch = 0.5 * (cKDTree(m["cpu"].points).query(m["cuda"].points)[0].mean()
+                + cKDTree(m["cuda"].points).query(m["cpu"].points)[0].mean())
+    assert ch <= 1e-3 * cell
+
+
+def test_elpigraph_cuda_matches_cpu(cuda):
+    """ElPiGraph on 3,000 cells x 12 nodes, card against CPU: edges equal,
+    nodes within 1e-9; one host read a growth step."""
+    from spateo_tpu_torch.tdr.models.models_backbone import backbone_methods as B
+
+    X = _ellipsoid_points(3000, seed=1) * np.random.default_rng(1).uniform(0.2, 1.0, (3000, 1))
+    B.ElPiGraph_tree.host_reads = B.ElPiGraph_tree.steps = 0
+    ng, eg = B.ElPiGraph_tree(X, NumNodes=12, device="cuda")
+    assert B.ElPiGraph_tree.steps == 10 and B.ElPiGraph_tree.host_reads == 12
+    nc, ec = B.ElPiGraph_tree(X, NumNodes=12, device="cpu")
+    np.testing.assert_array_equal(eg, ec)
+    assert np.abs(ng - nc).max() <= 1e-9
+
+
+def test_pc_kde_cuda_matches_cpu(cuda):
+    """The kernel density of 4,000 points, card against CPU, for a smooth and
+    a compact kernel: 1e-10 relative."""
+    from spateo_tpu_torch.tdr.morphometrics.morphology import kde_log_density
+
+    X = _ellipsoid_points(4000, seed=2) * np.random.default_rng(2).uniform(0.5, 1.0, (4000, 1))
+    for kernel in ("gaussian", "epanechnikov"):
+        g, c = (np.exp(kde_log_density(X, kernel, 0.3, device=d)) for d in ("cuda", "cpu"))
+        assert np.abs(g / c - 1).max() <= 1e-10

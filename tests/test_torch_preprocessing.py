@@ -260,14 +260,20 @@ def test_group_pca_matches_jax():
 
 
 def test_no_module_imports_sklearn_jax_or_the_jax_package():
-    """Every module of `spateo_tpu_torch` imported in a fresh interpreter
-    brings in no scikit-learn, JAX or `spateo_tpu`; and no line of the
-    package imports them."""
+    """Every module of `spateo_tpu_torch` imported in a fresh interpreter,
+    and the two calls for which the JAX package asks scikit-learn in its
+    3D models (`pc_KDE`, `SimplePPT_tree`) run on the CPU, bring in no
+    scikit-learn, JAX or `spateo_tpu`; and no line of the package imports
+    them."""
     code = (
         "import pkgutil, sys, importlib\n"
+        "import numpy as np\n"
         "import spateo_tpu_torch\n"
         "for m in pkgutil.walk_packages(spateo_tpu_torch.__path__, 'spateo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "X = np.random.default_rng(0).normal(size=(60, 3))\n"
+        "spateo_tpu_torch.tdr.pc_KDE(spateo_tpu_torch.tdr.PointCloud(X), device='cpu')\n"
+        "spateo_tpu_torch.tdr.models.models_backbone.SimplePPT_tree(X, NumNodes=5, device='cpu')\n"
         "bad = sorted({k.split('.')[0] for k in sys.modules} & {'sklearn', 'jax', 'jaxlib', 'spateo_tpu'})\n"
         "print('BAD', bad)\n"
     )

@@ -2,8 +2,9 @@
 EM+BP slice and the rest of Starro, the Morpho alignment slice, the digitization slice with its
 labeling chain, the morphofield slice, the whole atlas chain, MuSIC, and SVG
 detection with PASTE, rigid slice alignment with mesh correction, `st.pp`
-normalization and the k-means paths, and the 3D reconstruction (`stt.tdr`
-models and morphometrics).
+normalization and the k-means paths, the 3D reconstruction (`stt.tdr`
+models and morphometrics), MuSIC's interpretation, the stain <-> RNA
+alignment refinement and PASTE's Frobenius center NMF.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -211,6 +212,31 @@ final ``ok`` line:
    nodes (edges equal, nodes 1e-9), SimplePPT (nodes 1e-4 of scale) and
    NLPCA after 100 epochs (weights 1e-4) in float32, `pc_KDE` (1e-10
    relative).
+
+24. MuSIC's interpretation, `refine_alignment` and the Frobenius center NMF
+   at full width. `music_slice(10,000)` with `music_tf_slice`'s genes (STAT3
+   and MYC tracking the ligands TGFB1 and DLL1, JUN unrelated, GAPDH), fitted
+   for TGT1 at 20 neighbours; `tl.MuSIC_Interpreter` around the fit's output
+   directory: `compute_coeff_significance`, `get_effect_potential` of TGT1's
+   planted pair (senders send more), `CCI_deg_detection_setup` and
+   `CCI_deg_detection(fit_all=True)` on the TFs (the tracked TF is the
+   significant one of largest coefficient, one set of weights a design),
+   `permutation_test` of TGT1 at its default 100 permutations (fits/s; by
+   `eval_permutation_test` the fit's Pearson correlation with TGT1 beats
+   every permutation's, t-test p <= 0.05), `tl.MuSIC_Molecule_Selector.
+   find_targets` (TGT1-3 found, GAPDH dropped). `cs.refine_alignment`,
+   rigid then non-rigid, 100 epochs each, on a 4,096² pair from
+   `planted_disks(4096)`, the stain moved by a planted 0.3 deg and (3, -2)
+   px: at its own Adam lr of 0.1 (the JAX package's) theta is reported; the
+   refiners through their own API at lr 1e-3, where the planted transform is
+   recovered within 1 px. `FrobeniusNMF(15)` of a 1,000-cell x 4,000-gene
+   section (`cortex_section`). Each stage's seconds, and its idle share and
+   launches under the profiler. No kernel of `csrc/` is on this path.
+25. The same, card against CPU at a small size: the CCI DEG table of 600
+   cells (1e-4 of scale), 20 permutations (the same scrambles, effects 1e-4,
+   comparisons flipped only at ties), the affine warp at 256² (1e-5), 100
+   epochs on smooth blobs (theta 1e-2, displacements 1e-5), the Frobenius
+   NMF of 300 x 200 (W and H 1e-8, the same iterations).
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
@@ -2968,6 +2994,357 @@ def phase_tdr_cuda_vs_cpu(stt):
           f"pc_KDE {kde_err!r} relative (bar 1e-10); phase 23 {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 24: MuSIC's interpretation on `music_slice`'s 10,000 cells with
+#: `music_tf_slice`'s genes; the permutations of `permutation_test` (its
+#: default); `refine_alignment` on a REFINE_SIZE² stain/RNA pair planted from
+#: `planted_disks`, the stain moved by REFINE_SHIFT pixels (y, x) and
+#: REFINE_ROT_DEG degrees; the Frobenius center NMF of a NMF_CELLS-cell
+#: section of `SVG_GENES` genes, NMF_COMPONENTS components (paste_center_align's).
+INTERP_PERMUTATIONS = 100
+REFINE_SIZE, REFINE_EPOCHS, REFINE_SHIFT, REFINE_ROT_DEG = 4096, 100, (3.0, -2.0), 0.3
+#: `refine_alignment` trains with the JAX package's Adam lr of 0.1; the
+#: planted check trains the refiners through their own API at this lr.
+REFINE_LR = 1e-3
+#: The profiler's windows of phase 24's longest loops: refinement epochs,
+#: NMF iterations, permutation refits.
+PROFILED_EPOCHS, PROFILED_NMF_ITERS, PROFILED_FITS = 20, 20, 10
+NMF_CELLS, NMF_COMPONENTS = 1_000, 15
+#: Phase 25's bars (card against CPU): the DEG table and the permutation
+#: effects (weights built on each device), the warps, theta after 100 epochs
+#: on smooth blobs (rotation and shear are nearly flat there), the non-rigid
+#: displacements, the Frobenius NMF's W and H.
+INTERP_BAR, WARP_BAR, THETA_BAR, DISP_BAR, FNMF_BAR = 1e-4, 1e-5, 1e-2, 1e-5, 1e-8
+
+
+def music_tf_slice(adata, seed=0):
+    """`music_slice`'s AnnData (left as it is) copied with four genes
+    appended: STAT3 ~ Poisson(1 + 0.8 TGFB1) and MYC ~ Poisson(1 + 0.8 DLL1)
+    (each TF tracks a ligand, so a GLM of the ligand on the TFs finds it),
+    JUN ~ Poisson(Gamma(0.5, 6)) unrelated (overdispersed, so that its log
+    is not a second intercept), and GAPDH ~ Poisson(5), a housekeeping gene
+    the molecule selector must drop."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+
+    X = np.asarray(adata.X, np.float32)
+    genes = list(map(str, adata.var_names))
+    rng = np.random.default_rng(seed + 1)
+    n = X.shape[0]
+    extra = np.c_[rng.poisson(1 + 0.8 * X[:, genes.index("TGFB1")]), rng.poisson(rng.gamma(0.5, 6.0, n)),
+                  rng.poisson(1 + 0.8 * X[:, genes.index("DLL1")]), rng.poisson(5.0, n)]
+    out = stt.AnnData(X=np.c_[X, extra].astype(np.float32), obs=adata.obs.copy(),
+                      var=pd.DataFrame(index=genes + ["STAT3", "JUN", "MYC", "GAPDH"]))
+    out.obsm["spatial"] = np.array(adata.obsm["spatial"])
+    stt.SKM.init_adata_type(out, stt.SKM.ADATA_UMI_TYPE)
+    return out
+
+
+def interpreter_for(model, adata, out_dir, device):
+    """A `MuSIC_Interpreter` around a fitted `lr` model's output directory:
+    the model's design carried over (`core.bridge.music_state_from_reference`
+    reads any fitted `MuSIC`), the coefficients read from the directory."""
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.core.bridge import music_state_from_reference
+
+    interp = stt.tl.MuSIC_Interpreter(
+        adata=adata, mod_type="lr", species="human", output_path=f"{out_dir}/music.csv", distr=model.distr,
+        custom_ligands=["TGFB1", "DLL1"], custom_receptors=["TGFBR1", "TGFBR2", "NOTCH1"],
+        custom_targets=list(model.targets), kernel="bisquare", bw_fixed=False, bw=model.bw, fit_intercept=True,
+        device=device,
+    )
+    interp.load_state(music_state_from_reference(model))
+    interp.load_coeffs()
+    return interp
+
+
+def timed_stage(fn, device, window=None):
+    """`fn()` timed on the host (synchronised), then `window()` (default:
+    `fn` again; a shorter run of the same loop where its events would take
+    the profiler long to gather) under `device_profile` on the card:
+    (result, seconds, idle share, launches)."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    seconds = time.perf_counter() - t0
+    if torch.device(device).type != "cuda":
+        return out, seconds, None, None
+    _, wall, busy, launches, _ = device_profile(window or fn)
+    return out, seconds, 1 - busy / wall, launches
+
+
+def refine_pair(n, shift=REFINE_SHIFT, rot_deg=REFINE_ROT_DEG, device="cuda"):
+    """The RNA raster of `planted_disks(n)` (5 counts a disk pixel) and a
+    stain of the same disks moved by `rot_deg` degrees about the centre and
+    `shift` pixels (y, x), warped on `device` (intensity 200). Returns
+    (rna, stain, theta): theta is the affine that maps the stain back onto
+    the RNA, in `refine_alignment`'s normalized coordinates."""
+    from spateo_tpu_torch.segmentation.align import _affine_warp
+
+    rna = planted_disks(n).astype(np.float32) * 5.0
+    th = np.deg2rad(rot_deg)
+    A = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    t = np.array([shift[1] * 2 / n, shift[0] * 2 / n])
+    theta = np.c_[A, t].astype(np.float32)
+    inverse = np.c_[A.T, -A.T @ t].astype(np.float32)
+    stain = _affine_warp(torch.from_numpy(rna).to(device), torch.from_numpy(inverse).to(device)).cpu().numpy()
+    return rna, 200.0 * stain / 5.0, theta
+
+
+def theta_px_error(theta, truth, n):
+    """The largest distance, in pixels, between where `theta` and `truth`
+    send the corners and the centre of the raster's inner 90%."""
+    pts = np.array([[-0.9, -0.9], [0.9, -0.9], [-0.9, 0.9], [0.9, 0.9], [0.0, 0.0]])
+    d = (pts @ theta[:, :2].T + theta[:, 2]) - (pts @ truth[:, :2].T + truth[:, 2])
+    return float(np.abs(d).max() * n / 2)
+
+
+def agg_adata(rna, stain):
+    """An AGG AnnData of the port holding the RNA raster as X and the
+    unspliced layer, and the stain layer."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+
+    n = rna.shape[0]
+    adata = stt.AnnData(X=rna, obs=pd.DataFrame(index=[str(i) for i in range(n)]),
+                        var=pd.DataFrame(index=[str(j) for j in range(rna.shape[1])]))
+    stt.SKM.init_adata_type(adata, stt.SKM.ADATA_AGG_TYPE)
+    adata.layers["unspliced"] = rna
+    adata.layers["stain"] = stain
+    return adata
+
+
+def phase_interpretation(n_cells=10_000, n_perm=INTERP_PERMUTATIONS, raster=REFINE_SIZE, nmf_genes=None,
+                         device="cuda"):
+    """Phase 24: MuSIC's interpretation, `refine_alignment` and the Frobenius
+    center NMF at full width, each stage timed, profiled and checked against
+    what was planted. Sizes are arguments so that the phase can rehearse on
+    the CPU at a small size."""
+    import tempfile
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.alignment.methods.paste import FrobeniusNMF
+    from spateo_tpu_torch.ops.image import conv2d
+    from spateo_tpu_torch.segmentation import align as tal
+
+    t_phase = time.perf_counter()
+    nmf_genes = SVG_GENES if nmf_genes is None else nmf_genes
+    report = {}
+    base, effect = music_slice(n_cells)
+    adata = music_tf_slice(base)
+    senders = np.asarray(adata.obs["cell_type"] == "sender")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        model, coeffs, _, _, _, _ = music_fit(adata, tmp, device=device, search=(), fixed=("TGT1",))
+        report["set-up: MuSIC.fit of TGT1"] = (time.perf_counter() - t0, None, None, "20 neighbours, poisson")
+        means = check_music_effects(coeffs, {"TGT1": effect["TGT1"]}, "phase 24")
+        pair = max(means["TGT1"], key=means["TGT1"].get)
+        ligand, receptor = pair.split(":")
+        interp = interpreter_for(model, adata, tmp, device)
+
+        sig, report["significance"], idle, launches = timed_stage(interp.compute_coeff_significance, device)
+        share = float(sig["TGT1"][f"b_{pair}"].values[np.asarray(effect["TGT1"])].mean())
+        report["significance"] = (report["significance"], idle, launches, f"{pair} significant on {share!r} of TGT1's "
+                                  "receivers")
+
+        (P, ns, nr), s, idle, launches = timed_stage(
+            lambda: interp.get_effect_potential(target="TGT1", ligand=ligand, receptor=receptor), device)
+        sent = (float(np.abs(ns[senders]).mean()), float(np.abs(ns[~senders]).mean()))
+        check(P.shape == (n_cells, n_cells) and sent[0] > sent[1],
+              f"effect potential of {pair} on TGT1: senders' sent potential {sent[0]} against the others' {sent[1]}")
+        report["effect potential"] = (s, idle, launches, f"{pair}: |sent| on senders {sent[0]!r}, others {sent[1]!r}; "
+                                      f"{P.nnz:,} nonzeros")
+
+        tfs = ["STAT3", "JUN", "MYC"]
+        interp.CCI_deg_detection_setup(use_ligands=True, custom_tfs=tfs)
+        _, s, idle, launches = timed_stage(lambda: interp.CCI_deg_detection(distr="poisson", fit_all=True), device)
+        mols = list(interp._cci_deg_targets.columns)
+        W_kept = interp._cci_deg_weights[1]
+        driving_tf = {"TGFB1": "STAT3", "DLL1": "MYC"}
+        found = {}
+        for mol, tf in driving_tf.items():
+            res = interp.CCI_deg_detection(mol, distr="poisson")
+            top = res["coefficient"].idxmax()
+            found[mol] = (top, bool(res.loc[tf, "significant"]), float(res.loc[tf, "coefficient"]))
+            check(top == tf and bool(res.loc[tf, "significant"]),
+                  f"CCI DEG of {mol}: {tf} not the significant TF of largest coefficient:\n{res}")
+        check(interp._cci_deg_weights[1] is W_kept, "the downstream weights were rebuilt within one design")
+        report["CCI DEG (fit_all)"] = (s, idle, launches, f"{len(mols)} molecules {mols} on {tfs}; the TF of largest "
+                                       f"coefficient, whether the planted one is significant, its coefficient: {found}")
+
+        t0 = time.perf_counter()
+        perm = interp.permutation_test("TGT1", n_permutations=n_perm, seed=0)
+        sync(device)
+        s = time.perf_counter() - t0
+        ev = interp.eval_permutation_test("TGT1")
+        r_obs = float(ev.loc["nonpermuted", "Pearson correlation"])
+        r_perm = ev.loc[[f"permutation_{i}" for i in range(n_perm)], "Pearson correlation"].to_numpy(float)
+        p_corr = float(ev.loc["p-value", "Pearson correlation"])
+        check(r_obs > r_perm.max() and p_corr <= 0.05,
+              f"permutation test of TGT1: the fit's Pearson correlation {r_obs} against the permutations' (max "
+              f"{r_perm.max()}), t-test p {p_corr}")
+        report["permutation test"] = (
+            s, None, None, f"{n_perm} permutations, {(n_perm + 1) / s!r} fits/s; eval: the fit's Pearson correlation "
+            f"with TGT1 {r_obs!r} against the permutations' mean {float(r_perm.mean())!r} and max "
+            f"{float(r_perm.max())!r}, t-test p "
+            f"{p_corr!r}; the effect-size null's p-values (mean |coefficient|, the JAX package's summary) "
+            f"{perm['perm_pvalue'].round(4).to_dict()}")
+        if torch.device(device).type == "cuda":
+            _, wall, busy, launches, _ = device_profile(
+                lambda: interp.permutation_test("TGT1", n_permutations=PROFILED_FITS - 1, seed=0))
+            report["permutation test"] = (s, 1 - busy / wall, launches, report["permutation test"][3]
+                                          + f" (the profiler over a {PROFILED_FITS}-fit run)")
+
+        def select():
+            sel = stt.tl.MuSIC_Molecule_Selector(adata=adata.copy(), mod_type="lr", species="human",
+                                                 output_path=f"{tmp}/select/out.csv", target_expr_threshold=0.05,
+                                                 bw_fixed=False, device=device)
+            sel.find_targets()
+            return sel
+
+        sel, s, idle, launches = timed_stage(select, device)
+        check({"TGT1", "TGT2", "TGT3"} <= set(sel.targets) and "GAPDH" not in sel.targets
+              and "TGFB1" in sel.ligands, f"find_targets: targets {sel.targets}, ligands {sel.ligands}")
+        report["find_targets"] = (s, idle, launches, f"{len(sel.targets)} targets, {len(sel.ligands)} ligands, "
+                                  f"{len(sel.receptors)} receptors")
+
+    t0 = time.perf_counter()
+    rna, stain, truth = refine_pair(raster, device=device)
+    report["set-up: the planted pair"] = (time.perf_counter() - t0, None, None, f"{raster}²")
+    for mode, kw in (("rigid", {}), ("non-rigid", {"binsize": raster // 4})):
+        data = agg_adata(rna, stain)
+        _, s, idle, launches = timed_stage(
+            lambda: stt.cs.refine_alignment(data, mode=mode, n_epochs=REFINE_EPOCHS, device=device, **kw), device,
+            lambda: stt.cs.refine_alignment(agg_adata(rna, stain), mode=mode, n_epochs=PROFILED_EPOCHS,
+                                            device=device, **kw))
+        params = stt.SKM.get_uns_spatial_attribute(data, stt.SKM.UNS_SPATIAL_ALIGNMENT_KEY)
+        note = (f"theta {theta_px_error(params['theta'], truth, raster)!r} px from the planted transform at lr 0.1"
+                if mode == "rigid" else
+                f"largest displacement {float(max(np.abs(v).max() for v in params.values())) * raster / 2!r} px")
+        report[f"refine_alignment {mode}"] = (s, idle, launches, f"{raster}², {REFINE_EPOCHS} epochs (the profiler over "
+                                              f"{PROFILED_EPOCHS}); {note}")
+    rna_s = conv2d(rna, 5, mode="gauss", device=device).cpu().numpy()
+    for cls, kw in ((tal.RigidAlignmentRefiner, {}), (tal.NonRigidAlignmentRefiner, {"binsize": raster // 4})):
+        ref = cls(rna_s, stain, device=device, **kw)
+        _, s, _, _ = timed_stage(lambda: ref.train(REFINE_EPOCHS, lr=REFINE_LR), device)
+        losses = (ref.losses[0], ref.losses[REFINE_EPOCHS - 1])
+        check(losses[1] < 0.5 * losses[0], f"{cls.__name__} at lr {REFINE_LR}: loss {losses}")
+        if cls is tal.RigidAlignmentRefiner:
+            err = theta_px_error(ref.get_params()["theta"], truth, raster)
+            check(err <= 1.0, f"rigid refinement at lr {REFINE_LR}: {err} px from the planted transform")
+            note = f"planted shift {REFINE_SHIFT} px and {REFINE_ROT_DEG} deg recovered within {err!r} px"
+        else:
+            note = "displacements " + ", ".join(f"{k} {float(np.abs(v).max()) * raster / 2!r} px" for k, v in
+                                                ref.get_params().items())
+        report[f"{cls.__name__} lr {REFINE_LR}"] = (s, None, None, f"loss {losses[0]!r} -> {losses[1]!r}; {note}; "
+                                                    f"{s / REFINE_EPOCHS * 1e3!r} ms an epoch")
+
+    t0 = time.perf_counter()
+    X = np.asarray(cortex_section(NMF_CELLS, nmf_genes, seed=4).X.toarray(), np.float64)
+    report["set-up: the NMF's section"] = (time.perf_counter() - t0, None, None, f"{NMF_CELLS} x {nmf_genes}")
+    nmf = FrobeniusNMF(NMF_COMPONENTS, 0, device=device)
+    W, s, idle, launches = timed_stage(
+        lambda: nmf.fit_transform(X), device,
+        lambda: FrobeniusNMF(NMF_COMPONENTS, 0, max_iter=PROFILED_NMF_ITERS, device=device).fit_transform(X))
+    fit = float(np.linalg.norm(X - W @ nmf.components_) / np.linalg.norm(X))
+    check(np.isfinite(W).all() and W.min() >= 0 and nmf.components_.min() >= 0 and fit < 1.0,
+          f"Frobenius NMF: relative residual {fit}")
+    report["Frobenius center NMF"] = (s, idle, launches, f"{NMF_CELLS} x {nmf_genes}, {NMF_COMPONENTS} components: "
+                                      f"{nmf.n_iter_} iterations, {s / nmf.n_iter_ * 1e3!r} ms an iteration, relative "
+                                      f"residual {fit!r} (the profiler over {PROFILED_NMF_ITERS} iterations)")
+    for stage, (s, idle, launches, note) in report.items():
+        extra = "" if idle is None else f", idle share {idle!r}, {launches} launches under the profiler"
+        print(f"phase 24: {stage}: {s!r} s{extra}; {note}")
+    print(f"phase 24 took {time.perf_counter() - t_phase!r} s")
+
+
+def small_interpreters(tmp, sides, n=600):
+    """A 600-cell `music_tf_slice` fitted once on the CPU (TGT1, 20
+    neighbours) and an interpreter of its output directory for each side
+    (name -> device)."""
+    base, _ = music_slice(n)
+    adata = music_tf_slice(base)
+    model, *_ = music_fit(adata, tmp, device="cpu", search=(), fixed=("TGT1",))
+    return {k: interpreter_for(model, adata.copy(), tmp, d) for k, d in sides.items()}
+
+
+def phase_interpretation_cuda_vs_cpu(card="cuda"):
+    """Phase 25: phase 24's device work on the card against the CPU, at a
+    small size (`card` names the first side's device)."""
+    import tempfile
+
+    from spateo_tpu_torch.alignment.methods.paste import FrobeniusNMF
+    from spateo_tpu_torch.segmentation import align as tal
+
+    t_phase = time.perf_counter()
+    sides = {"card": card, "cpu": "cpu"}
+    with tempfile.TemporaryDirectory() as tmp:
+        it = small_interpreters(tmp, sides)
+        deg, perm, spied = {}, {}, {}
+        for k, interp in it.items():
+            interp.CCI_deg_detection_setup(use_ligands=True, custom_tfs=["STAT3", "JUN", "MYC"])
+            deg[k] = interp.CCI_deg_detection("TGFB1", distr="poisson")
+            calls, orig = [], interp.mpi_fit
+
+            def spy(y, X, *a, _orig=orig, _calls=calls, **kw):
+                out = _orig(y, X, *a, **kw)
+                _calls.append((np.array(y), np.array(out)))
+                return out
+
+            interp.mpi_fit = spy
+            perm[k] = interp.permutation_test("TGT1", n_permutations=20, seed=0)
+            spied[k] = calls
+    deg_err = rel_err(deg["card"]["coefficient"].values, deg["cpu"]["coefficient"].values)
+    check(list(deg["card"].index) == list(deg["cpu"].index) and deg_err <= INTERP_BAR,
+          f"CCI DEG card vs CPU {deg_err}:\n{deg['card']}\n{deg['cpu']}")
+    check(all(np.array_equal(a[0], b[0]) for a, b in zip(spied["card"], spied["cpu"])), "different permutations")
+    eff_err = rel_err(perm["card"]["mean_abs_effect"], perm["cpu"]["mean_abs_effect"])
+    stats = {k: np.stack([np.abs(b).mean(axis=0) for _, b in spied[k]]) for k in spied}
+    scale = np.abs(stats["cpu"]).max()
+    ge = {k: s[1:] >= s[0][None, :] for k, s in stats.items()}
+    flipped = ge["card"] != ge["cpu"]
+    near = np.minimum(*(np.abs(s[1:] - s[0]) for s in stats.values())) <= INTERP_BAR * scale
+    check(eff_err <= INTERP_BAR and not (flipped & ~near).any(),
+          f"permutation test card vs CPU: effects {eff_err}, flips away from ties {int((flipped & ~near).sum())}")
+
+    yy, xx = np.mgrid[0:256, 0:256].astype(float)
+    rna = 10 * np.exp(-((yy - 128) ** 2 + (xx - 124) ** 2) / (2 * 28.0**2))
+    stain = 200 * np.exp(-((yy - 138) ** 2 + (xx - 129) ** 2) / (2 * 28.0**2))
+    img = (stain / stain.max()).astype(np.float32)
+    theta = np.array([[1.01, 0.02, 0.03], [-0.02, 0.99, -0.04]], np.float32)
+    warp = {k: tal._affine_warp(torch.from_numpy(img).to(d), torch.from_numpy(theta).to(d)).cpu().numpy()
+            for k, d in sides.items()}
+    warp_err = float(np.abs(warp["card"] - warp["cpu"]).max())
+    params = {}
+    for mode, kw in (("rigid", {}), ("non-rigid", {"binsize": 64})):
+        for k, d in sides.items():
+            ref = tal.MODULES[mode](rna, stain, device=d, **kw)
+            ref.train(100)
+            params[mode, k] = ref.get_params()
+    theta_err = float(np.abs(params["rigid", "card"]["theta"] - params["rigid", "cpu"]["theta"]).max())
+    disp_err = max(float(np.abs(params["non-rigid", "card"][k] - params["non-rigid", "cpu"][k]).max())
+                   for k in ("disp_y", "disp_x"))
+    check(warp_err <= WARP_BAR and theta_err <= THETA_BAR and disp_err <= DISP_BAR,
+          f"refine_alignment card vs CPU: warp {warp_err}, theta {theta_err}, displacements {disp_err}")
+
+    X = np.asarray(cortex_section(300, 200, seed=4).X.toarray(), np.float64)
+    nmf = {k: FrobeniusNMF(NMF_COMPONENTS, 0, device=d) for k, d in sides.items()}
+    W = {k: m.fit_transform(X) for k, m in nmf.items()}
+    w_err = rel_err(W["card"], W["cpu"])
+    h_err = rel_err(nmf["card"].components_, nmf["cpu"].components_)
+    check(w_err <= FNMF_BAR and h_err <= FNMF_BAR and nmf["card"].n_iter_ == nmf["cpu"].n_iter_,
+          f"Frobenius NMF card vs CPU: W {w_err}, H {h_err}, iterations {nmf['card'].n_iter_} / {nmf['cpu'].n_iter_}")
+    print(f"phase 25: card vs CPU: CCI DEG of TGFB1 on 600 cells coefficients {deg_err!r} of scale (bar {INTERP_BAR}); "
+          f"permutation test, 20 permutations, the same scrambles, effects {eff_err!r} of scale (bar {INTERP_BAR}), "
+          f"{int(flipped.sum())} comparisons flipped, all within {INTERP_BAR} of scale of a tie; p-values card "
+          f"{perm['card']['perm_pvalue'].round(4).tolist()} CPU {perm['cpu']['perm_pvalue'].round(4).tolist()}; "
+          f"affine warp 256² {warp_err!r} (bar {WARP_BAR}); 100 epochs on blobs: theta {theta_err!r} (bar {THETA_BAR}), "
+          f"displacements {disp_err!r} (bar {DISP_BAR}); Frobenius NMF 300 x 200, {NMF_COMPONENTS} components: W "
+          f"{w_err!r}, H {h_err!r} of scale (bar {FNMF_BAR}), {nmf['cpu'].n_iter_} iterations on both; phase 25 "
+          f"{time.perf_counter() - t_phase!r} s")
+
+
 def phase_starro_main(stt, bp_cuda, em, ts, make_raster):
     """Phase 3: the Starro main path on a 2048x2048 tile and a 4-tile stream.
     Returns the `bp_step` launches and fused-delta launches of the main path,
@@ -3152,6 +3529,12 @@ def main(argv=None):
         phase_tdr(stt)
     if want(23):
         phase_tdr_cuda_vs_cpu(stt)
+
+    # -- phases 24-25: MuSIC's interpretation, refine_alignment, the Frobenius NMF --------------
+    if want(24):
+        phase_interpretation()
+    if want(25):
+        phase_interpretation_cuda_vs_cpu()
 
     print(card)
     print(json.dumps({"kernels": [

@@ -4,9 +4,10 @@ spateo/alignment/methods/paste.py:26-380).
 
 The [n, n] spatial distances, the expression dissimilarity and the entropic
 FGW solve (`ops.ot.fgw`) run on `device`; `method="exact"` takes the host LP
-solver `ops.ot.fgw_exact`. The center's NMF is `KLNMF`, scikit-learn's
-multiplicative-update KL NMF step for step in float64 on `device` (the GPU
-machine has no scikit-learn).
+solver `ops.ot.fgw_exact`. The center's NMF is scikit-learn's, step for step
+in float64 on `device` (the GPU machine has no scikit-learn): `KLNMF`, the
+multiplicative-update KL NMF of ``dissimilarity="kl"``, and `FrobeniusNMF`,
+the coordinate-descent Frobenius NMF of every other dissimilarity.
 """
 
 from __future__ import annotations
@@ -117,14 +118,49 @@ def _nmf_kl_mu(X, W, H, max_iter: int, tol: float):
     return W, H, n_iter
 
 
-class KLNMF:
-    """``sklearn.decomposition.NMF(n_components, solver="mu",
-    beta_loss="kullback-leibler", init="random", random_state=seed)``,
-    ported: the random init on the host exactly as scikit-learn draws it
-    (``sqrt(X.mean() / k) * |N(0, 1)|``, H before W, from
-    ``RandomState(seed)``), the multiplicative updates in float64 on
-    `device`. `fit_transform` returns W (host) and sets `components_` (H)
-    and `n_iter_`."""
+def _cd_half_step(W, HHt, XHt):
+    """scikit-learn's `_update_cdnmf_fast` (no regularisation, no shuffle):
+    the components of W in order, each a Newton step projected on W >= 0,
+    with the gradient ``W HHt[t] - XHt[:, t]`` from the components already
+    updated. Rows are independent, so one component is one vector op over
+    the rows. Returns the summed projected gradient (the violation) as a
+    0-d tensor; W is updated in place."""
+    violation = W.new_zeros(())
+    for t in range(W.shape[1]):
+        w = W[:, t]
+        grad = W @ HHt[t] - XHt[:, t]
+        violation = violation + torch.where(w == 0, torch.clamp_max(grad, 0.0), grad).abs().sum()
+        hess = HHt[t, t]
+        W[:, t] = torch.where(hess != 0, torch.clamp_min(w - grad / hess, 0.0), w)
+    return violation
+
+
+def _nmf_frobenius_cd(X, W, H, max_iter: int, tol: float):
+    """scikit-learn's `_fit_coordinate_descent` (Frobenius loss): a W
+    half-step from ``H H^T`` and ``X H^T``, then an H half-step from
+    ``W^T W`` and ``X^T W``; the iteration's violation is read on the host
+    once, and the loop stops once it is at most `tol` of the first
+    iteration's (or that one was 0). Returns (W, H, n_iter)."""
+    Ht = H.T.contiguous()
+    violation_init = None
+    n_iter = 0
+    for n_iter in range(1, max_iter + 1):
+        violation = _cd_half_step(W, Ht.T @ Ht, X @ Ht)
+        violation = float(violation + _cd_half_step(Ht, W.T @ W, X.T @ W))
+        if n_iter == 1:
+            violation_init = violation
+        if violation_init == 0 or violation / violation_init <= tol:
+            break
+    return W, Ht.T, n_iter
+
+
+class _RandomInitNMF:
+    """scikit-learn's ``NMF(n_components, init="random", random_state=seed)``
+    around a solver (`_solve`): the random init on the host exactly as
+    scikit-learn draws it (``sqrt(X.mean() / k) * |N(0, 1)|``, H before W,
+    from ``RandomState(seed)``), then the solver in float64 on `device`.
+    `fit_transform` returns W (host) and sets `components_` (H) and
+    `n_iter_`."""
 
     def __init__(self, n_components: int, random_state: int = 0, max_iter: int = 200, tol: float = 1e-4,
                  device="cuda"):
@@ -143,21 +179,34 @@ class KLNMF:
         rng = np.random.RandomState(self.random_state)
         H = np.abs(avg * rng.standard_normal(size=(k, X.shape[1])))
         W = np.abs(avg * rng.standard_normal(size=(X.shape[0], k)))
-        W, H, self.n_iter_ = _nmf_kl_mu(*(to_device(x, self.device) for x in (X, W, H)), self.max_iter, self.tol)
+        W, H, self.n_iter_ = self._solve(*(to_device(x, self.device) for x in (X, W, H)), self.max_iter, self.tol)
         self.components_ = H.cpu().numpy()
         return W.cpu().numpy()
 
 
-def center_NMF(n_components: int, random_seed: int, dissimilarity: str = "kl", device="cuda") -> KLNMF:
-    """The center's NMF model: KL multiplicative updates (`KLNMF`). The
-    JAX package's other branch (scikit-learn's coordinate-descent Frobenius
-    NMF) is not ported."""
+class KLNMF(_RandomInitNMF):
+    """``sklearn.decomposition.NMF(n_components, solver="mu",
+    beta_loss="kullback-leibler", init="random", random_state=seed)``,
+    ported: the multiplicative updates (`_nmf_kl_mu`)."""
+
+    _solve = staticmethod(_nmf_kl_mu)
+
+
+class FrobeniusNMF(_RandomInitNMF):
+    """``sklearn.decomposition.NMF(n_components, init="random",
+    random_state=seed)`` (solver "cd", Frobenius loss, tol 1e-4, 200
+    iterations), ported: coordinate descent (`_nmf_frobenius_cd`)."""
+
+    _solve = staticmethod(_nmf_frobenius_cd)
+
+
+def center_NMF(n_components: int, random_seed: int, dissimilarity: str = "kl", device="cuda") -> _RandomInitNMF:
+    """The center's NMF model, as the JAX package picks it: KL
+    multiplicative updates (`KLNMF`) for ``dissimilarity="kl"``, else the
+    coordinate-descent Frobenius NMF (`FrobeniusNMF`)."""
     if dissimilarity.lower() in ("kl", "kullback-leibler"):
         return KLNMF(n_components=n_components, random_state=random_seed, device=device)
-    raise NotImplementedError(
-        f"paste_center_align(dissimilarity={dissimilarity!r}) needs scikit-learn's coordinate-descent NMF, which is "
-        "not ported to PyTorch yet (ROADMAP Queue 1 item 10b); use dissimilarity='kl'."
-    )
+    return FrobeniusNMF(n_components=n_components, random_state=random_seed, device=device)
 
 
 def paste_center_align(

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import functools
 import inspect
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 from scipy import sparse
@@ -33,6 +33,8 @@ class SpateoAdataKeyManager:
     UNS_SPATIAL_BINSIZE_KEY = "binsize"
     UNS_SPATIAL_SCALE_KEY = "scale"
     UNS_SPATIAL_SCALE_UNIT_KEY = "scale_unit"
+    UNS_SPATIAL_ALIGNMENT_KEY = "alignment"
+    UNS_SPATIAL_QC_KEY = "qc"
 
     SPLICED_LAYER_KEY = "spliced"
     UNSPLICED_LAYER_KEY = "unspliced"
@@ -161,6 +163,19 @@ class SpateoAdataKeyManager:
     @staticmethod
     def get_uns_spatial_attribute(adata: AnnData, key: str) -> object:
         return adata.uns[SpateoAdataKeyManager.UNS_SPATIAL_KEY][key]
+
+    @staticmethod
+    def get_agg_bounds(adata: AnnData) -> Tuple[int, int, int, int]:
+        """(xmin, xmax, ymin, ymax) for AGG-type AnnDatas."""
+        atype = SpateoAdataKeyManager.get_adata_type(adata)
+        if atype != SpateoAdataKeyManager.ADATA_AGG_TYPE:
+            raise ConfigurationError(f"AnnData has incorrect type: {atype}")
+        return (
+            int(adata.obs_names[0]),
+            int(adata.obs_names[-1]),
+            int(adata.var_names[0]),
+            int(adata.var_names[-1]),
+        )
 
 
 SKM = SpateoAdataKeyManager

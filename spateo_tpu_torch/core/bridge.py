@@ -137,9 +137,11 @@ def music_state_from_reference(model) -> dict:
     """The design of a `spateo_tpu` `MuSIC` after `define_sig_inputs`, as
     copies for the port's `MuSIC.load_state`: X (with the intercept column),
     feature_names, targets_expr, coords, sample_names, ct_vec, x_chunk, the
-    subsampling dictionaries (present after `run_subsample`) and the
+    subsampling dictionaries (present after `run_subsample`), the
     membrane-bound, secreted and niche spatial weights (scipy CSR; None where
-    the model type has none)."""
+    the model type has none) and, where the model has them, its ligand and
+    receptor expression frames (`ligands_expr`, `ligands_expr_nonlag`,
+    `receptors_expr`)."""
     import copy
 
     adata = getattr(model, "adata", None)
@@ -167,6 +169,11 @@ def music_state_from_reference(model) -> dict:
         "spatial_weights_membrane_bound": csr(getattr(model, "spatial_weights_membrane_bound", None)),
         "spatial_weights_secreted": csr(getattr(model, "spatial_weights_secreted", None)),
         "spatial_weights_niche": csr(niche),
+        **{
+            k: getattr(model, k).copy()
+            for k in ("ligands_expr", "ligands_expr_nonlag", "receptors_expr")
+            if getattr(model, k, None) is not None
+        },
     }
 
 

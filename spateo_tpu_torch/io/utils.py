@@ -158,15 +158,40 @@ def get_bin_props(data: pd.DataFrame, binsize: int) -> pd.DataFrame:
     return props.set_index("label")
 
 
+#: Points a block of `in_concave_hull` tests against every edge at once.
+_HULL_BLOCK_ELEMS = 1 << 22
+
+
 def in_concave_hull(p: np.ndarray, concave_hull: np.ndarray) -> np.ndarray:
     """Test if 2D points lie inside a polygon given as an (M, 2) vertex array.
 
-    Matplotlib's point-in-polygon, on the host.
+    ``matplotlib.path.Path(concave_hull).contains_points(p)`` (radius 0),
+    without matplotlib: Agg's crossing test (`point_in_path_impl` in
+    matplotlib's `_path.h`) in float64 numpy. The polygon is closed by the
+    edge from its last vertex back to its first; a point's upward flag is
+    ``vertex_y >= y``, an edge whose end flags differ is crossed when
+    ``(y1 - y) (x0 - x1) >= (x1 - x) (y0 - y1)`` equals the end flag, and an
+    odd number of crossings puts the point inside. That settles points on an
+    edge or a vertex as matplotlib does. Fewer than 3 vertices contain
+    nothing, and a non-finite point is outside.
     """
     assert p.shape[1] == 2, "this function only works for two dimensional data points."
-    from matplotlib.path import Path
-
-    return Path(np.asarray(concave_hull)).contains_points(np.asarray(p))
+    v = np.asarray(concave_hull, dtype=np.float64).reshape(-1, 2)
+    pts = np.asarray(p, dtype=np.float64)
+    inside = np.zeros(len(pts), dtype=bool)
+    if len(v) < 3:
+        return inside
+    x0, y0 = v[:, 0], v[:, 1]
+    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+    block = max(1, _HULL_BLOCK_ELEMS // len(v))
+    for s in range(0, len(pts), block):
+        tx, ty = pts[s : s + block, 0:1], pts[s : s + block, 1:2]
+        flag0 = y0 >= ty
+        flag1 = y1 >= ty
+        hit = ((y1 - ty) * (x0 - x1) >= (x1 - tx) * (y0 - y1)) == flag1
+        crossings = np.count_nonzero((flag0 != flag1) & hit, axis=1)
+        inside[s : s + block] = (crossings % 2 == 1) & np.isfinite(tx[:, 0]) & np.isfinite(ty[:, 0])
+    return inside
 
 
 def in_convex_hull(p: np.ndarray, convex_hull: Union[Delaunay, np.ndarray]) -> np.ndarray:

@@ -63,6 +63,7 @@ STATE_KEYS = (
     "X", "feature_names", "targets_expr", "coords", "sample_names", "ct_vec", "x_chunk", "subsampled",
     "subsampled_indices", "n_samples_subsampled", "subsampled_sample_names", "neighboring_unsampled",
     "spatial_weights_membrane_bound", "spatial_weights_secreted", "spatial_weights_niche",
+    "ligands_expr", "ligands_expr_nonlag", "receptors_expr",
 )
 
 
@@ -640,7 +641,8 @@ class MuSIC:
         """Take a design built elsewhere instead of `define_sig_inputs`:
         `state` holds the `STATE_KEYS` (X with the intercept column,
         feature_names, targets_expr, coords, sample_names, ct_vec, x_chunk,
-        the subsampling dictionaries and the spatial weights), as
+        the subsampling dictionaries, the spatial weights and, where present,
+        the ligand and receptor expression frames), as
         `core.bridge.music_state_from_reference` returns them from a JAX
         package `MuSIC` after `define_sig_inputs`. `self.adata` must be set
         (its obs and var are read by `fit`). The model is then set up: `fit`

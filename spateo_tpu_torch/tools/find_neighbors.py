@@ -4,7 +4,8 @@ spateo/tools/find_neighbors.py), the part MuSIC needs.
 Counterpart of `spateo_tpu.tools.find_neighbors`: `_kernel_weights_batch`
 and `_conditioned_kernel_weights_batch` build a [Q, N] block of weights on
 the device of their inputs in one pass of tensor ops, and `get_wi_batch`
-builds all N rows, block by block, into a host array. The per-sample numpy
+builds all N rows, block by block, into a host array (`get_wi_batch_tensor`
+keeps them on the device). The per-sample numpy
 path (`calculate_distance`, `local_dist`, `Kernel`, `get_wi`) is copied.
 
 The distances keep the JAX package's matmul form and operand order,
@@ -252,6 +253,24 @@ def get_wi(
     return k if sparse_array else csr_matrix(k)
 
 
+def _wi_blocks(coords, bw, fixed_bw, exclude_self, kernel, normalize_weights, block, device):
+    """The rows of `get_wi_batch`'s weights, `block` query rows at a time:
+    (first row, [rows, N] float32 tensor on `device`)."""
+    coords_d = to_device(np.asarray(coords, np.float32), device)
+    for s in range(0, coords_d.shape[0], block):
+        q = coords_d[s : s + block]
+        yield s, _kernel_weights_batch(
+            q,
+            coords_d,
+            bw,
+            function=kernel,
+            fixed=fixed_bw,
+            exclude_self=exclude_self,
+            normalize=normalize_weights,
+            self_idx=torch.arange(s, s + q.shape[0], device=coords_d.device),
+        )
+
+
 def get_wi_batch(
     coords: np.ndarray,
     bw: Union[float, int],
@@ -265,20 +284,29 @@ def get_wi_batch(
     """Kernel weights of all samples, [N, N] float32 on the host, computed
     on `device` in blocks of `block` query rows (each block copied to the
     host once)."""
-    coords_d = to_device(np.asarray(coords, np.float32), device)
-    n = coords_d.shape[0]
+    n = len(coords)
     out = np.zeros((n, n), np.float32)
-    for s in range(0, n, block):
-        q = coords_d[s : s + block]
-        W = _kernel_weights_batch(
-            q,
-            coords_d,
-            bw,
-            function=kernel,
-            fixed=fixed_bw,
-            exclude_self=exclude_self,
-            normalize=normalize_weights,
-            self_idx=torch.arange(s, s + q.shape[0], device=coords_d.device),
-        )
-        out[s : s + q.shape[0]] = W.cpu().numpy()
+    for s, W in _wi_blocks(coords, bw, fixed_bw, exclude_self, kernel, normalize_weights, block, device):
+        out[s : s + W.shape[0]] = W.cpu().numpy()
+    return out
+
+
+def get_wi_batch_tensor(
+    coords: np.ndarray,
+    bw: Union[float, int],
+    fixed_bw: bool = True,
+    exclude_self: bool = False,
+    kernel: str = "bisquare",
+    normalize_weights: bool = False,
+    block: int = 2048,
+    device="cuda",
+) -> torch.Tensor:
+    """`get_wi_batch`'s weights kept on `device` as one [N, N] float32
+    tensor, for callers that fit from them there."""
+    n = len(coords)
+    out = None
+    for s, W in _wi_blocks(coords, bw, fixed_bw, exclude_self, kernel, normalize_weights, block, device):
+        if out is None:
+            out = torch.empty((n, n), dtype=W.dtype, device=W.device)
+        out[s : s + W.shape[0]] = W
     return out

@@ -1012,3 +1012,80 @@ def test_pc_kde_cuda_matches_cpu(cuda):
     for kernel in ("gaussian", "epanechnikov"):
         g, c = (np.exp(kde_log_density(X, kernel, 0.3, device=d)) for d in ("cuda", "cpu"))
         assert np.abs(g / c - 1).max() <= 1e-10
+
+
+def _interp_pair(tmp, n=600):
+    """`chip_smoke`'s 600-cell interpretation case: one CPU fit, an
+    interpreter of its output directory on the card and one on the CPU."""
+    import chip_smoke
+
+    return chip_smoke.small_interpreters(tmp, {"cuda": "cuda", "cpu": "cpu"}, n=n)
+
+
+def test_cci_deg_detection_cuda_matches_cpu(cuda, tmp_path):
+    """The CCI DEG GLM of TGFB1 on the TFs (weights built on each device):
+    the same TFs in the same order, coefficients and standard errors within
+    1e-4 of scale; the downstream weights stay on the card."""
+    it = _interp_pair(str(tmp_path))
+    res = {}
+    for d, interp in it.items():
+        interp.CCI_deg_detection_setup(use_ligands=True, custom_tfs=["STAT3", "JUN", "MYC"])
+        res[d] = interp.CCI_deg_detection("TGFB1", distr="poisson")
+    assert it["cuda"]._cci_deg_weights[1].is_cuda
+    assert list(res["cuda"].index) == list(res["cpu"].index)
+    for col in ("coefficient", "se"):
+        g, c = res["cuda"][col].values, res["cpu"][col].values
+        assert np.abs(g - c).max() <= 1e-4 * np.abs(c).max()
+
+
+def test_permutation_test_cuda_matches_cpu(cuda, tmp_path):
+    """Ten permutations of TGT1 from one seed: the same scrambles, effects
+    within 1e-4 of scale, p-values equal (the counts of permuted effects at
+    or above the observed one; this case has no ties)."""
+    import pandas as pd
+
+    it = _interp_pair(str(tmp_path))
+    out = {d: interp.permutation_test("TGT1", n_permutations=10, seed=1) for d, interp in it.items()}
+    pd.testing.assert_frame_equal(it["cuda"]._perm_truth["TGT1"], it["cpu"]._perm_truth["TGT1"])
+    g, c = out["cuda"]["mean_abs_effect"].values, out["cpu"]["mean_abs_effect"].values
+    assert np.abs(g - c).max() <= 1e-4 * np.abs(c).max()
+    np.testing.assert_array_equal(out["cuda"]["perm_pvalue"].values, out["cpu"]["perm_pvalue"].values)
+
+
+def test_refine_alignment_cuda_matches_cpu(cuda):
+    """The warps on a 256² raster given the same parameters (1e-5), and 100
+    Adam epochs on smooth blobs: theta within 1e-2 (rotation and shear are
+    nearly flat), the non-rigid displacements within 1e-5; the losses read
+    once, after the loop."""
+    from spateo_tpu_torch.segmentation import align as tal
+
+    yy, xx = np.mgrid[0:256, 0:256].astype(float)
+    rna = 10 * np.exp(-((yy - 128) ** 2 + (xx - 124) ** 2) / (2 * 28.0**2))
+    stain = 200 * np.exp(-((yy - 138) ** 2 + (xx - 129) ** 2) / (2 * 28.0**2))
+    img = torch.from_numpy((stain / stain.max()).astype(np.float32))
+    theta = torch.tensor([[1.01, 0.02, 0.03], [-0.02, 0.99, -0.04]])
+    g = tal._affine_warp(img.cuda(), theta.cuda()).cpu()
+    assert (g - tal._affine_warp(img, theta)).abs().max() <= 1e-5
+    for mode, kw, bar in (("rigid", {}, 1e-2), ("non-rigid", {"binsize": 64}, 1e-5)):
+        p = {}
+        for d in ("cuda", "cpu"):
+            ref = tal.MODULES[mode](rna, stain, device=d, **kw)
+            ref.train(100)
+            assert len(ref.losses) == 100 and ref.losses[-1] < ref.losses[0]
+            p[d] = ref.get_params()
+        for k in p["cpu"]:
+            assert np.abs(p["cuda"][k] - p["cpu"][k]).max() <= bar
+
+
+def test_frobenius_nmf_cuda_matches_cpu(cuda):
+    """The center's Frobenius NMF (15 components) of 300 x 200 counts, card
+    against CPU: W and H within 1e-8 of scale, the same iterations."""
+    from spateo_tpu_torch.alignment.methods.paste import FrobeniusNMF
+
+    rng = np.random.default_rng(0)
+    X = rng.poisson(rng.gamma(0.5, 2.0, (300, 200))).astype(float)
+    m = {d: FrobeniusNMF(15, 0, device=d) for d in ("cuda", "cpu")}
+    W = {d: mod.fit_transform(X) for d, mod in m.items()}
+    assert m["cuda"].n_iter_ == m["cpu"].n_iter_
+    assert np.abs(W["cuda"] - W["cpu"]).max() <= 1e-8 * np.abs(W["cpu"]).max()
+    assert np.abs(m["cuda"].components_ - m["cpu"].components_).max() <= 1e-8 * np.abs(m["cpu"].components_).max()

@@ -149,3 +149,58 @@ def test_io_utils_match_jax():
     pts = rng.uniform(-5, 15, (50, 2))
     np.testing.assert_array_equal(tio.in_convex_hull(pts, hull), jio.in_convex_hull(pts, hull))
     np.testing.assert_array_equal(tio.in_concave_hull(pts, hull), jio.in_concave_hull(pts, hull))
+
+
+def _polygons(rng):
+    """Convex and concave star polygons, lattice polygons (repeated
+    vertices, self-touching and self-crossing), a closed ring whose last
+    vertex repeats its first, and a degenerate two-vertex path."""
+    out = []
+    for _ in range(30):
+        m = int(rng.integers(3, 12))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+        r = rng.uniform(0.3, 1.0, m)
+        out.append(np.c_[r * np.cos(ang), r * np.sin(ang)])
+        out.append(rng.integers(0, 6, (m, 2)).astype(float))
+    square = np.array([[0.0, 0.0], [4.0, 0.0], [4.0, 4.0], [0.0, 4.0]])
+    out += [square, np.vstack([square, square[:1]]), square[:2],
+            np.array([[0, 0], [4, 0], [2, 2], [4, 4], [0, 4], [2, 2]], float)]
+    return out
+
+
+def _probe_points(rng, v):
+    """Random points around the polygon, every vertex, points on every edge
+    and a half-integer lattice through the vertices' grid."""
+    lo, hi = v.min(0) - 1, v.max(0) + 1
+    t = rng.uniform(0, 1, (60, 1))
+    j = rng.integers(0, len(v), 60)
+    on_edges = v[j] + t * (np.roll(v, -1, axis=0)[j] - v[j])
+    lattice = np.mgrid[lo[0]:hi[0]:0.5, lo[1]:hi[1]:0.5].reshape(2, -1).T
+    return np.vstack([rng.uniform(lo, hi, (300, 2)), v, on_edges, lattice])
+
+
+def test_in_concave_hull_equals_matplotlib():
+    """`in_concave_hull` (numpy, no matplotlib) against
+    ``matplotlib.path.Path(hull).contains_points(p)``: the boolean arrays
+    are equal, points on edges and vertices included; a non-finite point is
+    outside in both."""
+    from matplotlib.path import Path
+
+    rng = np.random.default_rng(0)
+    for v in _polygons(rng):
+        p = _probe_points(rng, v)
+        np.testing.assert_array_equal(tio.in_concave_hull(p, v), Path(v).contains_points(p))
+    v = _polygons(rng)[0]
+    p = np.array([[np.nan, 0.0], [0.0, np.inf], [0.0, 0.0]])
+    np.testing.assert_array_equal(tio.in_concave_hull(p, v), Path(v).contains_points(p))
+
+
+def test_in_concave_hull_blocks_agree(monkeypatch):
+    """Points tested in blocks (a block smaller than the point count) give
+    the same answer as one block."""
+    rng = np.random.default_rng(1)
+    v = _polygons(rng)[1]
+    p = _probe_points(rng, v)
+    whole = tio.in_concave_hull(p, v)
+    monkeypatch.setattr(tio, "_HULL_BLOCK_ELEMS", 7 * len(v))
+    np.testing.assert_array_equal(tio.in_concave_hull(p, v), whole)

@@ -378,8 +378,12 @@ def test_gaussian_process_field_matches_jax(morpho_field):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        stt.align.methods.center_NMF(5, 0, dissimilarity="euclidean", device="cpu")
+    """`mesh=` raises (item 13). The euclidean center NMF, which raised
+    until item 10b was ported, is now `FrobeniusNMF` (held against
+    scikit-learn in `test_torch_paste.py`)."""
+    from spateo_tpu_torch.alignment.methods.paste import FrobeniusNMF
+
+    assert isinstance(stt.align.methods.center_NMF(5, 0, dissimilarity="euclidean", device="cpu"), FrobeniusNMF)
     with pytest.raises(NotImplementedError, match="item 13"):
         stt.tdr.morphofield_sparsevfc(_adata(stt, *[np.random.default_rng(0).uniform(size=(50, 2))] * 2), NX=None,
                                       grid_num=[3, 3], M=10, restart_num=0, mesh=object(), device="cpu")

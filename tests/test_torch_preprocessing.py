@@ -261,10 +261,10 @@ def test_group_pca_matches_jax():
 
 def test_no_module_imports_sklearn_jax_or_the_jax_package():
     """Every module of `spateo_tpu_torch` imported in a fresh interpreter,
-    and the two calls for which the JAX package asks scikit-learn in its
-    3D models (`pc_KDE`, `SimplePPT_tree`) run on the CPU, bring in no
-    scikit-learn, JAX or `spateo_tpu`; and no line of the package imports
-    them."""
+    and the calls for which the JAX package asks scikit-learn (`pc_KDE`,
+    `SimplePPT_tree` in its 3D models; `pca_fit`, the Frobenius center NMF,
+    `cal_ami`, `cal_f1score`) run on the CPU, bring in no scikit-learn, JAX
+    or `spateo_tpu`; and no line of the package imports them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import numpy as np\n"
@@ -274,6 +274,11 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
         "X = np.random.default_rng(0).normal(size=(60, 3))\n"
         "spateo_tpu_torch.tdr.pc_KDE(spateo_tpu_torch.tdr.PointCloud(X), device='cpu')\n"
         "spateo_tpu_torch.tdr.models.models_backbone.SimplePPT_tree(X, NumNodes=5, device='cpu')\n"
+        "spateo_tpu_torch.tl.pca_fit(X, n_components=2, device='cpu')\n"
+        "spateo_tpu_torch.align.methods.center_NMF(2, 0, 'euclidean', device='cpu').fit_transform(np.abs(X))\n"
+        "spateo_tpu_torch.cs.simulation_evaluation.cal_ami(X[:, 0] > 0, X[:, 1] > 0)\n"
+        "spateo_tpu_torch.cs.simulation_evaluation.cal_f1score(X[:, 0] > 0, X[:, 1] > 0)\n"
+        "spateo_tpu_torch.io.in_concave_hull(X[:, :2], X[:5, :2])\n"
         "bad = sorted({k.split('.')[0] for k in sys.modules} & {'sklearn', 'jax', 'jaxlib', 'spateo_tpu'})\n"
         "print('BAD', bad)\n"
     )
@@ -288,3 +293,21 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
                 path = os.path.join(root, f)
                 hits += [f"{path}: {m.group(0)}" for m in pattern.finditer(open(path).read())]
     assert hits == []
+
+
+def test_no_module_imports_matplotlib_on_import():
+    """Importing every module of `spateo_tpu_torch` in a fresh interpreter,
+    and `in_concave_hull`, load no matplotlib (the GPU machine has none; plot
+    functions import it inside themselves)."""
+    code = (
+        "import pkgutil, sys, importlib\n"
+        "import numpy as np\n"
+        "import spateo_tpu_torch\n"
+        "for m in pkgutil.walk_packages(spateo_tpu_torch.__path__, 'spateo_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "spateo_tpu_torch.io.in_concave_hull(np.zeros((2, 2)), np.eye(3)[:, :2])\n"
+        "print('MPL', sorted(k for k in sys.modules if k.split('.')[0] in ('matplotlib', 'mpl_toolkits')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "MPL []" in proc.stdout, proc.stdout[-2000:]

@@ -4,7 +4,8 @@ labeling chain, the morphofield slice, the whole atlas chain, MuSIC, and SVG
 detection with PASTE, rigid slice alignment with mesh correction, `st.pp`
 normalization and the k-means paths, the 3D reconstruction (`stt.tdr`
 models and morphometrics), MuSIC's interpretation, the stain <-> RNA
-alignment refinement and PASTE's Frobenius center NMF.
+alignment refinement and PASTE's Frobenius center NMF, the interpolation
+engines, spatial clustering, UMAP and the two-group CCI test.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -237,6 +238,36 @@ final ``ok`` line:
    comparisons flipped only at ties), the affine warp at 256² (1e-5), 100
    epochs on smooth blobs (theta 1e-2, displacements 1e-5), the Frobenius
    NMF of 300 x 200 (W and H 1e-8, the same iterations).
+
+26. Interpolation, clustering and embedding at full width. (a) The E9.5
+   cloud's 100,000 cells (`e95_cloud`) with 50 genes planted as smooth
+   functions of position plus N(0, 0.1) noise (`interp_source`),
+   interpolated onto ~200,000 grid points inside the ellipsoid
+   (`ellipsoid_grid`): `tdr.vtk_interpolation` (Shepard, the default
+   radius), `tdr.gp_interpolation` at the JAX defaults (512 inducing
+   points, 50 Adam steps) on 10 genes, `tdr.deep_intepretation` at its
+   defaults (hidden 256, depth 4, batch 4,096, 1,000 steps) on all 50: each
+   engine's seconds, idle share and launches (under the profiler, a shorter
+   window), peak memory, and mean error against the planted field (bars
+   `INTERP_ERR_BAR`). (b) `cortex_section(20,000 cells, 4,000 genes, 6
+   planted bands)` after `normalize_total`, log1p and `pca(30)`
+   (`cluster_section`): `tl.neighbors` (expression 30, spatial 6),
+   `tl.scc` (Louvain, its host seconds), `tl.mclust_py(6)`,
+   `tl.kmeans_clustering(6)`, `tl.spagcn_pyg(6)`,
+   `tl.perform_dimensionality_reduction("umap")` (200 epochs),
+   `tl.cellbin_morani` of the bands and `tl.find_cci_two_group` between
+   bands 0 and 1 at 1,000 permutations with a planted ligand-receptor pair:
+   each stage's seconds, idle share, launches and peak memory, the ARI of
+   each clustering against the bands, UMAP's 15-NN preservation, the bands'
+   Moran's I, the pair's p-value and permutations/s (bars from the port's
+   CPU run, `scripts/interp_cluster_bars.py`). Then `tdr.backbone_scc` of
+   20,000 of the cloud's cells along phase 22's backbone (built here when
+   phase 22 did not run). No kernel of `csrc/` is on this path.
+27. The same, card against CPU at 2,000 cells (`interp_cluster_cuda_vs_cpu`,
+   bars `CVC_*`): the three kernels' VTK fields, the SGPR's and the SIREN's
+   first 10 Adam steps from one start, SpaGCN's length scale and GC-DEC's
+   q, the GMM, UMAP after 3 epochs from one init and negatives and after
+   all (15-NN preservation), the CCI null scores.
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
@@ -2949,6 +2980,7 @@ def phase_tdr(stt):
           f"morphofield_sparsevfc {t_vfc!r} s; construct_field_streams {TDR_STREAMS} x {TDR_STEPS} {t_streams!r} s; "
           f"pairwise_shape_similarity (cells, Poisson mesh) {sim!r} in {t_sim!r} s; phase 22 "
           f"{time.perf_counter() - t_phase!r} s")
+    return bb
 
 
 def phase_tdr_cuda_vs_cpu(stt):
@@ -3058,16 +3090,16 @@ def interpreter_for(model, adata, out_dir, device):
     return interp
 
 
-def timed_stage(fn, device, window=None):
-    """`fn()` timed on the host (synchronised), then `window()` (default:
-    `fn` again; a shorter run of the same loop where its events would take
-    the profiler long to gather) under `device_profile` on the card:
-    (result, seconds, idle share, launches)."""
+def timed_stage(fn, device, window=None, profile=True):
+    """`fn()` timed on the host (synchronised), then, with `profile`,
+    `window()` (default: `fn` again; a shorter run of the same loop where its
+    events would take the profiler long to gather) under `device_profile` on
+    the card: (result, seconds, idle share, launches)."""
     t0 = time.perf_counter()
     out = fn()
     sync(device)
     seconds = time.perf_counter() - t0
-    if torch.device(device).type != "cuda":
+    if torch.device(device).type != "cuda" or not profile:
         return out, seconds, None, None
     _, wall, busy, launches, _ = device_profile(window or fn)
     return out, seconds, 1 - busy / wall, launches
@@ -3414,6 +3446,370 @@ def phase_starro_cuda_vs_cpu_512(em, ts, make_raster):
     print(f"phase 4: 512x512 CUDA (kernel, bf16) vs CPU (plain, f32): mask IoU {iou4!r}, scores max_abs_err {serr!r}")
 
 
+# -- phases 26-27: interpolation engines, clustering, UMAP, the two-group CCI test ------------
+
+#: Phase 26a: expression planted on the E9.5 cloud (`e95_cloud`, 100,000
+#: cells): INTERP_GENES smooth functions of position plus N(0, INTERP_NOISE)
+#: noise, interpolated onto ~INTERP_TARGETS grid points inside the
+#: ellipsoid. The GP fits INTERP_GP_GENES of them at the JAX defaults
+#: (512 inducing points, 50 Adam steps); the SIREN all of them at its own
+#: (hidden 256, depth 4, batch 4,096, 1,000 steps).
+INTERP_GENES, INTERP_TARGETS, INTERP_GP_GENES, INTERP_NOISE = 50, 200_000, 10, 0.1
+#: Each engine's mean absolute error against the planted field: about 3x the
+#: port's CPU run of the same inputs at 10,000 cells and 20,000 targets
+#: (`scripts/interp_cluster_bars.py`: 0.0339, 0.0075, 0.0281; the VTK engine's
+#: error grows with the cell density, whose radius then bridges less of the
+#: gap between sections), below the JAX tests' bars (tests/test_tdr.py:
+#: 0.25, 0.3, 0.35).
+INTERP_ERR_BAR = {"vtk": 0.1, "gp": 0.03, "dl": 0.1}
+#: Phase 26b: `cortex_section(CLUSTER_CELLS, CLUSTER_GENES)` after
+#: normalize_total, log1p and pca(30); the clusterings are scored by their
+#: ARI against the SVG_BANDS planted bands. Bars: the port's CPU run of the
+#: same section (`scripts/interp_cluster_bars.py`: ARI 0.9470, 0.9229,
+#: 0.9226; SpaGCN, whose [n, n] float64 matrices do not fit a shared CPU at
+#: 20,000 cells, 0.5470 at 5,000 cells x 1,000 genes; 15-NN preservation
+#: 0.0218, 29x a random layout's 15 / 20,000; the bands' smallest Moran's I
+#: 0.8473 at bins of MORAN_BIN DNB) less a margin.
+CLUSTER_CELLS, CLUSTER_GENES, CCI_PERMUTATIONS = 20_000, 4_000, 1_000
+CLUSTER_ARI_BAR = {"scc": 0.9, "mclust": 0.9, "kmeans": 0.9, "spagcn": 0.5}
+UMAP_PRESERVATION_BAR, MORAN_BAR, MORAN_BIN = 0.015, 0.8, 250
+#: `backbone_scc`'s Louvain is host networkx: it runs on BACKBONE_SCC_CELLS of
+#: the cloud's cells (a listed cut, as phase 22's alpha shape).
+BACKBONE_SCC_CELLS = 20_000
+#: The planted L-R pair of phase 26b's CCI test: band 0's first planted gene
+#: becomes the ligand, band 1's the receptor (tests/test_tools.py's pair).
+CCI_PAIR = ("TGFB1", "TGFBR1_TGFBR2")
+
+
+def planted_expression(P, n_genes=INTERP_GENES, seed=0):
+    """[n, n_genes] smooth functions of the [n, 3] positions P: 1 + sin(k_j
+    . x + phase_j), the frequencies k_j ~ N(0, 2^2) per axis."""
+    rng = np.random.default_rng(seed + 11)
+    K = rng.normal(0.0, 2.0, (n_genes, 3))
+    phase = rng.uniform(0.0, 2 * np.pi, n_genes)
+    return 1.0 + np.sin(P @ K.T + phase)
+
+
+def ellipsoid_grid(n, axes=E95_AXES):
+    """About n points of a cubic grid inside the ellipsoid of semi-axes `axes`."""
+    ax = np.asarray(axes, float)
+    step = (4.0 / 3.0 * np.pi * float(np.prod(ax)) / n) ** (1.0 / 3.0)
+    g = [np.arange(-a + step / 2, a, step) for a in ax]
+    P = np.stack(np.meshgrid(*g, indexing="ij"), -1).reshape(-1, 3)
+    return P[((P / ax) ** 2).sum(1) <= 1.0]
+
+
+def interp_source(stt, cells, n_genes=INTERP_GENES, seed=0):
+    """The port's AnnData of `cells` with the planted expression plus noise."""
+    import pandas as pd
+
+    X = planted_expression(cells, n_genes, seed)
+    X = X + np.random.default_rng(seed + 12).normal(0.0, INTERP_NOISE, X.shape)
+    ad = stt.AnnData(X=X.astype(np.float32), var=pd.DataFrame(index=[f"p{j}" for j in range(n_genes)]),
+                     obs=pd.DataFrame(index=[f"c{i}" for i in range(len(cells))]))
+    ad.obsm["spatial"] = np.asarray(cells, np.float64)
+    stt.SKM.init_adata_type(ad, stt.SKM.ADATA_UMI_TYPE)
+    return ad
+
+
+def stage_run(fn, device, window=None, profile=True):
+    """`timed_stage` with the peak device memory of the stage on the card:
+    (result, dict(seconds, idle, launches, peak_gb))."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    res, seconds, idle, launches = timed_stage(fn, device, window, profile)
+    return res, dict(seconds=seconds, idle=idle, launches=launches,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+
+
+def interp_engines(stt, ad, targets, device="cuda", gp_genes=INTERP_GP_GENES, dl_iter=1000, profile=True):
+    """The three engines of phase 26a on `device`: {engine: dict(err, out,
+    seconds, idle, launches, peak_gb)}, err the mean absolute error against
+    the planted field at the targets. Under the profiler each runs a shorter
+    window: the VTK engine and the GP's prediction on 20,000 targets, the GP
+    5 steps, the SIREN 50."""
+    genes = list(ad.var_names)
+    truth = planted_expression(targets, len(genes))
+    few = targets[:20_000]
+    runs = {
+        "vtk": (genes, lambda: stt.tdr.vtk_interpolation(ad, targets, keys=genes, device=device),
+                lambda: stt.tdr.vtk_interpolation(ad, few, keys=genes, device=device)),
+        "gp": (genes[:gp_genes], lambda: stt.tdr.gp_interpolation(ad, targets, keys=genes[:gp_genes], device=device),
+               lambda: stt.tdr.gp_interpolation(ad, few, keys=genes[:gp_genes], training_iter=5, device=device)),
+        "dl": (genes, lambda: stt.tdr.deep_intepretation(ad, targets, keys=genes, max_iter=dl_iter, device=device),
+               lambda: stt.tdr.deep_intepretation(ad, few, keys=genes, max_iter=50, device=device)),
+    }
+    out = {}
+    for name, (keys, fn, window) in runs.items():
+        res, stats = stage_run(fn, device, window, profile)
+        pred = np.asarray(res.X, float)
+        check(pred.shape == (len(targets), len(keys)) and bool(np.isfinite(pred).all()), f"{name}: output")
+        out[name] = dict(err=float(np.abs(pred - truth[:, : len(keys)]).mean()), out=pred, **stats)
+    return out
+
+
+def ari(a, b):
+    """Adjusted Rand index of two labelings (Hubert and Arabie)."""
+    _, ia = np.unique(np.asarray(a), return_inverse=True)
+    _, ib = np.unique(np.asarray(b), return_inverse=True)
+    C = np.zeros((ia.max() + 1, ib.max() + 1))
+    np.add.at(C, (ia, ib), 1)
+
+    def pairs(x):
+        return float((x * (x - 1) / 2).sum())
+
+    n = len(ia)
+    sum_c, sum_a, sum_b = pairs(C), pairs(C.sum(1)), pairs(C.sum(0))
+    expected = sum_a * sum_b / (n * (n - 1) / 2)
+    top = 0.5 * (sum_a + sum_b)
+    return 1.0 if top == expected else (sum_c - expected) / (top - expected)
+
+
+def section_bands(adata):
+    """The planted band of each cell of a `cortex_section` (DNB units)."""
+    H = SVG_DOMAIN[1]
+    y = np.asarray(adata.obsm["spatial"])[:, 1]
+    return np.minimum((y * SVG_BANDS // H).astype(int), SVG_BANDS - 1)
+
+
+def cluster_section(stt, n_cells=CLUSTER_CELLS, n_genes=CLUSTER_GENES, device="cuda"):
+    """`cortex_section` after normalize_total, log1p and pca(30), its bands in
+    obs['band'] and CCI_PAIR planted: the ligand on band 0's first planted
+    gene, the receptor on band 1's."""
+    ad = cortex_section(n_cells, n_genes, SVG_PLANTED)
+    names = list(ad.var_names)
+    names[0], names[1] = CCI_PAIR
+    ad.var_names = names
+    stt.pp.normalize_total(ad)
+    stt.pp.log1p(ad)
+    stt.tl.pca(ad, n_pca_components=30, device=device)
+    ad.obs["band"] = section_bands(ad).astype(str)
+    return ad
+
+
+def cluster_stages(stt, ad, device="cuda", profile=True, num=CCI_PERMUTATIONS, skip=()):
+    """Phase 26b's stages on `device`: {stage: dict(seconds, idle, launches,
+    peak_gb, ...)} with each clustering's ARI against the bands, Louvain's
+    host seconds, UMAP's 15-NN preservation, the bands' smallest Moran's I,
+    and the CCI p-value of CCI_PAIR with permutations/s. Under the profiler
+    `scc` runs its two kNN graphs, SpaGCN its adjacency, UMAP 20 epochs and
+    the CCI test 20 permutations, and UMAP 20 epochs of its layout on the
+    same graph. Stages named in `skip` do not run."""
+    from spateo_tpu_torch.tools import dimensionality_reduction as dr
+    from spateo_tpu_torch.tools.cluster import find_clusters as fc
+
+    bands = np.asarray(ad.obs["band"])
+    X30 = np.asarray(ad.obsm["X_pca"])[:, :30]
+    cci = dict(species="human", group="band", sender_group="0", receiver_group="1", pvalue=1.1,
+               min_pairs_ratio=1e-5, device=device)
+    out = {}
+
+    def stage(name, fn, window=None):
+        res, out[name] = stage_run(fn, device, window, profile)
+        return res
+
+    stage("neighbors", lambda: (stt.tl.neighbors(ad, n_neighbors=30, device=device),
+                                stt.tl.neighbors(ad, basis="spatial", n_neighbors=6, device=device)))
+    with timed_calls("cpu", louvain=(fc, "calculate_louvain_partition")) as tc:
+        stage("scc", lambda: stt.tl.scc(ad, e_neigh=30, s_neigh=6, device=device),
+              lambda: stt.tl.spatial_adj(ad, e_neigh=30, s_neigh=6, device=device))
+    out["scc"].update(ari=ari(ad.obs["scc"], bands), louvain_s=tc.seconds["louvain"],
+                      clusters=int(ad.obs["scc"].nunique()))
+    stage("mclust", lambda: stt.tl.mclust_py(ad, n_components=SVG_BANDS, device=device))
+    out["mclust"]["ari"] = ari(ad.obs["mclust"], bands)
+    stage("kmeans", lambda: stt.tl.kmeans_clustering(ad, SVG_BANDS, device=device))
+    out["kmeans"]["ari"] = ari(ad.obs["kmeans_clusters"], bands)
+    if "spagcn" not in skip:
+        stage("spagcn", lambda: stt.tl.spagcn_pyg(ad, n_clusters=SVG_BANDS, device=device),
+              lambda: fc.spagcn_adjacency(np.asarray(ad.obsm["spatial"]), device=device))
+        out["spagcn"]["ari"] = ari(ad.obs["spagcn_pred"], bands)
+    reads, layout = [], {}
+
+    def umap():
+        r0 = dr.umap_conn_indices_dist_embedding.host_reads
+        with timed_calls(device, layout=(dr, "umap_layout")) as tl:
+            stt.tl.perform_dimensionality_reduction(ad, n_pca_components=30, device=device)
+        reads.append(dr.umap_conn_indices_dist_embedding.host_reads - r0)
+        layout["seconds"] = tl.seconds["layout"]
+
+    def layout_window():  # 20 epochs of the layout on the graph of the run above
+        init, heads, tails, weights, a, b = layout["args"][:6]
+        return umap_layout(init, heads, tails, weights, a, b, 20, generator=layout["kw"]["generator"])
+
+    umap_layout = dr.umap_layout
+
+    def spy(*args, **kw):
+        layout.update(args=args, kw=kw)
+        return umap_layout(*args, **kw)
+
+    dr.umap_layout = spy
+    try:
+        stage("umap", umap, layout_window)
+    finally:
+        dr.umap_layout = umap_layout
+    out["umap"].update(host_reads=reads[0], layout_s=layout["seconds"], epochs=layout["args"][6],
+                       preservation=dr.knn_preservation(X30, ad.obsm["X_umap"], 15))
+    ad.obs["Celltype"] = ad.obs["band"]
+    mi = stage("morani", lambda: stt.tl.cellbin_morani(ad, binsize=MORAN_BIN, cluster_key="Celltype"), lambda: None)
+    out["morani"]["min_i"] = float(mi["moran_i"].min())
+    res = stage("cci", lambda: stt.tl.find_cci_two_group(ad, num=num, **cci),
+                lambda: stt.tl.find_cci_two_group(ad, num=20, **cci))
+    lr = res["lr_pair"].set_index("lr_pair")
+    out["cci"].update(pvalue=float(lr.loc["-".join(CCI_PAIR), "lr_value"]), pairs=len(res["cell_pair"]),
+                      perm_per_s=num / out["cci"]["seconds"])
+    return out
+
+
+def backbone_scc_stage(stt, cells, backbone, device="cuda", n=BACKBONE_SCC_CELLS, profile=True):
+    """`tdr.backbone_scc` of `n` of the cloud's cells (planted expression)
+    along `backbone`: (clusters, stats); under the profiler the kNN graphs."""
+    sub = interp_source(stt, cells[np.random.default_rng(3).choice(len(cells), n, replace=False)])
+    ad, stats = stage_run(lambda: stt.tdr.backbone_scc(sub, backbone, inplace=False, device=device), device,
+                          lambda: stt.tl.spatial_adj(sub, e_neigh=10, s_neigh=6, device=device), profile)
+    check(set(np.unique(ad.obs["backbone_nodes"])) <= set(range(backbone.n_points)), "backbone_scc: nodes")
+    return int(ad.obs["backbone_scc"].nunique()), stats
+
+
+def fmt_stats(st):
+    keys = ("seconds", "idle", "launches", "peak_gb")
+    return "(" + ", ".join(f"{k} {st[k]!r}" for k in keys) + ")"
+
+
+def phase_interp_cluster(stt, backbone=None):
+    """Phase 26: the interpolation engines (a) and the clustering, embedding
+    and CCI tools (b) at full width, and `backbone_scc` along phase 22's
+    backbone."""
+    t_phase = time.perf_counter()
+    cells = e95_cloud()
+    ad = interp_source(stt, cells)
+    targets = ellipsoid_grid(INTERP_TARGETS)
+    interp_engines(stt, interp_source(stt, cells[::50], 4), targets[:500], gp_genes=2, dl_iter=5, profile=False)
+    res = interp_engines(stt, ad, targets)
+    for name, r in res.items():
+        check(r["err"] <= INTERP_ERR_BAR[name], f"{name}: mean error {r['err']} against the planted field")
+        print(f"phase 26a: {name} interpolation of {len(cells):,} cells onto {len(targets):,} targets: "
+              f"{fmt_stats(r)}; mean error against the planted field {r['err']!r} (bar {INTERP_ERR_BAR[name]})")
+
+    small = cluster_section(stt, 2_000, 200)
+    cluster_stages(stt, small, profile=False, num=20)
+    t0 = time.perf_counter()
+    sec = cluster_section(stt)
+    t_prep = time.perf_counter() - t0
+    st = cluster_stages(stt, sec)
+    for name in ("scc", "mclust", "kmeans", "spagcn"):
+        check(st[name]["ari"] >= CLUSTER_ARI_BAR[name], f"{name}: ARI {st[name]['ari']} against the bands")
+    check(st["umap"]["preservation"] >= UMAP_PRESERVATION_BAR and st["umap"]["host_reads"] == 1, "UMAP")
+    check(st["morani"]["min_i"] >= MORAN_BAR, f"cellbin_morani: the bands' Moran's I {st['morani']['min_i']}")
+    check(st["cci"]["pvalue"] <= 2.0 / (CCI_PERMUTATIONS + 1), f"CCI: planted pair p {st['cci']['pvalue']}")
+    print(f"phase 26b: cortex_section {CLUSTER_CELLS:,} cells x {CLUSTER_GENES:,} genes, normalize_total + log1p + "
+          f"pca(30) {t_prep!r} s; " + "; ".join(f"{k} {fmt_stats(v)} " + ", ".join(
+              f"{m} {v[m]!r}" for m in v if m not in ("seconds", "idle", "launches", "peak_gb")) for k, v in st.items()))
+
+    if backbone is None:
+        pc = stt.tdr.PointCloud(cells)
+        backbone, _, _ = stt.tdr.construct_backbone(pc, rd_method="ElPiGraph", num_nodes=TDR_NODES)
+    backbone_scc_stage(stt, cells, backbone, n=2_000, profile=False)
+    k, stats = backbone_scc_stage(stt, cells, backbone)
+    check(k >= 2, f"backbone_scc: {k} clusters")
+    print(f"phase 26: backbone_scc of {BACKBONE_SCC_CELLS:,} cells along a {backbone.n_points}-node backbone "
+          f"{fmt_stats(stats)}, {k} clusters; phase 26 {time.perf_counter() - t_phase!r} s")
+
+
+#: Phase 27's bars, card against CPU (measured on the card, PERF.md): the
+#: VTK fields and the GP prediction (float32), the first SGPR and SIREN Adam
+#: steps from one start (losses, relative), GC-DEC's q, the GMM (float64),
+#: UMAP after 3 epochs from one init and negatives (of scale; the card's
+#: `index_add_` adds in its own order) and after all (15-NN preservation),
+#: the CCI null scores (float32 means). Shepard's weights 1/d^2 carry the
+#: GEMM's rounding of a distance near a source into the field (7.2e-5 at
+#: 2,000 cells, measured on one H100).
+CVC_FIELD_BAR = {"shepard": 5e-4, "gaussian": 1e-5, "linear": 1e-5}
+CVC_LOSS_BAR, CVC_Q_BAR, CVC_GMM_BAR = 1e-4, 1e-4, 1e-8
+CVC_UMAP_BAR, CVC_UMAP_PRESERVATION, CVC_NULL_BAR = 1e-3, 0.05, 1e-5
+CVC_STEPS = 10
+
+
+def interp_cluster_cuda_vs_cpu(stt, card="cuda", n=2_000):
+    """Phase 27's comparisons of `card` against the CPU at `n` cells:
+    {check: (value, bar)}; `check` fails where a value passes its bar."""
+    from spateo_tpu_torch.ops.gmm import GaussianMixture
+    from spateo_tpu_torch.tdr.interpolations import interpolation_dl as idl
+    from spateo_tpu_torch.tdr.interpolations import interpolation_gp as igp
+    from spateo_tpu_torch.tools import dimensionality_reduction as dr
+    from spateo_tpu_torch.tools.cci_two_cluster import permutation_null
+    from spateo_tpu_torch.tools.cluster import find_clusters as fc
+    from spateo_tpu_torch.tools.cluster.spagcn_utils import simple_GC_DEC
+
+    sides = (card, "cpu")
+    rng = np.random.default_rng(0)
+    cells = e95_cloud()[rng.choice(E95_SECTIONS * E95_CELLS, n, replace=False)]
+    ad = interp_source(stt, cells, 8)
+    targets = ellipsoid_grid(5 * n)
+    out = {}
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a, float) - np.asarray(b, float)).max() / max(np.abs(np.asarray(b)).max(), 1e-30))
+
+    for kernel in ("shepard", "gaussian", "linear"):
+        f = [stt.tdr.vtk_interpolation(ad, targets, kernel=kernel, device=d).X for d in sides]
+        out[f"vtk {kernel}"] = (rel(*f), CVC_FIELD_BAR[kernel])
+    X = ((cells - cells.mean(0)) / cells.std(0)).astype(np.float32)
+    Y = np.asarray(ad.X[:, :4], np.float32)
+    Z0 = X[rng.choice(n, 64, replace=False)]
+    gp = [igp._fit_sgpr(X, Y, Z0, n_epochs=CVC_STEPS, device=d) for d in sides]
+    out["SGPR losses"] = (rel(gp[0][1], gp[1][1]), CVC_LOSS_BAR)
+    pred = [igp._sgpr_predict(p, *(torch.from_numpy(a).to(d, torch.float64) for a in (X, Y, X[:500]))).cpu().numpy()
+            for (p, _), d in zip(gp, sides)]
+    out["SGPR prediction"] = (rel(*pred), CVC_LOSS_BAR)
+    bi = rng.integers(0, n, (CVC_STEPS, 512))
+    sl = [idl._fit_siren(idl.SIREN([3, 64, 64, 4], seed=0, device=d), X, Y, CVC_STEPS, 1e-3, 512, 0, d, bi)
+          for d in sides]
+    out["SIREN losses"] = (rel(*sl), CVC_LOSS_BAR)
+
+    A, l_ref = fc.spagcn_adjacency(cells[:, :2], device="cpu")
+    l_card = fc.spagcn_adjacency(cells[:, :2], device=card)[1]
+    out["SpaGCN l"] = (abs(float(l_card) - float(l_ref)) / float(l_ref), 1e-12)
+    emb = np.asarray(ad.X, np.float32)
+    q = []
+    for d in sides:
+        m = simple_GC_DEC(emb.shape[1], emb.shape[1], device=d).fit(emb, A, n_clusters=4, max_epochs=30, seed=0)
+        q.append(m.predict()[0])
+    out["GC-DEC q"] = (rel(*q), CVC_Q_BAR)
+    g = [GaussianMixture(4, "full", random_state=0, device=d).fit(Y) for d in sides]
+    check(np.array_equal(g[0].predict(Y), g[1].predict(Y)) and g[0].n_iter_ == g[1].n_iter_, "GMM labels")
+    out["GMM means"] = (rel(g[0].means_, g[1].means_), CVC_GMM_BAR)
+
+    Xu = np.asarray(ad.X, np.float32)
+    graph, _, _, e0 = dr.umap_conn_indices_dist_embedding(Xu, n_neighbors=15, max_iter=1, return_mapper=False,
+                                                          device="cpu")
+    init = np.random.default_rng(1).normal(0, 10, (n, 2)).astype(np.float32)
+    negs = rng.integers(0, n, (3, graph.nnz))
+    e3 = [dr.umap_conn_indices_dist_embedding(Xu, n_neighbors=15, max_iter=3, init=init, negatives=negs,
+                                              return_mapper=False, device=d)[3] for d in sides]
+    out["UMAP 3 epochs"] = (rel(*e3), CVC_UMAP_BAR)
+    pres = [dr.knn_preservation(Xu, dr.umap_conn_indices_dist_embedding(Xu, n_neighbors=15, return_mapper=False,
+                                                                       device=d)[3], 15) for d in sides]
+    out["UMAP 15-NN preservation"] = (abs(pres[0] - pres[1]), CVC_UMAP_PRESERVATION)
+
+    lig, rec = (torch.from_numpy(np.asarray(ad.X[:, j : j + 2], np.float32)) for j in (0, 2))
+    perm = torch.from_numpy(rng.integers(0, n, (2, 200, 300)))
+    null = [permutation_null(lig.to(d), rec.to(d), perm[0].to(d), perm[1].to(d)).cpu().numpy() for d in sides]
+    out["CCI null"] = (rel(*null), CVC_NULL_BAR)
+    for k, (v, bar) in out.items():
+        check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
+    return out
+
+
+def phase_interp_cluster_cuda_vs_cpu(stt):
+    """Phase 27: phase 26's device work on the card against the CPU, at a
+    small size."""
+    t_phase = time.perf_counter()
+    out = interp_cluster_cuda_vs_cpu(stt)
+    print("phase 27: card vs CPU at 2,000 cells: " + "; ".join(f"{k} {v!r} (bar {b})" for k, (v, b) in out.items())
+          + f"; GMM labels and iterations equal; phase 27 {time.perf_counter() - t_phase!r} s")
+
+
 def main(argv=None):
     import argparse
 
@@ -3432,6 +3828,7 @@ def main(argv=None):
         return phases is None or n in phases
 
     # -- phase 0: environment --------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
     card = subprocess.run(
@@ -3525,8 +3922,7 @@ def main(argv=None):
         phase_e95_cuda_vs_cpu(stt)
 
     # -- phases 22-23: 3D reconstruction ------------------------------------------------------
-    if want(22):
-        phase_tdr(stt)
+    backbone = phase_tdr(stt) if want(22) else None
     if want(23):
         phase_tdr_cuda_vs_cpu(stt)
 
@@ -3536,6 +3932,13 @@ def main(argv=None):
     if want(25):
         phase_interpretation_cuda_vs_cpu()
 
+    # -- phases 26-27: interpolation engines, clustering, UMAP, the CCI test ---------------------
+    if want(26):
+        phase_interp_cluster(stt, backbone)
+    if want(27):
+        phase_interp_cluster_cuda_vs_cpu(stt)
+
+    print(f"chip_smoke: every chosen phase passed in {time.perf_counter() - t_start!r} s")
     print(card)
     print(json.dumps({"kernels": [
         {

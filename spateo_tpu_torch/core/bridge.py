@@ -7,9 +7,11 @@ the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
 fields, `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho solve's
 EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
 learned SparseVFC field and a Morpho vector field,
-`music_state_from_reference` a MuSIC design, and `nlpca_from_reference` the
-weights of an NLPCA principal curve; all are duck-typed, so that this module
-never imports the JAX package.
+`music_state_from_reference` a MuSIC design, `nlpca_from_reference` the
+weights of an NLPCA principal curve, `siren_from_reference` a deep
+interpolator's SIREN, `sgpr_params_from_reference` a sparse GP's parameters
+and `gc_dec_from_reference` a SpaGCN head's W and mu; all are duck-typed, so
+that this module never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -193,3 +195,47 @@ def nlpca_from_reference(params, device="cuda"):
         for k in NLPCA_KEYS:
             getattr(solver, k).copy_(to_device(w[k], device))
     return solver
+
+
+def siren_from_reference(params, w0: float = 5.0, device="cuda"):
+    """The port's `tdr.interpolations.interpolation_dl.SIREN` on `device`
+    holding a `spateo_tpu` SIREN's weights (`DeepInterpolation.params`: a
+    list of {"W": [in, out], "b": [out]}), as float32 copies."""
+    from ..tdr.interpolations.interpolation_dl import SIREN
+
+    Ws = [np.array(p["W"], dtype=np.float32) for p in params]
+    bs = [np.array(p["b"], dtype=np.float32) for p in params]
+    model = SIREN([Ws[0].shape[0]] + [W.shape[1] for W in Ws], w0=w0, device=device)
+    with torch.no_grad():
+        for i, (W, b) in enumerate(zip(Ws, bs)):
+            model.W[i].copy_(to_device(W, device))
+            model.b[i].copy_(to_device(b, device))
+    return model
+
+
+def sgpr_params_from_reference(params, device="cuda"):
+    """The port's `SGPRParams` on `device` holding a `spateo_tpu` SGPR's
+    parameters (a dict with `log_ls`, `log_noise`, `log_amp` and `Z`), as
+    float64 copies."""
+    from ..tdr.interpolations.interpolation_gp import SGPRParams
+
+    out = SGPRParams(np.array(params["Z"], dtype=np.float64), device=device)
+    with torch.no_grad():
+        for k in ("log_ls", "log_noise", "log_amp"):
+            getattr(out, k).fill_(float(np.asarray(params[k])))
+    return out
+
+
+def gc_dec_from_reference(model, device="cuda"):
+    """The port's `tools.cluster.spagcn_utils.simple_GC_DEC` on `device`
+    holding a `spateo_tpu` head's GCN weight W and, once fitted, its centres
+    mu (float32 copies); a head that has not been fitted carries W only."""
+    from ..tools.cluster.spagcn_utils import simple_GC_DEC
+
+    out = simple_GC_DEC(model.nfeat, model.nhid, alpha=model.alpha, device=device)
+    W = model.params["W"] if getattr(model, "params", None) is not None else model.gc.weight
+    with torch.no_grad():
+        out.gc.weight.copy_(to_device(np.array(W, dtype=np.float32), device))
+    if getattr(model, "mu", None) is not None:
+        out.mu = torch.nn.Parameter(to_device(np.array(model.mu, dtype=np.float32), device))
+    return out

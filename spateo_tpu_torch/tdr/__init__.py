@@ -5,15 +5,22 @@ device), voxels, backbones (ElPiGraph with its candidate fits batched on the
 device, SimplePPT, the NLPCA principal curve), the morphofield and
 morphopath models, model IO and utilities, morphofields and their
 differential geometry, trajectories, model morphology with the kernel
-density, shape similarity, and the SparseVFC kernel interpolation.
+density, shape similarity, and the interpolation engines (VTK-style, sparse
+GP, SparseVFC kernel, deep SIREN); `backbone_scc` clusters through
+`tools.cluster.scc`.
 
-Not ported yet (ROADMAP Queue 1 item 11): the VTK, GP and deep
-interpolation engines (`interpolation_{vtk,gp,dl}.py`,
-`interpolation_gaussianprocess/`), the widgets (`widgets/`), and
-`backbone_scc`, which waits for `tools/cluster` and raises."""
+Not ported yet (ROADMAP Queue 1 item 11): the widgets (`widgets/`)."""
 
 from . import models
-from .interpolations import get_X_Y_grid, in_hull, kernel_interpolation, polyhull
+from .interpolations import (
+    deep_intepretation,
+    get_X_Y_grid,
+    gp_interpolation,
+    in_hull,
+    kernel_interpolation,
+    polyhull,
+    vtk_interpolation,
+)
 from .models import *  # noqa: F401,F403
 from .models.models_backbone.backbone_methods import (
     ElPiGraph_method,

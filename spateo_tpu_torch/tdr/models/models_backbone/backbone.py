@@ -1,9 +1,8 @@
 """Backbone construction entry points (capability parity: reference
 spateo/tdr/models/models_backbone/backbone.py:17,157). The counterpart of
 `spateo_tpu.tdr.models.models_backbone.backbone`: `construct_backbone` takes
-`device=` (default ``"cuda"``) for its method; `backbone_scc` needs
-`tools.cluster.find_clusters.scc` (leiden/louvain), which the port does not
-have yet (ROADMAP Queue 1 item 11), and raises."""
+`device=` (default ``"cuda"``) for its method, and `backbone_scc` for the
+kNN graphs of `tools.cluster.find_clusters.scc`."""
 
 from __future__ import annotations
 
@@ -65,11 +64,25 @@ def backbone_scc(
     cluster_method: str = "leiden",
     resolution: Optional[float] = None,
     inplace: bool = True,
+    device="cuda",
 ) -> Optional[AnnData]:
     """Cluster cells along the backbone with spatial constraints
-    (parity: backbone.py:157). Not ported: the clustering
-    (`tools.cluster.find_clusters.scc`) is ROADMAP Queue 1 item 11."""
-    raise NotImplementedError(
-        "backbone_scc needs tools.cluster.find_clusters.scc (leiden/louvain), which the port does not have yet "
-        "(ROADMAP Queue 1 item 11)"
+    (parity: backbone.py:157): each cell mapped to its backbone node, then
+    `tools.cluster.scc` (its kNN graphs on `device`, Louvain/Leiden on the
+    host)."""
+    from ....tools.cluster.find_clusters import scc
+    from .backbone_utils import map_points_to_backbone
+
+    adata = adata if inplace else adata.copy()
+    map_points_to_backbone(adata, backbone, nodes_key=backbone_nodes_key, key_added=adata_nodes_key, spatial_key=spatial_key)
+    scc(
+        adata,
+        spatial_key=spatial_key,
+        key_added=key_added,
+        e_neigh=e_neigh,
+        s_neigh=s_neigh,
+        resolution=resolution,
+        cluster_method=cluster_method,
+        device=device,
     )
+    return None if inplace else adata

@@ -9,8 +9,16 @@ another) and is never densified. ``Omega`` is drawn on the host from
 ``np.random.default_rng(random_state)`` exactly as the JAX package draws it.
 `pca_fit` fits `PCA`, scikit-learn 1.9's exact PCA ported (the GPU machine
 has no scikit-learn), and `find_optimal_pca_components` takes its elbow from
-`randomized_pca_centered`. UMAP and t-SNE are not ported yet (ROADMAP Queue 1
-item 11).
+`randomized_pca_centered`.
+
+UMAP (`umap_conn_indices_dist_embedding`, `perform_dimensionality_reduction`)
+is the JAX package's native one: the kNN (host cKDTree), the smooth-kNN
+calibration, the fuzzy union, the a/b curve fit and the spectral `eigsh`
+init stay on the host; the SGD layout runs on the device, each epoch's
+gathers, clips and `index_add_`s with its negatives drawn from a
+`torch.Generator`, with no host read inside the epochs. t-SNE is not ported
+yet (ROADMAP Queue 1 item 11): the JAX package calls scikit-learn's
+Barnes-Hut `TSNE`.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from scipy.sparse import issparse
 
 from ..core.anndata import AnnData
+from ..core.bridge import to_device
 
 
 def _upload(X, device) -> torch.Tensor:
@@ -225,3 +234,227 @@ def pca(
     if return_all:
         return adata, None, X_pca
     return adata
+
+
+def perform_dimensionality_reduction(
+    adata: AnnData,
+    basis: str = "pca",
+    n_pca_components: int = 30,
+    n_components: int = 2,
+    n_neighbors: int = 30,
+    reduction_method: str = "umap",
+    embedding_key: Optional[str] = None,
+    enforce: bool = False,
+    cores: int = 1,
+    copy: bool = False,
+    device="cuda",
+    **kwargs,
+):
+    """UMAP embedding on top of PCA (parity: dimensionality_reduction.py:37),
+    by the native UMAP with its layout on `device` (`umap-learn` is not a
+    dependency). t-SNE raises (ROADMAP Queue 1 item 11)."""
+    if copy:
+        adata = adata.copy()
+    if reduction_method in ("tsne", "t-sne"):
+        raise NotImplementedError("t-SNE needs scikit-learn's Barnes-Hut TSNE, which the port does not have yet "
+                                  "(ROADMAP Queue 1 item 11)")
+    if reduction_method != "umap":
+        raise ValueError(f"Unknown reduction_method {reduction_method}")
+    if "X_pca" not in adata.obsm or enforce:
+        pca(adata, n_pca_components=n_pca_components, device=device)
+    X = np.asarray(adata.obsm["X_pca"])[:, :n_pca_components]
+    embedding_key = embedding_key or f"X_{reduction_method}"
+    _, _, _, emb = umap_conn_indices_dist_embedding(
+        X, n_neighbors=n_neighbors, n_components=n_components, return_mapper=False, device=device, **kwargs
+    )
+    adata.obsm[embedding_key] = emb
+    if copy:
+        return adata
+
+
+def _smooth_knn(dists: np.ndarray, k: int, n_iter: int = 64) -> Tuple[np.ndarray, np.ndarray]:
+    """UMAP's per-point bandwidth calibration (host): find sigma_i so that
+    sum_j exp(-(d_ij - rho_i)/sigma_i) = log2(k)."""
+    rho = dists[:, 0].copy()
+    target = np.log2(k)
+    lo = np.zeros(len(dists))
+    hi = np.full(len(dists), np.inf)
+    sigma = np.ones(len(dists))
+    for _ in range(n_iter):
+        val = np.exp(-np.maximum(dists - rho[:, None], 0) / sigma[:, None]).sum(1)
+        too_high = val > target
+        hi = np.where(too_high, sigma, hi)
+        lo = np.where(too_high, lo, sigma)
+        sigma = np.where(np.isinf(hi), sigma * 2, (lo + hi) / 2)
+    return sigma, rho
+
+
+def umap_layout(init: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor, weights: torch.Tensor, a: float,
+                b: float, n_epochs: int, alpha: float = 1.0, negatives=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """UMAP's SGD layout on the device of `init` (float32), the JAX
+    package's epoch: attract each edge's ends (gradient clipped to +-4,
+    scaled by its weight; heads then tails by `index_add_`), then repel each
+    head from one random point, at the rate alpha (1 - i / n_epochs).
+
+    Each epoch's negatives are row i of `negatives` ([n_epochs, E] ints)
+    when given, else ``torch.randint`` from `generator` on the device. No
+    host read happens in the loop; the caller reads the result."""
+    emb = init.clone()
+    n = emb.shape[0]
+    f32 = np.float32
+    a32, b32 = f32(a), f32(b)
+    attract = float(f32(-2.0) * a32 * b32)
+    repel = float(f32(2.0) * b32)
+    bm1 = float(b32 - f32(1.0))
+    a, b = float(a32), float(b32)
+    if negatives is not None:
+        negatives = torch.as_tensor(np.asarray(negatives), dtype=torch.int64).to(emb.device)
+    for i in range(n_epochs):
+        lr = float(f32(alpha) * (f32(1.0) - f32(i) / f32(n_epochs)))
+        diff = emb[heads] - emb[tails]
+        d2 = (diff * diff).sum(1) + 1e-9
+        grad_coef = (attract * d2**bm1) / (1.0 + a * d2**b)
+        ga = torch.clamp(grad_coef[:, None] * diff, -4, 4) * weights[:, None]
+        emb.index_add_(0, heads, lr * ga)
+        emb.index_add_(0, tails, -lr * ga)
+        negs = negatives[i] if negatives is not None else torch.randint(
+            0, n, heads.shape, generator=generator, device=emb.device)
+        diff = emb[heads] - emb[negs]
+        d2n = (diff * diff).sum(1) + 1e-9
+        rep_coef = repel / ((0.001 + d2n) * (1.0 + a * d2n**b))
+        gr = torch.clamp(rep_coef[:, None] * diff, -4, 4)
+        emb.index_add_(0, heads, lr * gr)
+    return emb
+
+
+def umap_conn_indices_dist_embedding(
+    X: np.ndarray,
+    n_neighbors: int = 30,
+    n_components: int = 2,
+    min_dist: float = 0.1,
+    spread: float = 1.0,
+    max_iter: Optional[int] = None,
+    alpha: float = 1.0,
+    random_state: int = 0,
+    return_mapper: bool = True,
+    init: Optional[np.ndarray] = None,
+    negatives: Optional[np.ndarray] = None,
+    device="cuda",
+    **kwargs,
+):
+    """UMAP graph + embedding (parity surface: reference
+    dimensionality_reduction.py:258-345; the JAX package's native UMAP).
+
+    The graph, a, b and the spectral init (`eigsh` of the normalised graph)
+    are computed on the host as in the JAX package; the layout
+    (`umap_layout`, 500 epochs up to 10,000 points, else 200) runs on
+    `device` with its negatives from ``torch.Generator(device)`` seeded with
+    `random_state`. `init` ([n, n_components]) replaces the spectral init
+    and `negatives` ([epochs, edges]) the draws, so that a run can start
+    from another's. A graph too small for `eigsh` (n <= n_components + 1)
+    starts from ``default_rng(random_state)`` noise, as in the JAX package.
+
+    With ``return_mapper=True`` returns ``(mapper, graph, knn_indices,
+    knn_dists, embedding)``, the mapper a `_FittedUMAP`; otherwise
+    ``(graph, knn_indices, knn_dists, embedding)``.
+    """
+    from scipy.optimize import curve_fit
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.linalg import eigsh
+    from scipy.spatial import cKDTree
+
+    X = np.asarray(X, np.float32)
+    n = X.shape[0]
+    k = min(n_neighbors, n - 1)
+    tree = cKDTree(X)
+    knn_dists, knn_indices = tree.query(X, k=k + 1)
+    knn_dists, knn_indices = knn_dists[:, 1:], knn_indices[:, 1:]
+
+    sigma, rho = _smooth_knn(knn_dists, k)
+    w = np.exp(-np.maximum(knn_dists - rho[:, None], 0) / np.maximum(sigma[:, None], 1e-12))
+    rows = np.repeat(np.arange(n), k)
+    G = coo_matrix((w.ravel(), (rows, knn_indices.ravel())), shape=(n, n)).tocsr()
+    graph = G + G.T - G.multiply(G.T)
+
+    xs = np.linspace(0, spread * 3, 300)
+    ys = np.where(xs < min_dist, 1.0, np.exp(-(xs - min_dist) / spread))
+    (a_fit, b_fit), _ = curve_fit(lambda x, a, b: 1.0 / (1.0 + a * x ** (2 * b)), xs, ys, p0=[1.0, 1.0], maxfev=5000)
+
+    if init is None:
+        if n > n_components + 1:
+            deg = np.asarray(graph.sum(1)).ravel()
+            Dinv = coo_matrix((1.0 / np.sqrt(np.maximum(deg, 1e-12)), (np.arange(n), np.arange(n))),
+                              shape=(n, n)).tocsr()
+            L = Dinv @ graph @ Dinv
+            vals, vecs = eigsh(L, k=n_components + 1, which="LA")
+            init = vecs[:, :-1][:, ::-1]
+        else:
+            init = np.random.default_rng(random_state).normal(scale=1e-2, size=(n, n_components))
+        init = (init - init.mean(0)) / (init.std(0) + 1e-9) * 10.0
+
+    coo = graph.tocoo()
+    heads = to_device(coo.row.astype(np.int64), device)
+    tails = to_device(coo.col.astype(np.int64), device)
+    weights = to_device(coo.data.astype(np.float32), device)
+    n_epochs = max_iter or (500 if n <= 10000 else 200)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(random_state))
+    emb_d = umap_layout(to_device(np.asarray(init, np.float32), device), heads, tails, weights, float(a_fit),
+                        float(b_fit), int(n_epochs), alpha=alpha, negatives=negatives, generator=gen)
+    emb = emb_d.cpu().numpy()
+    umap_conn_indices_dist_embedding.host_reads += 1
+    if return_mapper:
+        mapper = _FittedUMAP(X, emb, n_neighbors=min(5, k))
+        return mapper, graph, knn_indices, knn_dists, emb
+    return graph, knn_indices, knn_dists, emb
+
+
+umap_conn_indices_dist_embedding.host_reads = 0
+
+
+class _FittedUMAP:
+    """Minimal fitted-UMAP stand-in: holds the training embedding and maps
+    new points by barycentric interpolation of their nearest training
+    neighbors (the role the reference's umap.UMAP object plays in
+    adata.uns['umap_fit'], dimensionality_reduction.py:241-247); host code."""
+
+    def __init__(self, X_train: np.ndarray, embedding_: np.ndarray, n_neighbors: int = 5):
+        self.X_train_ = np.asarray(X_train, np.float32)
+        self.embedding_ = np.asarray(embedding_)
+        self.n_neighbors = n_neighbors
+
+    def transform(self, X_new: np.ndarray) -> np.ndarray:
+        from scipy.spatial import cKDTree
+
+        d, idx = cKDTree(self.X_train_).query(np.asarray(X_new, np.float32), k=self.n_neighbors)
+        w = 1.0 / np.maximum(d, 1e-12)
+        w = w / w.sum(axis=1, keepdims=True)
+        return np.einsum("nk,nkd->nd", w, self.embedding_[idx])
+
+
+def knn_preservation(X: np.ndarray, emb: np.ndarray, k: int = 15) -> float:
+    """Mean share of each point's k nearest neighbours in X that are among
+    its k nearest in `emb` (host cKDTree)."""
+    from scipy.spatial import cKDTree
+
+    X = np.asarray(X, np.float32)
+    k = min(k, len(X) - 1)
+    true_nbrs = cKDTree(X).query(X, k=k + 1)[1][:, 1:]
+    emb_nbrs = cKDTree(emb).query(emb, k=k + 1)[1][:, 1:]
+    return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(true_nbrs, emb_nbrs)]))
+
+
+def find_optimal_n_umap_components(X, max_components: int = 10, device="cuda", **kwargs) -> int:
+    """Pick the UMAP dimensionality at the knee of 15-NN preservation
+    (parity surface: reference find_optimal_n_umap_components)."""
+    X = np.asarray(X, np.float32)
+    scores = []
+    dims = list(range(2, max_components + 1, 2))
+    for d in dims:
+        _, _, _, emb = umap_conn_indices_dist_embedding(X, n_components=d, max_iter=150, return_mapper=False,
+                                                        device=device, **kwargs)
+        scores.append(knn_preservation(X, emb, 15))
+    gains = np.diff([0] + scores)
+    best = int(np.argmax(gains < 0.01)) if (gains < 0.01).any() else len(dims) - 1
+    return dims[best]

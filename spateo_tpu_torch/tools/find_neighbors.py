@@ -1,5 +1,5 @@
-"""Spatial kernel weights (capability parity: reference
-spateo/tools/find_neighbors.py), the part MuSIC needs.
+"""Spatial kernel weights and neighbour graphs (capability parity:
+reference spateo/tools/find_neighbors.py).
 
 Counterpart of `spateo_tpu.tools.find_neighbors`: `_kernel_weights_batch`
 and `_conditioned_kernel_weights_batch` build a [Q, N] block of weights on
@@ -13,17 +13,31 @@ The distances keep the JAX package's matmul form and operand order,
 distance is the square root of a cancellation residual, so the two agree
 there only to rounding (see `tests/test_torch_music.py`). A query's own
 column is pinned to an exact 0 with `self_idx`.
+
+The neighbour graphs (`neighbors`, `construct_nn_graph`) take their kNN
+from `knn`, on the device, in place of scikit-learn's `NearestNeighbors`:
+difference-form distances in float64, each row ordered by distance, then by
+index. Queried with the fitted points, every point is its own first
+neighbour (distance 0), as `kneighbors_graph(X)` counts it. Where two
+points tie at a row's k-th distance scikit-learn's trees keep either; the
+port keeps the lower index (`tests/test_torch_cluster.py` pins it on a
+lattice).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 from scipy.sparse import csr_matrix
 
+from ..core.anndata import AnnData
 from ..core.bridge import to_device
+from ..logging import logger_manager as lm
+
+#: Entries of one [rows, n] block of distances `knn` sorts at a time.
+KNN_ELEMS = 1 << 25
 
 
 def calculate_distance(position: np.ndarray, dist_metric: str = "euclidean") -> np.ndarray:
@@ -36,6 +50,81 @@ def calculate_distance(position: np.ndarray, dist_metric: str = "euclidean") -> 
 def local_dist(coords_i: np.ndarray, coords: np.ndarray) -> np.ndarray:
     """Distances from one sample to all samples (parity: find_neighbors.py:35)."""
     return np.sqrt(((coords_i[None, :] - coords) ** 2).sum(axis=1))
+
+
+def jaccard_index(row_i: np.ndarray, array: np.ndarray) -> np.ndarray:
+    """Jaccard index of one binary row vs all rows (parity: find_neighbors.py:51)."""
+    row_i = row_i.astype(bool)
+    array = array.astype(bool)
+    inter = (array & row_i).sum(axis=1)
+    union = (array | row_i).sum(axis=1)
+    return inter / np.maximum(union, 1)
+
+
+def normalize_adj(adj: np.ndarray, exclude_self: bool = True) -> np.ndarray:
+    """Symmetric degree normalization D^-1/2 (A) D^-1/2 (parity:
+    find_neighbors.py:67)."""
+    adj = np.asarray(adj, dtype=float)
+    if exclude_self:
+        adj = adj - np.diag(np.diag(adj))
+    d = adj.sum(axis=1)
+    d_inv_sqrt = np.where(d > 0, 1.0 / np.sqrt(d), 0.0)
+    return adj * d_inv_sqrt[:, None] * d_inv_sqrt[None, :]
+
+
+def adj_to_knn(adj: np.ndarray, n_neighbors: int = 15) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense adjacency -> (indices, weights) of the top-n entries per row
+    (parity: find_neighbors.py:94)."""
+    adj = np.asarray(adj)
+    idx = np.argsort(-adj, axis=1)[:, :n_neighbors]
+    wts = np.take_along_axis(adj, idx, axis=1)
+    return idx, wts
+
+
+def knn_to_adj(knn_indices: np.ndarray, knn_weights: np.ndarray) -> csr_matrix:
+    """(indices, weights) -> sparse adjacency (parity: find_neighbors.py:126)."""
+    n, k = knn_indices.shape
+    rows = np.repeat(np.arange(n), k)
+    return csr_matrix((knn_weights.ravel(), (rows, knn_indices.ravel())), shape=(n, n))
+
+
+def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean") -> Tuple[np.ndarray, np.ndarray]:
+    """Each point's k nearest points among `X`, itself included: ([n, k]
+    int64 indices, [n, k] float64 distances) on the host, each row ordered
+    by distance, then by index.
+
+    The euclidean distances are sqrt(sum_d (x_d - y_d)^2) in float64 on
+    `device` (`torch.cdist` in its difference form, the form of
+    scikit-learn's trees); another metric's come from scipy's `cdist` on the
+    host. Rows go `KNN_ELEMS // n` at a time through a stable sort, so equal
+    distances keep their index order; the result is copied to the host once."""
+    X = np.asarray(X, dtype=np.float64)
+    if X.ndim == 1:
+        X = X[:, None]
+    n = len(X)
+    k = min(int(k), n)
+    Xd = to_device(X, device)
+    idx = torch.empty((n, k), dtype=torch.int64, device=Xd.device)
+    dist = torch.empty((n, k), dtype=torch.float64, device=Xd.device)
+    rows = max(1, KNN_ELEMS // max(n, 1))
+    for s in range(0, n, rows):
+        if metric == "euclidean":
+            D = torch.cdist(Xd[s : s + rows], Xd, compute_mode="donot_use_mm_for_euclid_dist")
+        else:
+            from scipy.spatial.distance import cdist
+
+            D = to_device(cdist(X[s : s + rows], X, metric=metric), device)
+        D, order = torch.sort(D, dim=1, stable=True)
+        idx[s : s + rows] = order[:, :k]
+        dist[s : s + rows] = D[:, :k]
+    return idx.cpu().numpy(), dist.cpu().numpy()
+
+
+def _knn_graph(idx: np.ndarray, data: np.ndarray, n: int) -> csr_matrix:
+    """scikit-learn's `kneighbors_graph` layout: row i holds its k
+    neighbours in neighbour order."""
+    rows, k = idx.shape
+    return csr_matrix((np.ravel(data), idx.ravel(), np.arange(0, rows * k + 1, k)), shape=(rows, n))
 
 
 def _distances(query: torch.Tensor, coords: torch.Tensor, self_idx: Optional[torch.Tensor]) -> torch.Tensor:
@@ -310,3 +399,179 @@ def get_wi_batch_tensor(
             out = torch.empty((n, n), dtype=W.dtype, device=W.device)
         out[s : s + W.shape[0]] = W
     return out
+
+
+def find_bw_for_n_neighbors(
+    adata: AnnData,
+    coords_key: str = "spatial",
+    n_anchors: Optional[int] = None,
+    target_n_neighbors: int = 6,
+    initial_bw: Optional[float] = None,
+    chunk_size: int = 1000,
+    exclude_self: bool = False,
+    normalize_distances: bool = False,
+    verbose: bool = True,
+    max_iterations: int = 100,
+    alpha: float = 0.5,
+) -> float:
+    """Bandwidth such that the average cell has ~`target_n_neighbors` within
+    it (parity: find_neighbors.py:215): the mean k-th neighbour distance of
+    the anchor cells, by the host cKDTree as in the JAX package."""
+    coords = np.asarray(adata.obsm[coords_key], dtype=float)
+    rng = np.random.default_rng(0)
+    n_use = len(coords) if n_anchors is None else min(n_anchors, len(coords))
+    anchors = rng.choice(len(coords), n_use, replace=False)
+    from scipy.spatial import cKDTree
+
+    tree = cKDTree(coords)
+    kth = tree.query(coords[anchors], k=target_n_neighbors + 1)[0][:, -1]
+    bw = float(np.mean(kth))
+    if verbose:
+        lm.main_info(f"Estimated bandwidth for ~{target_n_neighbors} neighbors: {bw:.4f}")
+    return bw
+
+
+def find_threshold_distance(
+    adata: AnnData,
+    coords_key: str = "X_pca",
+    n_neighbors: int = 10,
+    chunk_size: int = 1000,
+    normalize_distances: bool = False,
+    device="cuda",
+) -> float:
+    """Distance beyond which there is a dramatic increase in the average
+    distance to the remaining nearest neighbors (parity:
+    find_neighbors.py:336-387): the max over cells of mean + 3 std of the
+    n_neighbors smallest distances, self-distance included, with the
+    optional shared-nonzero-column normalization."""
+    coords = np.asarray(adata.obsm[coords_key], dtype=float)
+    if normalize_distances:
+        n_nonzeros = {i: set(np.nonzero(coords[i, :])[0]) for i in range(coords.shape[0])}
+    else:
+        n_nonzeros = None
+    chunks = []
+    for i in range(0, coords.shape[0], chunk_size):
+        chunks.append(calculate_distances_chunk(coords[i : i + chunk_size], i, coords, n_nonzeros=n_nonzeros,
+                                                device=device))
+    distances = np.concatenate(chunks, axis=0)
+    k_nearest = np.sort(distances)[:, :n_neighbors]
+    return float(np.max(k_nearest.mean(axis=1) + 3 * k_nearest.std(axis=1)))
+
+
+def construct_nn_graph(
+    adata: AnnData,
+    spatial_key: str = "spatial",
+    dist_metric: str = "euclidean",
+    n_neighbors: int = 8,
+    exclude_self: bool = True,
+    make_symmetrical: bool = False,
+    save_id: Union[bool, str] = False,
+    device="cuda",
+) -> None:
+    """KNN graph into `.obsp['adj']` (parity: find_neighbors.py:609), the
+    neighbours from `knn` on `device`."""
+    position = np.asarray(adata.obsm[spatial_key], dtype=float)
+    k = n_neighbors + (1 if exclude_self else 0)
+    idx, _ = knn(position, min(k, len(position)), device=device, metric=dist_metric)
+    rows = np.repeat(np.arange(len(position)), idx.shape[1])
+    cols = idx.ravel()
+    if exclude_self:
+        keep = rows != cols
+        rows, cols = rows[keep], cols[keep]
+    adj = csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(len(position), len(position)))
+    if make_symmetrical:
+        adj = adj.maximum(adj.T)
+    adata.obsp["adj"] = adj
+    if save_id:
+        adata.obs[save_id if isinstance(save_id, str) else "nn_id"] = np.arange(adata.n_obs)
+
+
+def neighbors(
+    adata: AnnData,
+    basis: str = "pca",
+    spatial_key: str = "spatial",
+    n_neighbors_method: str = "ball_tree",
+    n_pca_components: int = 30,
+    n_neighbors: int = 10,
+    device="cuda",
+) -> Tuple[csr_matrix, AnnData]:
+    """Expression or spatial KNN graph (parity: find_neighbors.py:672), the
+    neighbours from `knn` on `device`. Returns (connectivities, adata);
+    distances and connectivities go to `.obsp`, the neighbour indices to
+    `.uns`. `n_neighbors_method` is recorded (every method finds the same
+    neighbours)."""
+    if basis == "spatial":
+        X_data = np.asarray(adata.obsm[spatial_key], dtype=float)
+    else:
+        if "X_pca" not in adata.obsm:
+            from .dimensionality_reduction import pca
+
+            pca(adata, n_pca_components=n_pca_components, device=device)
+        X_data = np.asarray(adata.obsm["X_pca"])[:, :n_pca_components]
+    k = min(n_neighbors, adata.n_obs)
+    indices, dists = knn(X_data, k, device=device)
+    prefix = "spatial_" if basis == "spatial" else "expression_"
+    adata.obsp[f"{prefix}distances"] = _knn_graph(indices, dists, len(X_data))
+    adata.obsp[f"{prefix}connectivities"] = _knn_graph(indices, np.ones(indices.size), len(X_data))
+    adata.uns[f"{prefix}neighbors"] = {
+        "indices": indices,
+        "params": {"n_neighbors": k, "method": n_neighbors_method, "metric": "euclidean"},
+    }
+    return adata.obsp[f"{prefix}connectivities"], adata
+
+
+def calculate_affinity(position: np.ndarray, dist_metric: str = "euclidean", n_neighbors: int = 10) -> np.ndarray:
+    """Gaussian affinity matrix from pairwise distances (parity:
+    find_neighbors.py:771)."""
+    dist = calculate_distance(position, dist_metric)
+    sigma = np.sort(dist, axis=1)[:, min(n_neighbors, dist.shape[1] - 1)]
+    aff = np.exp(-(dist**2) / (2 * sigma[:, None] * sigma[None, :]))
+    np.fill_diagonal(aff, 0)
+    return aff
+
+
+def calculate_distances_chunk(
+    coords_chunk: np.ndarray,
+    chunk_start_idx: int = 0,
+    coords: np.ndarray = None,
+    n_nonzeros: Optional[dict] = None,
+    metric: str = "euclidean",
+    device="cuda",
+) -> np.ndarray:
+    """Pairwise distances of one chunk vs all (parity: reference
+    find_neighbors.py:182-211, incl. the optional shared-nonzero-column
+    normalization). The euclidean path runs on `device` in float32 with the
+    JAX package's `euc_dist` form; other metrics go through scipy's cdist."""
+    if coords is None:  # back-compat: (chunk, coords) positional form
+        coords, chunk_start_idx = chunk_start_idx, 0
+    if metric == "euclidean":
+        from ..alignment.methods.math import euc_dist
+
+        distances_chunk = euc_dist(to_device(np.asarray(coords_chunk, np.float32), device),
+                                   to_device(np.asarray(coords, np.float32), device), squared=False).cpu().numpy()
+    else:
+        from scipy.spatial.distance import cdist
+
+        distances_chunk = cdist(np.asarray(coords_chunk, float), np.asarray(coords, float), metric=metric)
+    if n_nonzeros is not None:
+        paired = np.zeros_like(distances_chunk)
+        for i in range(distances_chunk.shape[0]):
+            row_nz = n_nonzeros[chunk_start_idx + i]
+            for j in range(distances_chunk.shape[1]):
+                paired[i, j] = len(row_nz & n_nonzeros[j])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            distances_chunk = np.where(paired > 0, distances_chunk / paired, np.inf)
+    return distances_chunk
+
+
+def compute_distances_and_connectivities(knn_indices: np.ndarray, distances: np.ndarray):
+    """kNN structure -> sparse distance + binary connectivity matrices
+    (parity: reference find_neighbors.py compute_distances_and_connectivities)."""
+    n, k = knn_indices.shape
+    rows = np.repeat(np.arange(n), k)
+    cols = np.asarray(knn_indices).ravel()
+    dvals = np.asarray(distances).ravel()
+    dist = csr_matrix((dvals, (rows, cols)), shape=(n, n))
+    conn = csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    conn = conn.maximum(conn.T)
+    return dist, conn

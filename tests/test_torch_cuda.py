@@ -1089,3 +1089,97 @@ def test_frobenius_nmf_cuda_matches_cpu(cuda):
     assert m["cuda"].n_iter_ == m["cpu"].n_iter_
     assert np.abs(W["cuda"] - W["cpu"]).max() <= 1e-8 * np.abs(W["cpu"]).max()
     assert np.abs(m["cuda"].components_ - m["cpu"].components_).max() <= 1e-8 * np.abs(m["cpu"].components_).max()
+
+
+# -- interpolation engines, clustering, UMAP, the two-group CCI test ------------------------------
+
+
+def test_interp_cluster_cuda_matches_cpu(cuda):
+    """Phase 27 of chip_smoke.py at 1,000 cells, TF32 off: the VTK fields
+    (1e-5 of scale), the SGPR's first 10 Adam steps and its prediction, the
+    SIREN's first 10 steps from one start and one set of batches (losses
+    1e-4 relative), SpaGCN's length scale (1e-12) and GC-DEC's q (1e-4), the
+    GMM's labels and iterations (equal) and means (1e-8), UMAP after 3
+    epochs from one init and negatives (1e-3 of scale) and after all (15-NN
+    preservation within 0.05), the CCI null scores (1e-5)."""
+    import chip_smoke
+    import spateo_tpu_torch as stt
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = chip_smoke.interp_cluster_cuda_vs_cpu(stt, n=1_000)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert all(v <= bar for v, bar in out.values()), out
+
+
+def test_no_host_read_in_umap_sgpr_and_siren_loops(cuda):
+    """The UMAP epochs, the SGPR's Adam steps and the SIREN's run with no
+    host read: no synchronising call under `set_sync_debug_mode("error")`;
+    the SGPR and SIREN fits read their losses once, UMAP its embedding once
+    (their host-read counters)."""
+    from spateo_tpu_torch.tdr.interpolations import interpolation_dl as idl
+    from spateo_tpu_torch.tdr.interpolations import interpolation_gp as igp
+    from spateo_tpu_torch.tools import dimensionality_reduction as dr
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(500, 3))
+    Y = np.sin(X[:, :2])
+    Xd, Yd = (torch.from_numpy(a).cuda() for a in (X, Y))
+    params = igp.SGPRParams(X[:32], device="cuda")
+    model = idl.SIREN([3, 32, 32, 2], device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    heads, tails = (torch.from_numpy(rng.integers(0, 500, 2000)).cuda() for _ in range(2))
+    init = torch.from_numpy(rng.normal(size=(500, 2)).astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        igp.sgpr_train(params, Xd, Yd, n_epochs=5)
+        idl.siren_train(model, Xd.float(), Yd.float(), 5, batch_size=128, generator=gen)
+        dr.umap_layout(init, heads, tails, torch.ones(2000, device="cuda"), 1.58, 0.9, 5, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = igp._fit_sgpr.host_reads, idl._fit_siren.host_reads, dr.umap_conn_indices_dist_embedding.host_reads
+    igp._fit_sgpr(X, Y, X[:32], n_epochs=5)
+    idl._fit_siren(idl.SIREN([3, 32, 2], device="cuda"), X, Y, 5, 1e-3, 128, 0, "cuda")
+    dr.umap_conn_indices_dist_embedding(X, n_neighbors=10, max_iter=5, return_mapper=False)
+    after = igp._fit_sgpr.host_reads, idl._fit_siren.host_reads, dr.umap_conn_indices_dist_embedding.host_reads
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1]
+
+
+def test_neighbour_graphs_and_cci_cuda_match_cpu(cuda):
+    """`knn` on the card against the CPU (indices equal, distances 1e-12 of
+    scale, on untied points), the silhouette (1e-10) and the two-group CCI
+    test on the card against the CPU (scores 1e-6 relative, p-values
+    equal: no null score ties an observed one here)."""
+    import pandas as pd
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.tools.cluster.utils import ecp_silhouette
+    from spateo_tpu_torch.tools.find_neighbors import knn
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(3000, 30))
+    (ig, dg), (ic, dc) = knn(X, 15, device="cuda"), knn(X, 15, device="cpu")
+    np.testing.assert_array_equal(ig, ic)
+    assert np.abs(dg - dc).max() <= 1e-12 * dc.max()
+    lab = rng.integers(0, 5, 3000)
+    assert abs(ecp_silhouette(X, lab, device="cuda") - ecp_silhouette(X, lab, device="cpu")) <= 1e-10
+    c = rng.uniform(0, 20, (1500, 2))
+    Xe = rng.poisson(0.5, (1500, 12)).astype(np.float32)
+    Xe[:, 0] += (c[:, 0] < 10) * 2
+    Xe[:, 1] += (c[:, 0] >= 10) * 2
+    var = ["TGFB1", "TGFBR1_TGFBR2"] + [f"g{i}" for i in range(10)]
+    res = {}
+    for d in ("cuda", "cpu"):
+        ad = stt.AnnData(X=Xe.copy(), obs=pd.DataFrame({"g": np.where(c[:, 0] < 10, "A", "B")},
+                                                       index=[f"c{i}" for i in range(1500)]),
+                         var=pd.DataFrame(index=var))
+        ad.obsm["spatial"] = c
+        res[d] = stt.tl.find_cci_two_group(ad, group="g", sender_group="A", receiver_group="B", num=200,
+                                           pvalue=1.1, min_pairs_ratio=1e-5, device=d)["lr_pair"]
+    g, h = res["cuda"], res["cpu"]
+    assert np.abs(g["lr_score"].values - h["lr_score"].values).max() <= 1e-6 * np.abs(h["lr_score"].values).max()
+    np.testing.assert_array_equal(g["lr_value"].values, h["lr_value"].values)

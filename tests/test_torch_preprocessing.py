@@ -261,10 +261,14 @@ def test_group_pca_matches_jax():
 
 def test_no_module_imports_sklearn_jax_or_the_jax_package():
     """Every module of `spateo_tpu_torch` imported in a fresh interpreter,
-    and the calls for which the JAX package asks scikit-learn (`pc_KDE`,
-    `SimplePPT_tree` in its 3D models; `pca_fit`, the Frobenius center NMF,
-    `cal_ami`, `cal_f1score`) run on the CPU, bring in no scikit-learn, JAX
-    or `spateo_tpu`; and no line of the package imports them."""
+    and the calls for which the JAX package asks scikit-learn, optax or JAX's
+    device programs (`pc_KDE`, `SimplePPT_tree` in its 3D models; `pca_fit`,
+    the Frobenius center NMF, `cal_ami`, `cal_f1score`; the neighbour
+    graphs, `scc`, `mclust_py`, k-means, the silhouette, SpaGCN, UMAP, the
+    two-group CCI test, Moran's I of cell bins, the three interpolation
+    engines and `backbone_scc`) run on the CPU, bring in no scikit-learn,
+    JAX, optax, umap or `spateo_tpu`; and no line of the package imports
+    them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import numpy as np\n"
@@ -279,13 +283,44 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
         "spateo_tpu_torch.cs.simulation_evaluation.cal_ami(X[:, 0] > 0, X[:, 1] > 0)\n"
         "spateo_tpu_torch.cs.simulation_evaluation.cal_f1score(X[:, 0] > 0, X[:, 1] > 0)\n"
         "spateo_tpu_torch.io.in_concave_hull(X[:, :2], X[:5, :2])\n"
-        "bad = sorted({k.split('.')[0] for k in sys.modules} & {'sklearn', 'jax', 'jaxlib', 'spateo_tpu'})\n"
+        "import pandas as pd\n"
+        "stt = spateo_tpu_torch\n"
+        "rng = np.random.default_rng(1)\n"
+        "c = rng.uniform(0, 10, (120, 2))\n"
+        "E = rng.poisson(1.0, (120, 8)).astype(np.float32)\n"
+        "E[:, 0] += (c[:, 0] < 5) * 3\n"
+        "E[:, 1] += (c[:, 0] >= 5) * 3\n"
+        "a = stt.AnnData(X=E, obs=pd.DataFrame({'g': np.where(c[:, 0] < 5, 'A', 'B')}, index=[f'c{i}' for i in range(120)]),\n"
+        "                var=pd.DataFrame(index=['TGFB1', 'TGFBR1_TGFBR2'] + [f'g{i}' for i in range(6)]))\n"
+        "stt.SKM.init_adata_type(a, 'UMI')\n"
+        "a.obsm['spatial'] = c\n"
+        "a.obsm['X_pca'] = np.c_[E[:, :2], rng.normal(size=(120, 3))]\n"
+        "stt.tl.neighbors(a, n_neighbors=8, device='cpu')\n"
+        "stt.tl.construct_nn_graph(a, device='cpu')\n"
+        "stt.tl.scc(a, e_neigh=8, s_neigh=4, device='cpu')\n"
+        "stt.tl.mclust_py(a, n_components=2, device='cpu')\n"
+        "stt.tl.kmeans_clustering(a, 2, device='cpu')\n"
+        "stt.tl.ecp_silhouette(a.obsm['X_pca'], a.obs['g'], device='cpu')\n"
+        "stt.tl.spagcn_pyg(a, n_clusters=2, device='cpu')\n"
+        "stt.tl.perform_dimensionality_reduction(a, n_pca_components=5, n_neighbors=10, max_iter=5, device='cpu')\n"
+        "stt.tl.find_cci_two_group(a, group='g', sender_group='A', receiver_group='B', num=10, pvalue=1.1, min_pairs_ratio=1e-5, device='cpu')\n"
+        "a.obs['Celltype'] = a.obs['g']\n"
+        "stt.tl.cellbin_morani(a, binsize=1)\n"
+        "T = rng.uniform(1, 9, (20, 2))\n"
+        "stt.tdr.vtk_interpolation(a, T, keys=['g0'], device='cpu')\n"
+        "stt.tdr.gp_interpolation(a, T, keys=['g0'], training_iter=3, inducing_num=16, device='cpu')\n"
+        "stt.tdr.deep_intepretation(a, T, keys=['g0'], max_iter=3, device='cpu')\n"
+        "bb = stt.tdr.PointCloud(np.c_[np.linspace(0, 10, 4), np.linspace(0, 10, 4)])\n"
+        "bb.edges = np.array([[0, 1], [1, 2], [2, 3]])\n"
+        "stt.tdr.backbone_scc(a, bb, e_neigh=8, s_neigh=4, device='cpu')\n"
+        "bad = sorted({k.split('.')[0] for k in sys.modules}\n"
+        "             & {'sklearn', 'jax', 'jaxlib', 'optax', 'umap', 'spateo_tpu'})\n"
         "print('BAD', bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "BAD []" in proc.stdout, proc.stdout[-2000:]
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|sklearn|spateo_tpu)\b", re.MULTILINE)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|optax|sklearn|umap|spateo_tpu)\b", re.MULTILINE)
     hits = []
     for root, _, files in os.walk(os.path.join(REPO, "spateo_tpu_torch")):
         for f in files:

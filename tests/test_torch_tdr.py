@@ -469,9 +469,31 @@ def test_construct_backbone_and_utilities_match_jax(rd_method, kw):
 
 
 def test_backbone_scc_raises_citing_item_11():
-    _, at = _adatas(n=20)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        stt.tdr.backbone_scc(at, stt.tdr.PointCloud(np.zeros((3, 3))))
+    """`backbone_scc` was refused until `tools.cluster.scc` was ported
+    (ROADMAP item 11); it now runs, and matches the JAX package: the same
+    nodes and the same Leiden and Louvain clusters along one backbone, the
+    kNN graphs built on the CPU."""
+    X = _y_cloud()[::3]
+    bj, _, _ = st.tdr.construct_backbone(X, rd_method="ElPiGraph", num_nodes=8)
+    bt = stt.tdr.PointCloud(bj.points, dict(bj.point_data))
+    bt.edges = bj.edges
+    rng = np.random.default_rng(7)
+    expr = (rng.poisson(1.0, (len(X), 12)) + (X[:, :1] > 0) * rng.poisson(3.0, (len(X), 12))).astype(np.float32)
+    pcs = rng.normal(size=(len(X), 5)) + (X[:, :1] > 0) * 3.0
+    for method in ("leiden", "louvain"):
+        aj, at = (pkg.AnnData(X=expr.copy(), obs=pd.DataFrame(index=[f"c{i}" for i in range(len(X))]))
+                  for pkg in (st, stt))
+        for a in (aj, at):
+            a.obsm["spatial"], a.obsm["X_pca"] = X.copy(), pcs.copy()
+        st.SKM.init_adata_type(aj, "UMI")
+        stt.SKM.init_adata_type(at, "UMI")
+        assert st.tdr.backbone_scc(aj, bj, cluster_method=method) is None
+        assert stt.tdr.backbone_scc(at, bt, cluster_method=method, device="cpu") is None
+        np.testing.assert_array_equal(at.obs["backbone_nodes"], aj.obs["backbone_nodes"])
+        np.testing.assert_array_equal(at.obs["backbone_scc"], aj.obs["backbone_scc"])
+        assert aj.obs["backbone_scc"].nunique() >= 2
+    out = stt.tdr.backbone_scc(at, bt, key_added="k2", inplace=False, device="cpu")
+    assert "k2" in out.obs and "k2" not in at.obs
 
 
 # -- migration models -----------------------------------------------------------------------------
@@ -652,8 +674,9 @@ def test_pc_kde_matches_sklearn(kernel, bandwidth):
 
 
 def test_tdr_exports_what_jax_exports_but_interpolation_engines_and_widgets():
-    left_out = {"deep_intepretation", "gp_interpolation", "vtk_interpolation", "widgets", "clip", "pick", "slice",
-                "utils", "clip_models", "interactive_box_clip", "interactive_pick", "interactive_rectangle_clip",
+    """`stt.tdr` exports what `st.tdr` does but the widgets (ROADMAP item
+    11); the interpolation engines are ported."""
+    left_out = {"widgets", "clip", "pick", "slice", "utils", "clip_models", "interactive_box_clip", "interactive_pick", "interactive_rectangle_clip",
                 "interactive_slice", "overlap_mesh_pick", "overlap_pc_pick", "overlap_pick", "pick_models",
                 "slice_models", "three_d_pick", "three_d_slice"}
     jax_names = {n for n in dir(st.tdr) if not n.startswith("_")}

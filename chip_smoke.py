@@ -5,7 +5,8 @@ detection with PASTE, rigid slice alignment with mesh correction, `st.pp`
 normalization and the k-means paths, the 3D reconstruction (`stt.tdr`
 models and morphometrics), MuSIC's interpretation, the stain <-> RNA
 alignment refinement and PASTE's Frobenius center NMF, the interpolation
-engines, spatial clustering, UMAP and the two-group CCI test.
+engines, spatial clustering, UMAP and the two-group CCI test, and the
+external models (CAST, STAGATE, merfishVI).
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -155,10 +156,12 @@ final ``ok`` line:
    rotation in both packages: held to within 1 deg of the port's CPU answer
    on the same pair), the first 20 outer iterations under the profiler; (f) `tdr.cell_directions` between the aligned
    references and `align.paste_center_align` on 3 x 1,000 cells at its
-   defaults. No kernel of `csrc/` is on this path.
-19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 200
-   genes (1e-4 relative, the same sweeps); the between-slice scan's solves
-   on 18d's samples plus 1, 20 genes x 2 rounds, on DNB costs cut to one
+   defaults but 50 FGW outer iterations a solve of 200 (the time limit). No
+   kernel of `csrc/` is on this path.
+19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 50
+   genes (1e-4 relative, the same sweeps; cut from 200 genes, whose CPU
+   scan took ~100 s); the between-slice scan's solves
+   on 18d's samples plus 1, 4 of its genes x 2 rounds, on DNB costs cut to one
    outer iteration (3x the CPU's own spread when a cost matrix moves by
    one ulp) and 2 genes on the costs over their largest entry (1e-4 of
    scale, the same outer iterations); a 500-cell PASTE pair after 1 outer iteration (plan 1e-4 of
@@ -222,7 +225,8 @@ final ``ok`` line:
    planted pair (senders send more), `CCI_deg_detection_setup` and
    `CCI_deg_detection(fit_all=True)` on the TFs (the tracked TF is the
    significant one of largest coefficient, one set of weights a design),
-   `permutation_test` of TGT1 at its default 100 permutations (fits/s; by
+   `permutation_test` of TGT1 at 40 permutations (its default 100, cut for the
+   time limit; fits/s; by
    `eval_permutation_test` the fit's Pearson correlation with TGT1 beats
    every permutation's, t-test p <= 0.05), `tl.MuSIC_Molecule_Selector.
    find_targets` (TGT1-3 found, GAPDH dropped). `cs.refine_alignment`,
@@ -268,6 +272,32 @@ final ``ok`` line:
    first 10 Adam steps from one start, SpaGCN's length scale and GC-DEC's
    q, the GMM, UMAP after 3 epochs from one init and negatives and after
    all (15-NN preservation), the CCI null scores.
+
+28. The external models at full width, each stage after a warm-up at a
+   small size, with its seconds, idle share and launches (under the
+   profiler, a shorter window) and peak GB. (a) CAST on two
+   `cortex_section(20,000, 4,000)`s, the query from seed 1 (expression seed
+   0) rotated by 10 deg and shifted by (300, -200) DNB, both through
+   normalize_total and log1p into norm_1e4: `cast_mark` at the JAX defaults
+   (k 10, 256 -> 64, 200 epochs, PCA 50) on both sections in one model,
+   CAST_STACK at `reg_params`' defaults (500 affine, 400 FFD iterations at
+   mesh 8, ``rescale=True``) with the median distance of the aligned query
+   to its planted positions and across the bands (which vary in y only),
+   each beside the unaligned one, CAST_PROJECT onto the reference by a joint
+   PCA with the share of cells projected into their own band; (b) STAGATE on
+   `cortex_section(3,639, 3,000)`: `Cal_Spatial_Net` (Radius, ~6 neighbours a
+   spot), `train_STAGATE` at its defaults, `mclust_R(EEE)` at the 6 bands
+   (ARI), then `tl.pySTAGATE(...).train()` (100 epochs); (c) MERFISHVI at its
+   defaults on 50,000 x 500 and with the spatial encoder on 10,000 cells:
+   the loss at the first and last epoch and the latent's k-means ARI. Then
+   `tl.CAST` on (a)'s reference section. No kernel of `csrc/` is on this
+   path.
+29. The same, card against CPU at 1,000 cells (`external_cuda_vs_cpu`, bars
+   `EXT_CVC_BAR`): CAST-Mark's, STAGATE's and merfishVI's (spatial encoder)
+   first 10 Adam steps from one init and one set of draws, a CAST-Stack pair
+   (affine 50 iterations, FFD 20, the card's FFD mesh the same bits on a
+   second run, the points whose cost differs at the same coordinates), the
+   projection (index flips, weights).
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
@@ -2082,6 +2112,10 @@ PASTE_CPU_ROTATION_ERR, PASTE_ANGLE_BAR = 121.13259961448202, 1.0
 #: profiler's host records of ~2,200 launches an outer iteration take
 #: minutes to read for all 200.
 PASTE_PROFILED_ITERS = 20
+#: `paste_center_align`'s FGW outer iterations a solve: **cut from its default
+#: 200 to 50** (the script's time limit: its 12 solves, launch-bound, took
+#: ~70 s at 200 on one H100).
+CENTER_FGW_ITERS = 50
 
 
 def svg_gene_names(n_genes=SVG_GENES, n_planted=SVG_PLANTED):
@@ -2350,11 +2384,13 @@ def phase_svg_paste():
     sections = [cortex_section(1_000, 200, seed=s, unit=PASTE_UNIT) for s in (4, 5, 6)]
     with fgw_log("cuda") as log:
         t0 = time.perf_counter()
-        center, pis = stt.align.paste_center_align(sections[0].copy(), sections, verbose=False, device="cuda")
+        center, pis = stt.align.paste_center_align(sections[0].copy(), sections, numItermax=CENTER_FGW_ITERS,
+                                                   verbose=False, device="cuda")
         t_c = time.perf_counter() - t0
     check(len(pis) == 3 and center.uns["paste_W"].shape == (1_000, 15) and np.asarray(center.X).min() >= 0,
           "paste_center_align outputs")
-    print(f"phase 18: paste_center_align 3 x 1,000 cells x 200 genes (n_components 15, max_iter 10): {t_c!r} s, "
+    print(f"phase 18: paste_center_align 3 x 1,000 cells x 200 genes (n_components 15, max_iter 10, FGW numItermax "
+          f"{CENTER_FGW_ITERS}): {t_c!r} s, "
           f"{len(log.seconds)} FGW solves ({sum(log.seconds)!r} s, outer iterations {log.iterations}); phase 18 "
           f"took {time.perf_counter() - t_phase!r} s")
     return small, pseudo, gw_genes
@@ -2490,6 +2526,11 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+#: Phase 19's scan genes: **cut from 200 to 50** (the script's time limit: the
+#: CPU side of the 200-gene scan takes ~100 s).
+SCAN_CVC_GENES = 50
+
+
 def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
     """Phase 19: the scan, the between-slice scan's GW, PASTE and the NMF on
     the card against the CPU, on the same inputs (the scan on phase 18's
@@ -2502,9 +2543,9 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
 
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     t_phase = time.perf_counter()
-    # the scan: 400 cells x 200 genes, one chunk, both devices
+    # the scan: 400 cells x SCAN_CVC_GENES genes, one chunk, both devices
     M, A = scan_inputs(small)
-    A = A[:200]
+    A = A[:SCAN_CVC_GENES]
     eps = float(max(M.max() * 5e-3, 1e-6))
     res = {}
     for key, dev in (("card", "cuda"), ("cpu", "cpu")):
@@ -2524,12 +2565,13 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
     # genes run all their outer iterations, to OBJ_BAR.
     (b1, C1), (b2, C2) = (bin_scale_adata_get_distance(x, **SVG_KW) for x in pseudo)
     C1, C2 = C1.astype(np.float32), C2.astype(np.float32)
-    dnb = {key: gw_scan((c1, c2, b1, b2), gw_genes, dev, outer=1) for key, dev, c1, c2 in (
+    dnb_genes = gw_genes[:2] + gw_genes[-2:]  # 4 of 18d's 20 (the time limit: ~100 CPU solves saved)
+    dnb = {key: gw_scan((c1, c2, b1, b2), dnb_genes, dev, outer=1) for key, dev, c1, c2 in (
         ("card", "cuda", C1, C2), ("cpu", "cpu", C1, C2), ("C1 up", "cpu", np.nextafter(C1, np.float32(np.inf)), C2),
         ("C2 down", "cpu", C1, np.nextafter(C2, np.float32(0))))}
     spread = max(rel_err(dnb[k][0], dnb["cpu"][0]) for k in ("C1 up", "C2 down"))
     dnb_err, dnb_bar = rel_err(dnb["card"][0], dnb["cpu"][0]), max(3 * spread, OBJ_BAR)
-    check(dnb_err <= dnb_bar and dnb["card"][1] == dnb["cpu"][1] == [1] * 2 * len(gw_genes),
+    check(dnb_err <= dnb_bar and dnb["card"][1] == dnb["cpu"][1] == [1] * 2 * len(dnb_genes),
           f"between-slice scan on DNB costs card vs CPU after one outer iteration {dnb_err} (bar {dnb_bar}), solves "
           f"{dnb['card'][1]} / {dnb['cpu'][1]}")
     scale = float(max(C1.max(), C2.max()))
@@ -2564,7 +2606,7 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
     check(nmf_err <= NMF_BAR and nmf["card"].n_iter_ == nmf["cpu"].n_iter_, f"NMF card vs CPU {nmf_err}")
     print(f"phase 19: card vs CPU: scan {A.shape[0]} genes x {len(M)} cells scores {scan_err!r} relative (bar "
           f"{SCAN_REL_BAR}), {res['card'][1]} sweeps on both; the between-slice scan on the counts + 1, "
-          f"{len(gw_genes)} genes x 2 rounds on DNB costs after one outer iteration a solve {dnb_err!r} of scale (bar "
+          f"{len(dnb_genes)} genes x 2 rounds on DNB costs after one outer iteration a solve {dnb_err!r} of scale (bar "
           f"{dnb_bar!r}: 3x the CPU's one-ulp spread {spread!r}), on unit costs 2 genes {unit_err!r} (bar {OBJ_BAR}), "
           f"outer iterations {unit['card'][1]} on both; PASTE 500-cell pair after 1 outer iteration plan "
           f"{plan_err[1]!r} of scale, objective {obj_err[1]!r} (bar {PLAN_BAR}), after 50 plan {plan_err[50]!r}, "
@@ -3032,7 +3074,9 @@ def phase_tdr_cuda_vs_cpu(stt):
 #: `planted_disks`, the stain moved by REFINE_SHIFT pixels (y, x) and
 #: REFINE_ROT_DEG degrees; the Frobenius center NMF of a NMF_CELLS-cell
 #: section of `SVG_GENES` genes, NMF_COMPONENTS components (paste_center_align's).
-INTERP_PERMUTATIONS = 100
+#: `permutation_test`'s permutations: **cut from its default 100 to 40** (the
+#: script's time limit; ~0.3 s a refit).
+INTERP_PERMUTATIONS = 40
 REFINE_SIZE, REFINE_EPOCHS, REFINE_SHIFT, REFINE_ROT_DEG = 4096, 100, (3.0, -2.0), 0.3
 #: `refine_alignment` trains with the JAX package's Adam lr of 0.1; the
 #: planted check trains the refiners through their own API at this lr.
@@ -3810,6 +3854,334 @@ def phase_interp_cluster_cuda_vs_cpu(stt):
           + f"; GMM labels and iterations equal; phase 27 {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 28a: two `cortex_section`s of EXT_CELLS x EXT_GENES, the query drawn
+#: from seed 1 with expression seed 0, rotated by EXT_THETA deg about the
+#: domain's centre and shifted by EXT_SHIFT DNB (the planted transform);
+#: CAST_STACK at `reg_params`' defaults in the CAST tutorial's units
+#: (``rescale=True``: the 22,340-unit field).
+EXT_CELLS, EXT_GENES, EXT_THETA, EXT_SHIFT = 20_000, 4_000, 10.0, (300.0, -200.0)
+#: Phase 28b: the spots and HVGs of the STAGATE tutorial's DLPFC 151673, the
+#: radius cutoff the median distance to a spot's 6th neighbour (as 150 is on
+#: Visium); 28c: a MERFISH panel's width, and the spatial encoder's cut (its
+#: dense [N, N, n_spatial] pre-activation is 4 GB at 10,000 cells).
+STAGATE_SPOTS, STAGATE_GENES, STAGATE_NEIGHBOURS = 3_639, 3_000, 6
+#: `tl.pySTAGATE(...).train()` repeats train_STAGATE's fit through the entry
+#: point: **cut from 1,000 epochs to 100** (time; the 1,000 run just before
+#: it is the measurement).
+PYSTAGATE_EPOCHS = 100
+VI_CELLS, VI_GENES, VI_SPATIAL_CELLS = 50_000, 500, 10_000
+
+
+def norm_1e4(stt, ad):
+    """normalize_total + log1p into .X and .layers['norm_1e4']; the counts
+    stay in .layers['counts']."""
+    ad.layers["counts"] = ad.X.copy()
+    stt.pp.normalize_total(ad, target_sum=1e4)
+    stt.pp.log1p(ad)
+    ad.layers["norm_1e4"] = ad.X.copy()
+    return ad
+
+
+def unrotated(P, theta_deg=EXT_THETA, shift=EXT_SHIFT):
+    """The positions a `cortex_section(theta_deg, shift)` had before its
+    planted rotation and shift (DNB units)."""
+    W, H = SVG_DOMAIN
+    th = np.deg2rad(theta_deg)
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    return (np.asarray(P, float) - np.asarray(shift) - [W / 2, H / 2]) @ R + [W / 2, H / 2]
+
+
+def bands_of(P):
+    """The planted band of positions P (DNB units, unrotated)."""
+    return np.minimum((np.asarray(P)[:, 1] * SVG_BANDS // SVG_DOMAIN[1]).astype(int), SVG_BANDS - 1)
+
+
+def obs_frame(**cols):
+    import pandas as pd
+
+    n = len(next(iter(cols.values())))
+    return pd.DataFrame(cols, index=[f"c{i}" for i in range(n)])
+
+
+def cast_stages(stt, n_cells=EXT_CELLS, n_genes=EXT_GENES, epochs=200, iters=(500, 400), device="cuda",
+                profile=True, sections=None):
+    """Phase 28a on `device`: {stage: stats} for `cast_mark`, CAST_STACK and
+    CAST_PROJECT, with the aligned query's median distance to its planted
+    positions and its median error across the bands (y), each beside the
+    unaligned one, and the share of query cells projected into their own
+    band. The bands vary in y only: a shift or mirror along them changes no
+    expression, so only the error across them is the alignment's to fix. `cast_mark` embeds both sections in one
+    call (one model over both, as CAST trains one over its samples; the
+    query's graph is kept apart from the reference's by an offset), at the
+    JAX defaults. The projection's features are a joint PCA (50) of both
+    sections' norm_1e4. `sections`, a dict, receives the reference section
+    under "r"."""
+    import scipy.sparse as sp
+
+    import spateo_tpu_torch.external as ext
+    from spateo_tpu_torch.tools.dimensionality_reduction import randomized_pca_centered
+
+    ref = norm_1e4(stt, cortex_section(n_cells, n_genes))
+    qry = norm_1e4(stt, cortex_section(n_cells, n_genes, seed=1, expr_seed=0, theta_deg=EXT_THETA, shift=EXT_SHIFT))
+    truth = unrotated(qry.obsm["spatial"])
+    if sections is not None:
+        sections["r"] = ref
+    coords = {"q": np.asarray(qry.obsm["spatial"]), "r": np.asarray(ref.obsm["spatial"])}
+    both = stt.AnnData(X=sp.vstack([ref.layers["counts"], qry.layers["counts"]]).tocsr(), var=ref.var.copy(),
+                       obs=obs_frame(protocol=["r"] * n_cells + ["q"] * n_cells,
+                                     band=np.r_[bands_of(ref.obsm["spatial"]), bands_of(truth)].astype(str)))
+    stt.SKM.init_adata_type(both, stt.SKM.ADATA_UMI_TYPE)
+    both.layers["norm_1e4"] = sp.vstack([ref.layers["norm_1e4"], qry.layers["norm_1e4"]]).tocsr()
+    both.obsm["spatial"] = np.r_[coords["r"], coords["q"] + [4 * SVG_DOMAIN[0], 0.0]]
+    out = {}
+
+    def stage(name, fn, window=None):
+        res, out[name] = stage_run(fn, device, window, profile)
+        return res
+
+    stage("cast_mark", lambda: ext.cast_mark(both, n_epochs=epochs, device=device),
+          lambda: ext.cast_mark(both, n_epochs=5, key_added="X_cast_window", device=device))
+    embed = {"r": both.obsm["X_cast"][:n_cells], "q": both.obsm["X_cast"][n_cells:]}
+    check(np.isfinite(both.obsm["X_cast"]).all() and both.obsm["X_cast"].shape == (2 * n_cells, 64),
+          "cast_mark: embeddings")
+
+    def stack(it, it_bs):
+        params = ext.reg_params(dataname="q", iterations=it, iterations_bs=(it_bs,))
+        return ext.CAST_STACK(coords, embed, ["q", "r"], params_dist=params, rescale=True, device=device), params
+
+    aligned, params = stage("cast_stack", lambda: stack(*iters), lambda: stack(10, 10))
+    check(np.isfinite(aligned["q"]).all(), "CAST_STACK: aligned coordinates")
+    out["cast_stack"].update(
+        residual_median=float(np.median(np.linalg.norm(aligned["q"] - truth, axis=1))),
+        unaligned_median=float(np.median(np.linalg.norm(coords["q"] - truth, axis=1))),
+        residual_y_median=float(np.median(np.abs(aligned["q"][:, 1] - truth[:, 1]))),
+        unaligned_y_median=float(np.median(np.abs(coords["q"][:, 1] - truth[:, 1]))),
+        theta_r1=params.theta_r1.tolist(), theta_r2=params.theta_r2.tolist())
+    both.obsm["X_pca"] = randomized_pca_centered(both.layers["norm_1e4"], 50, device=device)[0]
+    proj, _ = stage("cast_project", lambda: ext.CAST_PROJECT(
+        both, "r", "q", coords["r"], aligned["q"], batch_key="protocol", raw_layer="X",
+        source_sample_ctype_col="band", pc_feature="X_pca", device=device))
+    out["cast_project"]["own_band_share"] = float(
+        (np.asarray(proj.obs["band_projected"]) == bands_of(truth).astype(str)).mean())
+    return out
+
+
+def stagate_stages(stt, n_spots=STAGATE_SPOTS, n_genes=STAGATE_GENES, epochs=1000, device="cuda", profile=True):
+    """Phase 28b on `device`: Cal_Spatial_Net (Radius), train_STAGATE at its
+    defaults, mclust_R(EEE) at the planted band count (ARI against the
+    bands), then `tl.pySTAGATE(...).train()` on a copy of the section."""
+    import spateo_tpu_torch.external as ext
+    from spateo_tpu_torch.tools.find_neighbors import knn
+
+    ad = norm_1e4(stt, cortex_section(n_spots, n_genes))
+    P = np.asarray(ad.obsm["spatial"])
+    r = float(np.median(knn(P, STAGATE_NEIGHBOURS + 1, device=device)[1][:, -1]))
+    out = {}
+
+    def stage(name, fn, window=None):
+        res, out[name] = stage_run(fn, device, window, profile)
+        return res
+
+    stage("Cal_Spatial_Net", lambda: ext.Cal_Spatial_Net(ad, rad_cutoff=r, verbose=False, device=device))
+    out["Cal_Spatial_Net"].update(radius=r, neighbours=ad.uns["Spatial_Net"].shape[0] / n_spots)
+
+    def train(n):
+        ext.train_STAGATE(ad, n_epochs=n, save_loss=True, verbose=False, device=device)
+        return np.asarray(ad.obsm["STAGATE"]).copy(), ad.uns["STAGATE_loss"]
+
+    z, loss = stage("train_STAGATE", lambda: train(epochs), lambda: train(20))
+    check(np.isfinite(z).all() and z.shape == (n_spots, 30), "train_STAGATE: latent")
+    ad.obsm["STAGATE"] = z
+    out["train_STAGATE"]["final_loss"] = loss
+    stage("mclust_R", lambda: ext.mclust_R(ad, SVG_BANDS, "EEE", device=device))
+    out["mclust_R"]["ari"] = ari(ad.obs["mclust"], bands_of(P))
+    twin = ad.copy()
+
+    def py_train(n):
+        stt.tl.pySTAGATE(twin, rad_cutoff=r, num_epoch=n, device=device).train()
+        return np.asarray(twin.obsm["STAGATE"]).copy()
+
+    zt = stage("pySTAGATE.train", lambda: py_train(PYSTAGATE_EPOCHS), lambda: py_train(20))
+    check(np.isfinite(zt).all() and zt.shape == (n_spots, 30), "pySTAGATE.train: latent")
+    return out
+
+
+def merfishvi_stages(stt, n_cells=VI_CELLS, n_genes=VI_GENES, n_spatial_cells=VI_SPATIAL_CELLS, epochs=300,
+                     device="cuda", profile=True):
+    """Phase 28c on `device`: MERFISHVI at its defaults (nb, n_latent 10,
+    n_hidden 128, full batch) on n_cells counts, then with the spatial
+    encoder on n_spatial_cells: the loss (the negative ELBO) at the first and
+    the last epoch, and the k-means (6) ARI of the latent against the
+    bands."""
+    import spateo_tpu_torch.external as ext
+    from spateo_tpu_torch.ops.kmeans import KMeans
+
+    out = {}
+    for name, n, kw in (("merfishvi", n_cells, {}), ("merfishvi_spatial", n_spatial_cells, {"spatial_encoder": True})):
+        ad = cortex_section(n, n_genes)
+
+        def fit(e, ad=ad, kw=kw):
+            model = ext.MERFISHVI(ad, device=device, **kw)
+            return model, model.train(max_epochs=e)
+
+        (model, losses), out[name] = stage_run(lambda: fit(epochs), device, lambda: fit(5), profile)
+        z = model.get_latent_representation()
+        check(np.isfinite(z).all() and np.isfinite(losses).all(), f"{name}: latent and losses")
+        labels = KMeans(SVG_BANDS, random_state=0, device=device).fit(z).labels_
+        out[name].update(loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                         latent_ari=ari(labels, bands_of(ad.obsm["spatial"])))
+    return out
+
+
+def phase_external(stt):
+    """Phase 28: CAST (a), STAGATE (b) and merfishVI (c) at full width on the
+    card, after a warm-up of each at a small size; `tl.CAST` on (a)'s
+    reference section."""
+    t_phase = time.perf_counter()
+    cast_stages(stt, 1_000, 200, epochs=5, iters=(5, 5), profile=False)
+    stagate_stages(stt, 500, 200, epochs=5, profile=False)
+    merfishvi_stages(stt, 1_000, 100, 500, epochs=5, profile=False)
+    sections = {}
+    for tag, stages in (("28a", cast_stages(stt, sections=sections)), ("28b", stagate_stages(stt)),
+                        ("28c", merfishvi_stages(stt))):
+        print(f"phase {tag}: " + "; ".join(f"{k} {fmt_stats(v)} " + ", ".join(
+            f"{m} {v[m]!r}" for m in v if m not in ("seconds", "idle", "launches", "peak_gb")) for k, v in stages.items()))
+        if tag == "28a":
+            cs = stages
+        elif tag == "28b":
+            check(stages["mclust_R"]["ari"] >= EXT_ARI_BAR["stagate"], f"STAGATE ARI {stages['mclust_R']['ari']}")
+        else:
+            for k in stages:
+                check(stages[k]["loss_last"] < stages[k]["loss_first"], f"{k}: the loss did not fall")
+                check(stages[k]["latent_ari"] >= EXT_ARI_BAR[k], f"{k}: latent ARI {stages[k]['latent_ari']}")
+    st = cs["cast_stack"]
+    check(st["residual_y_median"] <= EXT_Y_RESIDUAL_BAR * st["unaligned_y_median"],
+          f"CAST_STACK: residual across the bands {st['residual_y_median']}")
+    check(cs["cast_project"]["own_band_share"] >= EXT_BAND_BAR, "CAST_PROJECT: own band share")
+    ad = sections["r"]
+    _, stats = stage_run(lambda: stt.tl.CAST(ad, device="cuda"), "cuda", profile=False)
+    check(np.isfinite(ad.obsm["X_cast"]).all(), "tl.CAST: embedding")
+    print(f"phase 28: tl.CAST on the {EXT_CELLS:,}-cell reference section {fmt_stats(stats)}; "
+          f"phase 28 {time.perf_counter() - t_phase!r} s")
+
+
+#: Phase 29's steps and bars, card against CPU at EXT_CVC_CELLS cells: the
+#: first steps of CAST-Mark, STAGATE and merfishVI from one init and one set
+#: of draws (losses relative; weights of scale, merfishVI's absolute, as they
+#: start at 0; the noise-driven STAGATE source vectors absolute), a CAST-Stack
+#: pair (theta and coordinates of scale; the FFD mesh of two card runs equal;
+#: flips, the points whose cost differs at the same coordinates, at most
+#: 1%), the projection (index flips at most 1%, weights where the indices
+#: agree). Measured on one H100 80GB HBM3 at 700 W (PERF.md): 4.1e-7, 5.2e-5,
+#: 1.3e-7, 2.5e-7, 6.0e-8, 2.0e-7, 7.4e-6; 1.7e-7, 2.6e-8, 1.6e-5, 0, 0; 0,
+#: 2.8e-5.
+EXT_CVC_CELLS, EXT_CVC_STEPS = 1_000, 10
+EXT_CVC_BAR = {"CAST-Mark losses": 1e-4, "CAST-Mark weights": 1e-4, "STAGATE losses": 1e-4,
+               "STAGATE weights": 1e-4, "STAGATE source vectors": 1e-2, "merfishVI losses": 1e-4,
+               "merfishVI weights": 1e-4, "affine theta": 1e-4, "affine coords": 1e-4, "FFD coords": 1e-3,
+               "FFD mesh repeat": 0.0, "J flips": 0.01, "projection index flips": 0.01, "projection weights": 1e-4}
+#: Phase 28's bars, below the card's first run (one H100 80GB HBM3, PERF.md:
+#: mclust's ARI on the STAGATE latent 0.9436, merfishVI's latent k-means ARI
+#: 0.9630 and with the spatial encoder 0.9266, the projection's own-band share
+#: 0.9924, the aligned residual across the bands 0.017 of the unaligned one).
+EXT_ARI_BAR = {"stagate": 0.85, "merfishvi": 0.85, "merfishvi_spatial": 0.85}
+EXT_BAND_BAR, EXT_Y_RESIDUAL_BAR = 0.95, 0.1
+
+
+def external_cuda_vs_cpu(stt, card="cuda", n=EXT_CVC_CELLS, steps=EXT_CVC_STEPS):
+    """Phase 29's comparisons of `card` against the CPU at `n` cells:
+    {check: (value, bar)}; `check` fails where a value passes its bar."""
+    from spateo_tpu_torch.core.bridge import merfishvi_params_from_reference
+    from spateo_tpu_torch.external import MERFISHVI
+    from spateo_tpu_torch.external import cast as ec
+    from spateo_tpu_torch.external import cast_projection as ep
+    from spateo_tpu_torch.external import cast_stack as es
+    from spateo_tpu_torch.external import stagate as eg
+
+    sides = (card, "cpu")
+    rng = np.random.default_rng(0)
+    ad = norm_1e4(stt, cortex_section(n, 200))
+    P = np.asarray(ad.obsm["spatial"])
+    X = np.asarray(ad.layers["norm_1e4"].toarray(), np.float32)
+    out = {}
+
+    def rel(a, b):
+        a, b = np.asarray(a, float), np.asarray(b, float)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def dev(a, d):
+        return torch.from_numpy(np.asarray(a)).to(d)
+
+    init = {"W1": rng.normal(0, 0.1, (200, 64)).astype(np.float32), "W2": rng.normal(0, 0.1, (64, 16)).astype(np.float32)}
+    masks = rng.random((steps, 2, 200)) < 0.8
+    mark = [ec._train_cast({k: dev(v, d) for k, v in init.items()}, ec._norm_adj(P, 10, d), dev(X, d), n_epochs=steps,
+                           masks=dev(masks, d)) for d in sides]
+    out["CAST-Mark losses"] = rel(*(m[1].cpu() for m in mark))
+    out["CAST-Mark weights"] = max(rel(mark[0][0][k].cpu(), mark[1][0][k]) for k in init)
+
+    st_init = eg.STAGATE(200, (64, 8), seed=0, device="cpu").params
+    sg = [eg._train_stagate({k: v.to(d) for k, v in st_init.items()}, eg._adj_mask(P, None, 6, d), dev(X, d),
+                            n_epochs=steps) for d in sides]
+    out["STAGATE losses"] = rel(sg[0][3].cpu(), sg[1][3])
+    noisy = ("a2s", "a3s", "a4s")  # gradients of rounding size (tests/test_torch_external.py)
+    out["STAGATE weights"] = max(rel(sg[0][0][k].cpu(), sg[1][0][k]) for k in st_init if k not in noisy)
+    out["STAGATE source vectors"] = max(float((sg[0][0][k].cpu() - sg[1][0][k]).abs().max()) for k in noisy)
+
+    counts = stt.AnnData(X=ad.layers["counts"], obs=ad.obs.copy(), var=ad.var.copy())
+    counts.obsm["spatial"] = P
+    vi = [MERFISHVI(counts.copy(), spatial_encoder=True, device=d) for d in sides]
+    merfishvi_params_from_reference(vi[1].params.to_tree(), model=vi[0])
+    noise = [[torch.from_numpy(rng.normal(size=(n, 10)).astype(np.float32)) for _ in range(2)] for _ in range(steps)]
+    losses = [m.train(max_epochs=steps, noise=noise) for m in vi]
+    out["merfishVI losses"] = rel(*losses)
+    wt = [{k: p.detach().cpu().numpy() for k, p in m.params.named_parameters()} for m in vi]
+    out["merfishVI weights"] = max(float(np.abs(wt[0][k] - wt[1][k]).max()) for k in wt[1])
+
+    pts_r = rng.uniform(0, 2000, (n, 2)).astype(np.float32)
+    th = np.deg2rad(25.0)
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]], np.float32)
+    q = pts_r @ R.T
+    q, r = (q - q.mean(0)).astype(np.float32), (pts_r - pts_r.mean(0)).astype(np.float32)
+    W = rng.normal(0, 1.0 / 400, (2, 16)).astype(np.float32)
+    E = np.c_[np.sin(pts_r @ W), np.cos(pts_r @ W)].astype(np.float32)
+    cov = es.max_minus_value(es.corr_dist(E, E, device="cpu")).astype(np.float32)
+    ab = np.array([1 / 300, 1 / 300, 1 / 10, 10, 10], np.float32)
+    aff = [es._affine_gd(dev(q, d), dev(r, d), dev(cov, d), 500.0, 0.0, dev(ab, d), 25.0, 50, False) for d in sides]
+    out["affine theta"] = rel(aff[0][0].cpu(), aff[1][0])
+    ca = [es._affine_trans(a[0], dev(q, d)) for a, d in zip(aff, sides)]
+    out["affine coords"] = rel(ca[0].cpu(), ca[1])
+    lo = ca[1].numpy().min(0)
+    qq, rr = ca[1].numpy() - lo, r - lo
+    mx = qq.max(0).astype(np.float32)
+    ffd = [es._bspline_gd(dev(qq, d), dev(rr, d), dev(cov, d), 500.0, 0.0, 300.0, 25.0, dev(mx, d), 20, 6)
+           for d in sides]
+    out["FFD coords"] = rel(ffd[0][0].cpu(), ffd[1][0])
+    again = es._bspline_gd(dev(qq, card), dev(rr, card), dev(cov, card), 500.0, 0.0, 300.0, 25.0, dev(mx, card), 20, 6)
+    out["FFD mesh repeat"] = float((again[1] - ffd[0][1]).abs().max())
+    final = ffd[1][0].numpy()
+    J = [es._J_points(dev(final, d), dev(rr, d), dev(cov, d), 500.0, 0.0).cpu().numpy() for d in sides]
+    out["J flips"] = float((J[0] != J[1]).mean())
+
+    feats = E + rng.normal(0, 0.05, E.shape).astype(np.float32)
+    pj = [ep.physical_dist_priority_project(feats, E, q, r, k2=3, pdist_thres=150.0, block=256, device=d)
+          for d in sides]
+    same = (pj[0][0] == pj[1][0]).all(1)
+    out["projection index flips"] = float(1 - same.mean())
+    out["projection weights"] = rel(pj[0][1][same], pj[1][1][same])
+    return {k: (v, EXT_CVC_BAR[k]) for k, v in out.items()}
+
+
+def phase_external_cuda_vs_cpu(stt):
+    """Phase 29: phase 28's trainers and the CAST-Stack and projection
+    steps on the card against the CPU, at a small size."""
+    t_phase = time.perf_counter()
+    out = external_cuda_vs_cpu(stt)
+    print(f"phase 29: card vs CPU at {EXT_CVC_CELLS:,} cells: " + "; ".join(
+        f"{k} {v!r} (bar {b})" for k, (v, b) in out.items()) + f"; phase 29 {time.perf_counter() - t_phase!r} s")
+    for k, (v, bar) in out.items():
+        check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
+
+
 def main(argv=None):
     import argparse
 
@@ -3829,6 +4201,12 @@ def main(argv=None):
 
     # -- phase 0: environment --------------------------------------------------
     t_start = time.perf_counter()
+    phase_seconds, last = {}, [t_start]
+
+    def mark(group):  # the seconds since the last mark, under `group`
+        now = time.perf_counter()
+        phase_seconds[group], last[0] = now - last[0], now
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
     card = subprocess.run(
@@ -3844,6 +4222,7 @@ def main(argv=None):
     from spateo_tpu_torch.ops import _build, bp_cuda, em
     from spateo_tpu_torch.segmentation import starro as ts
 
+    mark("0")
     # -- phase 1: build -------------------------------------------------------
     t0 = time.perf_counter()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -3854,9 +4233,11 @@ def main(argv=None):
         _build.load(name)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in {time.perf_counter() - t0:.2f} s")
 
+    mark("1")
     # -- phase 2: kernel vs plain version ----------------------------------------
     kstats = phase_kernel_vs_plain(bp_cuda)
 
+    mark("2")
     # -- phase 3: main path ------------------------------------------------------
     launches = delta_launches = 0
     if want(3):
@@ -3864,6 +4245,7 @@ def main(argv=None):
     if want(4):
         phase_starro_cuda_vs_cpu_512(em, ts, make_raster)
 
+    mark("3-4")
     # -- phases 5-7: Morpho ---------------------------------------------------------
     estats = phase_estep_kernels()
     istats = phase_inlier_kernel()
@@ -3871,6 +4253,7 @@ def main(argv=None):
     if want(7):
         phase_morpho_cuda_vs_cpu()
 
+    mark("5-7")
     # -- phases 8-10: digitization and labeling ---------------------------------------
     from spateo_tpu_torch.ops import jacobi_cuda
 
@@ -3891,6 +4274,7 @@ def main(argv=None):
     if want(10):
         phase_digitization_cuda_vs_cpu(stt)
 
+    mark("8-10")
     # -- phases 11-13: morphofields, and the atlas chain through the port ---------
     if want(11):
         phase_morphofield_main(stt)
@@ -3899,6 +4283,7 @@ def main(argv=None):
     if want(13):
         phase_atlas_chain()
 
+    mark("11-13")
     # -- phases 14-15: MuSIC ----------------------------------------------------------
     if want(14):
         phase_music_bench()
@@ -3906,38 +4291,53 @@ def main(argv=None):
     if want(15):
         phase_music_cuda_vs_cpu()
 
+    mark("14-15")
     # -- phases 16-17: the rest of Starro ------------------------------------------------
     staged_launches, staged_deltas = phase_starro_tutorial() if want(16) else (0, 0)
     if want(17):
         phase_starro_cuda_vs_cpu()
 
+    mark("16-17")
     # -- phases 18-19: SVG detection and PASTE -------------------------------------------
     if want(18):
         phase_svg_paste_cuda_vs_cpu(*phase_svg_paste())
 
+    mark("18-19")
     # -- phases 20-21: rigid alignment, mesh correction, st.pp, k-means --------------------
     if want(20):
         phase_e95(stt)
     if want(21):
         phase_e95_cuda_vs_cpu(stt)
 
+    mark("20-21")
     # -- phases 22-23: 3D reconstruction ------------------------------------------------------
     backbone = phase_tdr(stt) if want(22) else None
     if want(23):
         phase_tdr_cuda_vs_cpu(stt)
 
+    mark("22-23")
     # -- phases 24-25: MuSIC's interpretation, refine_alignment, the Frobenius NMF --------------
     if want(24):
         phase_interpretation()
     if want(25):
         phase_interpretation_cuda_vs_cpu()
 
+    mark("24-25")
     # -- phases 26-27: interpolation engines, clustering, UMAP, the CCI test ---------------------
     if want(26):
         phase_interp_cluster(stt, backbone)
     if want(27):
         phase_interp_cluster_cuda_vs_cpu(stt)
 
+    mark("26-27")
+    # -- phases 28-29: the external models (CAST, STAGATE, merfishVI) ------------------------------
+    if want(28):
+        phase_external(stt)
+    if want(29):
+        phase_external_cuda_vs_cpu(stt)
+
+    mark("28-29")
+    print("chip_smoke: seconds by phase group " + json.dumps({k: round(v, 1) for k, v in phase_seconds.items()}))
     print(f"chip_smoke: every chosen phase passed in {time.perf_counter() - t_start!r} s")
     print(card)
     print(json.dumps({"kernels": [

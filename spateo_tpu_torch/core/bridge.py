@@ -9,9 +9,11 @@ EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
 learned SparseVFC field and a Morpho vector field,
 `music_state_from_reference` a MuSIC design, `nlpca_from_reference` the
 weights of an NLPCA principal curve, `siren_from_reference` a deep
-interpolator's SIREN, `sgpr_params_from_reference` a sparse GP's parameters
-and `gc_dec_from_reference` a SpaGCN head's W and mu; all are duck-typed, so
-that this module never imports the JAX package.
+interpolator's SIREN, `sgpr_params_from_reference` a sparse GP's parameters,
+`gc_dec_from_reference` a SpaGCN head's W and mu, and
+`cast_params_from_reference`, `stagate_params_from_reference` and
+`merfishvi_params_from_reference` the weights of the external models; all are
+duck-typed, so that this module never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -239,3 +241,87 @@ def gc_dec_from_reference(model, device="cuda"):
     if getattr(model, "mu", None) is not None:
         out.mu = torch.nn.Parameter(to_device(np.array(model.mu, dtype=np.float32), device))
     return out
+
+
+def _f32(a, device) -> torch.Tensor:
+    return to_device(np.array(a, dtype=np.float32), device)
+
+
+def _copy_into(params: torch.nn.Module, tree) -> None:
+    """Copy the float32 leaves of a nested dict / list `tree` into the
+    same-named parameters of `params`."""
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            leaf = tree
+            for part in name.split("."):
+                leaf = leaf[int(part)] if isinstance(leaf, (list, tuple)) else leaf[part]
+            p.copy_(_f32(leaf, p.device))
+
+
+def cast_params_from_reference(obj, device="cuda"):
+    """A CAST-Mark weight dict (`external.cast._init_params`' {"W1", "W2"})
+    as a dict of float32 tensors on `device`; or the port's
+    `external.cast_model` module (GCNII, GCN, or CCA_SSG around either)
+    holding a `spateo_tpu` one's weights."""
+    from ..external import cast_model as cm
+
+    if isinstance(obj, dict):
+        return {k: _f32(v, device) for k, v in obj.items()}
+    bb = getattr(obj, "backbone", None)
+    src = bb if bb is not None else obj
+    in_dim = (src.encoder.W if src.use_encoder else src.Ws[0]).shape[0]
+    if hasattr(src, "alpha"):
+        out = cm.GCNII(in_dim, src.hid_dim, src.n_layers, src.alpha, src.lambda_, src.use_encoder, device=device)
+    else:
+        out = cm.GCN(in_dim, src.hid_dim, src.n_layers, src.use_encoder, device=device)
+    with torch.no_grad():
+        for W_port, W in zip(out.Ws, src.Ws):
+            W_port.copy_(_f32(W, device))
+        if src.use_encoder:
+            out.encoder.W.copy_(_f32(src.encoder.W, device))
+            out.encoder.b.copy_(_f32(src.encoder.b, device))
+    if bb is None:
+        return out
+    wrapper = cm.CCA_SSG(in_dim, src.hid_dim, src.n_layers, "GCNII" if hasattr(src, "alpha") else "GCN",
+                         use_encoder=src.use_encoder, device=device)
+    wrapper.backbone = out
+    return wrapper
+
+
+def stagate_params_from_reference(obj, device="cuda"):
+    """A `spateo_tpu` `STAGATE.params` dict as a dict of float32 tensors on
+    `device`; or the port's `STAGATE_Module` holding a `spateo_tpu`
+    `STAGATE_Module`'s four convolutions."""
+    from ..external.stagate import STAGATE_Module
+
+    if isinstance(obj, dict):
+        return {k: _f32(v, device) for k, v in obj.items()}
+    out = STAGATE_Module((obj.conv1.in_channels, obj.conv1.out_channels, obj.conv2.out_channels), device=device)
+    with torch.no_grad():
+        for name in ("conv1", "conv2", "conv3", "conv4"):
+            src, dst = getattr(obj, name), getattr(out, name)
+            for attr in ("lin_src", "att_src", "att_dst"):
+                getattr(dst, attr).copy_(_f32(getattr(src, attr), device))
+    return out
+
+
+def merfishvi_params_from_reference(params, model=None, device="cuda"):
+    """A `spateo_tpu` MERFISHVI's or VAE-family model's nested param dict
+    (`.params`) as the port's `external.merfishvi.ParamTree` of float32
+    parameters on `device`; with `model` (the port's MERFISHVI or VAE-family
+    model of the same layout), copied into its parameters in place, and the
+    model returned."""
+    from ..external.merfishvi import ParamTree
+
+    if model is not None:
+        _copy_into(model.params, params)
+        return model
+
+    def tree(t):
+        if isinstance(t, dict):
+            return {k: tree(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [tree(v) for v in t]
+        return torch.from_numpy(np.array(t, dtype=np.float32))
+
+    return ParamTree(tree(params)).to(device)

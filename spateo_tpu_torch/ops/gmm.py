@@ -1,13 +1,14 @@
 """scikit-learn's `GaussianMixture` (1.9) ported step for step, in float64 on
 a device: the k-means responsibilities of ``init_params="kmeans"`` (through
-`ops.kmeans.KMeans(n_init=1)` with the mixture's `random_state`), then EM
+`ops.kmeans.KMeans(n_init=1)` on the mixture's ``RandomState``), then EM
 with `GMM_REG_COVAR` added to each covariance's diagonal, the precisions'
 Cholesky factors, and the mean log-likelihood as the lower bound, stopping
 when it changes by less than `GMM_TOL` (one host read an iteration) or
 after `GMM_MAX_ITER` iterations. The four covariance types are scikit-learn's.
 
 The GPU machine has no scikit-learn; `tests/test_torch_cluster.py` holds this
-against it (means, covariances and ``n_iter_``).
+against it (means, covariances and ``n_iter_``), and
+`tests/test_torch_external.py` at ``n_init=3``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .kmeans import KMeans
+from .kmeans import KMeans, check_random_state
 
 COVARIANCE_TYPES = ("full", "tied", "diag", "spherical")
 #: scikit-learn's defaults: the lower bound's stop, the covariances'
@@ -79,19 +80,23 @@ def _log_gaussian_prob(X: torch.Tensor, means: torch.Tensor, prec_chol: torch.Te
 
 class GaussianMixture:
     """``sklearn.mixture.GaussianMixture(n_components, covariance_type,
-    random_state)`` (`tol` 1e-3, `reg_covar` 1e-6, `max_iter` 100, `n_init`
-    1, ``init_params="kmeans"``) on `device`, in float64. `fit` sets ``weights_``,
-    ``means_``, ``covariances_``, ``precisions_cholesky_``, ``converged_``,
-    ``n_iter_`` and ``lower_bound_`` (host numpy); `predict` gives each
-    point's most probable component."""
+    random_state, n_init)`` (`tol` 1e-3, `reg_covar` 1e-6, `max_iter` 100,
+    ``init_params="kmeans"``) on `device`, in float64. The inits share one
+    ``RandomState``, which each init's k-means advances, and the init of the
+    largest lower bound wins (the first on a tie), as in scikit-learn. `fit`
+    sets ``weights_``, ``means_``, ``covariances_``,
+    ``precisions_cholesky_``, ``converged_``, ``n_iter_`` and
+    ``lower_bound_`` (host numpy); `predict` gives each point's most probable
+    component, and `fit_predict` the same after `fit`."""
 
     def __init__(self, n_components: int = 1, covariance_type: str = "full", random_state: Optional[int] = None,
-                 device="cuda"):
+                 n_init: int = 1, device="cuda"):
         if covariance_type not in COVARIANCE_TYPES:
             raise ValueError(f"covariance_type must be one of {COVARIANCE_TYPES}, got {covariance_type!r}")
         self.n_components = n_components
         self.covariance_type = covariance_type
         self.random_state = random_state
+        self.n_init = int(n_init)
         self.device = device
 
     def _weighted_log_prob(self, X: torch.Tensor) -> torch.Tensor:
@@ -101,20 +106,15 @@ class GaussianMixture:
         self._weights, self._means, self._cov = weights, means, cov
         self._prec_chol = _precision_cholesky(cov, self.covariance_type)
 
-    def fit(self, X) -> "GaussianMixture":
-        X = np.asarray(X, dtype=np.float64)
+    def _fit_one(self, X: np.ndarray, Xd: torch.Tensor, rs: np.random.RandomState):
+        """One init's k-means start and EM: (lower bound, n_iter, converged)."""
         n = X.shape[0]
-        if n < self.n_components:
-            raise ValueError(f"Expected n_samples >= n_components but got n_components = {self.n_components}, "
-                             f"n_samples = {n}")
-        labels = KMeans(self.n_components, n_init=1, random_state=self.random_state, device=self.device).fit(X).labels_
-        Xd = torch.as_tensor(X, device=self.device)
+        labels = KMeans(self.n_components, n_init=1, random_state=rs, device=self.device).fit(X).labels_
         resp = torch.zeros((n, self.n_components), dtype=Xd.dtype, device=Xd.device)
         resp[torch.arange(n, device=Xd.device), torch.as_tensor(labels, dtype=torch.int64, device=Xd.device)] = 1
         nk, means, cov = _gaussian_parameters(Xd, resp, GMM_REG_COVAR, self.covariance_type)
         self._set(nk / n, means, cov)
         lower_bound = -np.inf
-        self.converged_ = False
         n_iter = 0
         for n_iter in range(1, GMM_MAX_ITER + 1):
             prev = lower_bound
@@ -125,15 +125,31 @@ class GaussianMixture:
             self._set(weights / weights.sum(), means, cov)
             lower_bound = float(log_norm.mean())
             if abs(lower_bound - prev) < GMM_TOL:
-                self.converged_ = True
-                break
-        self.n_iter_ = n_iter
-        self.lower_bound_ = lower_bound
+                return lower_bound, n_iter, True
+        return lower_bound, n_iter, False
+
+    def fit(self, X) -> "GaussianMixture":
+        X = np.asarray(X, dtype=np.float64)
+        if X.shape[0] < self.n_components:
+            raise ValueError(f"Expected n_samples >= n_components but got n_components = {self.n_components}, "
+                             f"n_samples = {X.shape[0]}")
+        rs = check_random_state(self.random_state)
+        Xd = torch.as_tensor(X, device=self.device)
+        best = None
+        for _ in range(self.n_init):
+            lower_bound, n_iter, converged = self._fit_one(X, Xd, rs)
+            if best is None or lower_bound > best[0]:
+                best = (lower_bound, n_iter, converged, (self._weights, self._means, self._cov))
+        self.lower_bound_, self.n_iter_, self.converged_, params = best
+        self._set(*params)
         self.weights_ = self._weights.cpu().numpy()
         self.means_ = self._means.cpu().numpy()
         self.covariances_ = self._cov.cpu().numpy()
         self.precisions_cholesky_ = self._prec_chol.cpu().numpy()
         return self
+
+    def fit_predict(self, X) -> np.ndarray:
+        return self.fit(X).predict(X)
 
     def predict(self, X) -> np.ndarray:
         Xd = torch.as_tensor(np.asarray(X, dtype=np.float64), device=self.device)

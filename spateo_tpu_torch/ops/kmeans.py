@@ -45,6 +45,12 @@ def _as_float(X) -> np.ndarray:
     return np.ascontiguousarray(X, dtype=np.float32 if X.dtype == np.float32 else np.float64)
 
 
+def check_random_state(seed) -> np.random.RandomState:
+    """scikit-learn's `check_random_state` but for None: a ``RandomState``
+    as it is, else a new one seeded by `seed`."""
+    return seed if isinstance(seed, np.random.RandomState) else np.random.RandomState(seed)
+
+
 def _row_norms(X: torch.Tensor) -> torch.Tensor:
     return (X * X).sum(1)
 
@@ -185,13 +191,16 @@ def _lloyd(X: torch.Tensor, sample_weight: torch.Tensor, centers: torch.Tensor, 
 
 class KMeans:
     """``sklearn.cluster.KMeans(n_clusters, init="k-means++", n_init,
-    random_state)`` (Lloyd, `max_iter` 300, `tol` 1e-4) on `device`, with an
-    int `random_state`. `fit` sets ``cluster_centers_``, ``labels_``,
+    random_state)`` (Lloyd, `max_iter` 300, `tol` 1e-4) on `device`.
+    `random_state` is an int or None (a new ``RandomState``) or a
+    ``RandomState``, whose draws then continue where its owner left them
+    (`ops.gmm.GaussianMixture` shares one across its inits, as scikit-learn's
+    does). `fit` sets ``cluster_centers_``, ``labels_``,
     ``inertia_`` and ``n_iter_`` (host numpy); `predict` assigns new points to
     the centres."""
 
-    def __init__(self, n_clusters: int = 8, n_init: Union[int, str] = "auto", random_state: Optional[int] = None,
-                 device="cuda"):
+    def __init__(self, n_clusters: int = 8, n_init: Union[int, str] = "auto",
+                 random_state: Union[int, np.random.RandomState, None] = None, device="cuda"):
         self.n_clusters = n_clusters
         self.n_init = n_init
         self.random_state = random_state
@@ -202,7 +211,7 @@ class KMeans:
         if X.shape[0] < self.n_clusters:
             raise ValueError(f"n_samples={X.shape[0]} should be >= n_clusters={self.n_clusters}.")
         n_init = 1 if self.n_init == "auto" else int(self.n_init)
-        rs = np.random.RandomState(self.random_state)
+        rs = check_random_state(self.random_state)
         tol = float(np.mean(np.var(X, axis=0)) * LLOYD_TOL)
         X_mean = X.mean(axis=0)
         Xd = torch.from_numpy(X - X_mean).to(self.device)

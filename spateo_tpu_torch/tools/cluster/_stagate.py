@@ -1,9 +1,9 @@
 """pySTAGATE wrapper class (capability parity: reference
 spateo/tools/cluster/_stagate.py:10; counterpart of
-`spateo_tpu.tools.cluster._stagate`). The STAGATE graph-attention
-autoencoder itself (`external/stagate.py`) is ROADMAP Queue 1 item 12, so
-`train` raises; `cal_pSM` runs on a STAGATE embedding already in
-`.obsm['STAGATE']`, its kNN graph from `find_neighbors.knn` on the device.
+`spateo_tpu.tools.cluster._stagate`). `train` fits the STAGATE
+graph-attention autoencoder (`external.stagate.train_stagate`) on the
+device; `cal_pSM` runs on the STAGATE embedding in `.obsm['STAGATE']`, its
+kNN graph from `find_neighbors.knn` on the device.
 `num_batch_x/num_batch_y/batch_size` are accepted for signature parity and
 ignored."""
 
@@ -52,10 +52,20 @@ class pySTAGATE:
         self._trained = "STAGATE" in adata.obsm
 
     def train(self):
-        """Train the STAGATE model. Not ported: the model
-        (`external/stagate.py`) is ROADMAP Queue 1 item 12."""
-        raise NotImplementedError("pySTAGATE.train needs the STAGATE model (external/stagate.py), which the port "
-                                  "does not have yet (ROADMAP Queue 1 item 12)")
+        """Train the STAGATE model on the object's device."""
+        from ...external.stagate import train_stagate
+
+        train_stagate(
+            self.adata,
+            hidden_dims=tuple(self.hidden_dims),
+            n_epochs=self.num_epoch,
+            lr=self.lr,
+            rad_cutoff=self.rad_cutoff,
+            key_added="STAGATE",
+            verbose=False,
+            device=self.device,
+        )
+        self._trained = True
 
     def predicted(self):
         """Store the STAGATE representation (.obsm['STAGATE']) and the

@@ -10,8 +10,8 @@ float64 on the device) and `kmeans_clustering` `ops.kmeans.KMeans`.
 `spagcn_pyg` builds the [n, n] distances, the 60-step bisection of the
 length scale `l` and the adjacency on the device in float64, then hands a
 float32 adjacency to the GCN + DEC head (`spagcn_utils.simple_GC_DEC`); the
-[n, n] matrices never leave the device. `CAST` raises (its graph-contrastive
-model, `external/cast.py`, is ROADMAP Queue 1 item 12).
+[n, n] matrices never leave the device. `CAST` is `external.cast.cast_mark`
+(CAST-Mark, trained on the device).
 """
 
 from __future__ import annotations
@@ -175,12 +175,14 @@ def CAST(
     sample_key: Optional[str] = None,
     basis: str = "spatial",
     layer: Optional[str] = "norm_1e4",
+    device="cuda",
     **kwargs,
 ):
-    """CAST graph-contrastive embedding wrapper (parity: find_clusters.py:369).
-    Not ported: its model, `external/cast.py`, is ROADMAP Queue 1 item 12."""
-    raise NotImplementedError("CAST needs the CAST-Mark model (external/cast.py), which the port does not have yet "
-                              "(ROADMAP Queue 1 item 12)")
+    """CAST graph-contrastive embedding wrapper (parity: find_clusters.py:369):
+    `external.cast.cast_mark` on `device`, into .obsm['X_cast']."""
+    from ...external.cast import cast_mark
+
+    return cast_mark(adata, sample_key=sample_key, basis=basis, layer=layer, device=device, **kwargs)
 
 
 def kmeans_clustering(

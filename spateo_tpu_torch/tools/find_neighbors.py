@@ -21,7 +21,10 @@ index. Queried with the fitted points, every point is its own first
 neighbour (distance 0), as `kneighbors_graph(X)` counts it. Where two
 points tie at a row's k-th distance scikit-learn's trees keep either; the
 port keeps the lower index (`tests/test_torch_cluster.py` pins it on a
-lattice).
+lattice). `radius_neighbors` (and `radius_neighbors_graph`) stand in for
+scikit-learn's radius queries with their ``dist <= r`` test on the squared
+distance (`tests/test_torch_external.py` holds them to scikit-learn's on a
+lattice at radii on its distances).
 """
 
 from __future__ import annotations
@@ -88,10 +91,11 @@ def knn_to_adj(knn_indices: np.ndarray, knn_weights: np.ndarray) -> csr_matrix:
     return csr_matrix((knn_weights.ravel(), (rows, knn_indices.ravel())), shape=(n, n))
 
 
-def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean") -> Tuple[np.ndarray, np.ndarray]:
-    """Each point's k nearest points among `X`, itself included: ([n, k]
-    int64 indices, [n, k] float64 distances) on the host, each row ordered
-    by distance, then by index.
+def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean",
+        Y: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Each point's k nearest points among `X`, itself included (or, with
+    `Y`, each row of `Y`'s among `X`): ([n, k] int64 indices, [n, k] float64
+    distances) on the host, each row ordered by distance, then by index.
 
     The euclidean distances are sqrt(sum_d (x_d - y_d)^2) in float64 on
     `device` (`torch.cdist` in its difference form, the form of
@@ -101,23 +105,64 @@ def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean") -> Tupl
     X = np.asarray(X, dtype=np.float64)
     if X.ndim == 1:
         X = X[:, None]
+    Y = X if Y is None else np.asarray(Y, dtype=np.float64).reshape(-1, X.shape[1])
     n = len(X)
     k = min(int(k), n)
     Xd = to_device(X, device)
-    idx = torch.empty((n, k), dtype=torch.int64, device=Xd.device)
-    dist = torch.empty((n, k), dtype=torch.float64, device=Xd.device)
+    Yd = Xd if Y is X else to_device(Y, device)
+    idx = torch.empty((len(Y), k), dtype=torch.int64, device=Xd.device)
+    dist = torch.empty((len(Y), k), dtype=torch.float64, device=Xd.device)
     rows = max(1, KNN_ELEMS // max(n, 1))
-    for s in range(0, n, rows):
+    for s in range(0, len(Y), rows):
         if metric == "euclidean":
-            D = torch.cdist(Xd[s : s + rows], Xd, compute_mode="donot_use_mm_for_euclid_dist")
+            D = torch.cdist(Yd[s : s + rows], Xd, compute_mode="donot_use_mm_for_euclid_dist")
         else:
             from scipy.spatial.distance import cdist
 
-            D = to_device(cdist(X[s : s + rows], X, metric=metric), device)
+            D = to_device(cdist(Y[s : s + rows], X, metric=metric), device)
         D, order = torch.sort(D, dim=1, stable=True)
         idx[s : s + rows] = order[:, :k]
         dist[s : s + rows] = D[:, :k]
     return idx.cpu().numpy(), dist.cpu().numpy()
+
+
+def radius_neighbors(X: np.ndarray, radius: float, device="cuda") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The points of `X` within `radius` of each point (itself included):
+    (indptr [n + 1], indices, distances) on the host, a row's neighbours by
+    index, as scikit-learn's ``radius_neighbors(X, sort_results=False)``
+    gives the set.
+
+    scikit-learn's trees keep a point when its squared distance, summed over
+    the dimensions in order in float64, is ``<= radius**2``; the test here is
+    the same, on `device`, `KNN_ELEMS // n` rows at a time, with one host read
+    a block. The distance is the square root of that sum."""
+    X = np.asarray(X, dtype=np.float64)
+    X = X[:, None] if X.ndim == 1 else X
+    Xd = to_device(X, device)
+    r2 = float(radius) * float(radius)
+    rows = max(1, KNN_ELEMS // max(len(X), 1))
+    counts, cols, dists = [], [], []
+    for s in range(0, len(X), rows):
+        d2 = torch.zeros((len(Xd[s : s + rows]), len(X)), dtype=torch.float64, device=Xd.device)
+        for j in range(X.shape[1]):
+            d2 += (Xd[s : s + rows, j, None] - Xd[None, :, j]) ** 2
+        hit = d2 <= r2
+        r, c = hit.nonzero(as_tuple=True)
+        counts.append(hit.sum(1).cpu().numpy())
+        cols.append(c.cpu().numpy())
+        dists.append(torch.sqrt(d2[r, c]).cpu().numpy())
+    indptr = np.concatenate([[0], np.cumsum(np.concatenate(counts))]) if counts else np.zeros(1, np.int64)
+    empty = np.zeros(0)
+    return (indptr.astype(np.int64), np.concatenate(cols).astype(np.int64) if cols else empty.astype(np.int64),
+            np.concatenate(dists) if dists else empty)
+
+
+def radius_neighbors_graph(X: np.ndarray, radius: float, mode: str = "connectivity", device="cuda") -> csr_matrix:
+    """scikit-learn's ``NearestNeighbors(radius=radius).fit(X).
+    radius_neighbors_graph(X, mode=mode)`` from `radius_neighbors`."""
+    indptr, cols, dists = radius_neighbors(X, radius, device=device)
+    data = dists if mode == "distance" else np.ones(len(cols))
+    return csr_matrix((data, cols, indptr), shape=(len(indptr) - 1, len(np.asarray(X))))
 
 
 def _knn_graph(idx: np.ndarray, data: np.ndarray, n: int) -> csr_matrix:

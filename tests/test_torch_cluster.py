@@ -263,18 +263,21 @@ def test_kmeans_clustering_and_pca_helpers_match_jax():
 
 
 def test_refusals_cite_their_items():
+    """t-SNE still raises, citing its item; `CAST` and `pySTAGATE.train`,
+    which raised until the external models were ported, now train (their
+    parity with the JAX package is in `tests/test_torch_external.py`)."""
     _, at = _section(50)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        stt.tl.CAST(at)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        stt.tl.pySTAGATE(at).train()
     with pytest.raises(NotImplementedError, match="item 11"):
         stt.tl.perform_dimensionality_reduction(at, reduction_method="tsne", device="cpu")
+    stt.tl.CAST(at, n_epochs=2, d_hidden=8, d_out=4, device="cpu")
+    assert at.obsm["X_cast"].shape == (50, 4)
+    stt.tl.pySTAGATE(at, num_epoch=2, hidden_dims=[8, 2], rad_cutoff=1e9, device="cpu").train()
+    assert at.obsm["STAGATE"].shape == (50, 2)
 
 
 def test_pystagate_cal_psm_on_a_given_embedding():
-    """`cal_pSM` on an embedding already in .obsm['STAGATE'] (the model is
-    item 12): the port's kNN graph gives the JAX package's pseudo-spatial map
+    """`cal_pSM` on an embedding already in .obsm['STAGATE']: the port's kNN
+    graph gives the JAX package's pseudo-spatial map
     (its Fiedler vector up to sign)."""
     aj, at = _section(200)
     emb = np.random.default_rng(5).normal(size=(200, 4))

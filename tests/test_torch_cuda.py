@@ -1183,3 +1183,63 @@ def test_neighbour_graphs_and_cci_cuda_match_cpu(cuda):
     g, h = res["cuda"], res["cpu"]
     assert np.abs(g["lr_score"].values - h["lr_score"].values).max() <= 1e-6 * np.abs(h["lr_score"].values).max()
     np.testing.assert_array_equal(g["lr_value"].values, h["lr_value"].values)
+
+
+def test_external_cuda_matches_cpu(cuda):
+    """Phase 29 of chip_smoke.py at 500 cells, TF32 off: CAST-Mark's,
+    STAGATE's and merfishVI's first 10 Adam steps from one init and one set
+    of draws, a CAST-Stack pair (affine 50 iterations, FFD 20, the FFD's
+    mesh the same bits on a second run, cost flips at most 1%), and the
+    projection (index flips at most 1%), at `chip_smoke.EXT_CVC_BAR`."""
+    import chip_smoke
+    import spateo_tpu_torch as stt
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = chip_smoke.external_cuda_vs_cpu(stt, n=500)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert all(v <= bar for v, bar in out.values()), out
+
+
+def test_no_host_read_in_external_loops(cuda):
+    """CAST-Mark's, STAGATE's and merfishVI's training loops and CAST-Stack's
+    affine and FFD loops make no synchronising call
+    (`set_sync_debug_mode("error")`)."""
+    from spateo_tpu_torch.external import MERFISHVI
+    from spateo_tpu_torch.external import cast as ec
+    from spateo_tpu_torch.external import cast_stack as es
+    from spateo_tpu_torch.external import merfishvi as em
+    from spateo_tpu_torch.external import stagate as eg
+
+    import spateo_tpu_torch as stt
+
+    rng = np.random.default_rng(0)
+    P = rng.uniform(0, 100, (300, 2))
+    X = rng.poisson(2.0, (300, 20)).astype(np.float32)
+    Xd = torch.from_numpy(X).cuda()
+    A = ec._norm_adj(P, 10, "cuda")
+    params = ec._init_params(0, 20, 16, 8, "cuda")
+    mask = eg._adj_mask(P, None, 6, "cuda")
+    st_init = eg.STAGATE(20, (16, 4), device="cuda").params
+    ad = stt.AnnData(X=X)
+    ad.obsm["spatial"] = P
+    vi = MERFISHVI(ad, n_latent=4, n_hidden=8, spatial_encoder=True, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, r = (torch.from_numpy(rng.uniform(0, 100, (300, 2)).astype(np.float32)).cuda() for _ in range(2))
+    cov = torch.rand((300, 300), device="cuda")
+    ab = torch.tensor([1e-3, 1e-3, 1e-1, 1.0, 1.0], device="cuda")
+    mx = torch.tensor([100.0, 100.0], device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ec._train_cast(params, A, Xd, n_epochs=3, generator=gen)
+        eg._train_stagate(st_init, mask, Xd, n_epochs=3)
+        em._train_vae(vi.params, vi.X, vi.cov, vi.lib, vi.A, vi.batch_oh, vi.Y, vi.lib_pro, n_epochs=3,
+                      spatial_mode="encoder", generator=gen)
+        es._affine_gd(q, r, cov, 50.0, 0.0, ab, 2.0, 3, False)
+        es._bspline_gd(q, r, cov, 50.0, 0.0, 10.0, 2.0, mx, 3, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

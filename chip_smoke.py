@@ -5,8 +5,10 @@ detection with PASTE, rigid slice alignment with mesh correction, `st.pp`
 normalization and the k-means paths, the 3D reconstruction (`stt.tdr`
 models and morphometrics), MuSIC's interpretation, the stain <-> RNA
 alignment refinement and PASTE's Frobenius center NMF, the interpolation
-engines, spatial clustering, UMAP and the two-group CCI test, and the
-external models (CAST, STAGATE, merfishVI).
+engines, spatial clustering, UMAP and the two-group CCI test, the
+external models (CAST, STAGATE, merfishVI), and the host tools (DEGs, GLM,
+LISA, bivariate Moran, smoothing) with PCA's randomized solver, sampling,
+the Moran masks and the bridge helpers.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -50,7 +52,8 @@ final ``ok`` line:
    stage times, peak memory; each E-step kernel launched 200 times per pair
    and the inlier kernel once; the rotation recovered.
 7. Morpho CUDA vs CPU: one 2,000-cell pair aligned on the card (kernels) and
-   on the CPU (plain dense E-step), same seed.
+   on the CPU (plain dense E-step), same seed, **100 iterations** (cut from
+   200: the CPU's 20 s).
 8. Jacobi kernel vs plain version: `jacobi_block` (the kernel of
    `csrc/jacobi.cu`) against `jacobi_block_reference` on the card at
    1024x1024, 2048x2048, 4096x4096 and 1000x1500, for 1, T - 1, T, T + 1,
@@ -66,7 +69,8 @@ final ``ok`` line:
    stage by stage; then the labeling chain `label_cells_from_mask` on phase
    3's Starro mask. The launch counts prove the kernel ran, ceil(block / T)
    launches per block of each solve and one launch of the fused reduction.
-10. Digitization CUDA vs CPU: a 256x256 solve (20,000 iterations), a
+10. Digitization CUDA vs CPU: a 256x256 solve (**4,000 iterations**, cut
+   from 20,000: the CPU's 8 s), a
    digitize on a 128x128 domain and a labeling chain on a 256x256 mask,
    each on the card and on the CPU.
 11. Morphofield main path: `bench.vfc_bench`'s sweep, cut nowhere
@@ -158,9 +162,9 @@ final ``ok`` line:
    references and `align.paste_center_align` on 3 x 1,000 cells at its
    defaults but 50 FGW outer iterations a solve of 200 (the time limit). No
    kernel of `csrc/` is on this path.
-19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 50
+19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 20
    genes (1e-4 relative, the same sweeps; cut from 200 genes, whose CPU
-   scan took ~100 s); the between-slice scan's solves
+   scan took ~100 s, to 50, then to 20); the between-slice scan's solves
    on 18d's samples plus 1, 4 of its genes x 2 rounds, on DNB costs cut to one
    outer iteration (3x the CPU's own spread when a cost matrix moves by
    one ulp) and 2 genes on the costs over their largest entry (1e-4 of
@@ -299,12 +303,40 @@ final ``ok`` line:
    second run, the points whose cost differs at the same coordinates), the
    projection (index flips, weights).
 
+30. The host tools and the public names added with them, at full width
+   (`host_tools_section`: `cortex_section(20,000, 4,000)` through
+   normalize_total + log1p): `tl.pca_fit(n_components=50)`, which
+   scikit-learn's "auto" sends to the randomized solver, against the full
+   SVD (top-6 explained variances); `align.methods.sample` by random,
+   k-means, LHS and velocity at 2,000 and `TRNET.run()` (each sample's mean
+   distance to the cells); `core.layer_to_device` of the counts,
+   `segment_sum_device` by band (equal to the host's sums bit for bit) and
+   `points_to_raster`; `binary_morani_result` by Otsu and by edge watershed
+   on `bench.make_raster(2048, 2048, seed=0)` (IoU with its planted disks);
+   `tl.find_all_cluster_degs` over the bands on **600 of the 4,000 genes**
+   (the time limit: a host Mann-Whitney test a gene and band) and
+   `find_spatial_cluster_degs` (the planted genes in each band's top 10); on
+   the 60 planted and 60 unplanted genes `glm_degs` (recall at q 0.05),
+   `local_moran_i` (hot spots, 99 permutations on the card) and
+   `GM_lag_model` (peak GB: no [n, n] matrix); `spatial_bv_moran_obs_genes`
+   on 20 planted pairs and 20 unplanted genes at 999 permutations and
+   `spatial_bv_local_moran` on one pair; `smooth` of the counts. Each
+   stage's seconds, idle share and launches (under the profiler where the
+   card works) and peak GB; bars `HT_BAR`. No kernel of `csrc/` is on this
+   path.
+31. The same entry points that take `device`, card against CPU at 1,000
+   cells (`host_tools_cuda_vs_cpu`, bars `HT_CVC_BAR`): PCA, the spatial-lag
+   model and bivariate Moran's I to 1e-10; the samples, the bridge helpers,
+   the Moran masks, LISA's statistics and p-values and the local bivariate
+   statistic and p-values equal.
+
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
 plain versions that the kernels line reports); the launches of a main path
 not run are 0 there. With no arguments every phase runs.
 
-The last three lines are the card line from nvidia-smi, a JSON line with
+Each phase prints its seconds as it ends, and the run the seconds by phase
+and by phase group. The last three lines are the card line from nvidia-smi, a JSON line with
 each kernel's launches, error, times, bound (`bound_ms`, `bound_by`: the
 larger of its operations at the f32 peak and its bytes at the memory rate of
 an H100 SXM at 700 W) and share of the bound (for `jacobi_block`: the
@@ -751,7 +783,8 @@ def phase_morpho_main():
 
 
 def phase_morpho_cuda_vs_cpu():
-    """Phase 7: one 2,000-cell pair on the card and on the CPU."""
+    """Phase 7: one 2,000-cell pair on the card and on the CPU, 100
+    iterations."""
     import bench
     import spateo_tpu_torch as stt
 
@@ -760,7 +793,7 @@ def phase_morpho_cuda_vs_cpu():
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         out, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, X), bench._mk_adata(stt, ptsA, X)],
-                                        spatial_key="spatial", key_added="align", max_iter=200, verbose=False,
+                                        spatial_key="spatial", key_added="align", max_iter=100, verbose=False,
                                         device=dev)
         res[dev] = (out[1], time.perf_counter() - t0)
     (g, tg), (c, tc) = res["cuda"], res["cpu"]
@@ -769,7 +802,7 @@ def phase_morpho_cuda_vs_cpu():
     nr_err = float(np.abs(g.obsm["align_nonrigid"] - c.obsm["align_nonrigid"]).max())
     # bars: rotations 1e-3, coordinates 1e-2 on the 10-unit box (0.1%): the
     # card's kernels and the CPU's dense E-step sum in other orders over
-    # 200 iterations
+    # 100 iterations
     check(r_err <= 1e-3, f"CUDA vs CPU optimal_R differs by {r_err}")
     check(x_err <= 1e-2 and nr_err <= 1e-2, f"CUDA vs CPU aligned coordinates differ by {x_err} / {nr_err}")
     print(f"phase 7: 2000-cell pair, CUDA (kernels) vs CPU (plain): optimal_R max_abs_err {r_err!r}, rigid coords "
@@ -1010,7 +1043,7 @@ def phase_digitization_cuda_vs_cpu(stt):
     mask[8:-8, 8:-8] = 1
     field[8, 8:-8], field[-9, 8:-8] = 1.0, 100.0
     border[8, 8:-8] = border[-9, 8:-8] = True
-    res = {dev: host_ms(lambda: jacobi_solve(field, border, mask, max_err=1e-8, max_itr=20_000, device=dev))
+    res = {dev: host_ms(lambda: jacobi_solve(field, border, mask, max_err=1e-8, max_itr=4_000, device=dev))
            for dev in ("cuda", "cpu")}
     (tg, (fg, itg, eg)), (tc, (fc, itc, ec)) = res["cuda"], res["cpu"]
     ferr = float(np.abs(fg - fc).max())
@@ -1067,14 +1100,17 @@ def device_profile(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    by_name = {}
+    # the raw trace: `prof.events()` would build the event tree, ~12 s a
+    # 180,000 events on the host (torch 2.11), for the same sums
+    events = prof.profiler.kineto_results.events()
+    by_name, launches = {}, 0
     for e in events:
-        if e.device_type == DeviceType.CUDA:
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        elif e.name() == "cudaLaunchKernel":
+            launches += 1
     busy = sum(ms for ms, _ in by_name.values())
-    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
     return out, wall, busy, launches, dict(sorted(by_name.items(), key=lambda kv: -kv[1][0]))
 
 
@@ -2526,9 +2562,9 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-#: Phase 19's scan genes: **cut from 200 to 50** (the script's time limit: the
-#: CPU side of the 200-gene scan takes ~100 s).
-SCAN_CVC_GENES = 50
+#: Phase 19's scan genes: **cut from 200 to 50, then to 20** (the script's
+#: time limit: the CPU side of the 200-gene scan takes ~100 s).
+SCAN_CVC_GENES = 20
 
 
 def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
@@ -4182,6 +4218,298 @@ def phase_external_cuda_vs_cpu(stt):
         check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
 
 
+# -- phases 30-31: the host tools and the names item 17 added ---------------------------------------------
+
+#: Phase 30: `cortex_section(20,000, 4,000)` after normalize_total + log1p.
+#: The cluster DEGs **cut from 4,000 genes to HT_DEG_GENES** (the 60 planted
+#: and the first unplanted; the time limit: one host Mann-Whitney test a gene
+#: and band, 13.8 s at 600 genes on the card's host, PERF.md); the GLM and
+#: spatial statistics on HT_STAT_GENES (the 60 planted and 60 unplanted;
+#: `glm_degs` fits two host IWLS a gene); bivariate Moran on HT_BV_PAIRS
+#: planted pairs (and as many unplanted genes) at 999 permutations;
+#: `binary_morani_result` on `bench.make_raster(2048, 2048, seed=0)`.
+HT_CELLS, HT_GENES, HT_DEG_GENES, HT_STAT_GENES, HT_BV_PAIRS = 20_000, 4_000, 600, 120, 20
+HT_SAMPLE, HT_PCA, HT_PERMUTATIONS, HT_RASTER = 2_000, 50, 999, 2048
+#: Phase 30's bars, from the port's CPU run of the same stages at 5,000 cells
+#: x 1,000 genes and a 512² raster (`scripts/host_tools_bars.py`, PERF.md):
+#: the randomized PCA's explained variances of the 5 band components against
+#: the full SVD's, of the largest (measured 2.0e-5; the noise components
+#: differ by ~1%, as scikit-learn's own do), each band's planted genes in
+#: its top 10 by log2fc (measured 1.0), the GLM's planted recall at q 0.05
+#: (1.0), the spatial-lag model's share of planted genes with a significant
+#: own-band coefficient (0.75), the planted share of the bivariate pairs at
+#: p 0.05 (1.0), the Moran masks' IoU with the planted disks (0.874, 0.882).
+HT_BAR = {"pca_ev": 1e-4, "deg_recall": 0.9, "glm_recall": 0.9, "own_band": 0.5, "bv_share": 0.9, "iou": 0.7}
+
+
+def host_tools_section(stt, n_cells=HT_CELLS, n_genes=HT_GENES):
+    """`cortex_section` through normalize_total + log1p (`norm_1e4`, the
+    counts in .layers['counts']), its bands in obs['band'] and its depth
+    (y over the domain's height) in obs['time']."""
+    ad = norm_1e4(stt, cortex_section(n_cells, n_genes, SVG_PLANTED))
+    ad.obs["band"] = section_bands(ad).astype(str)
+    ad.obs["time"] = np.asarray(ad.obsm["spatial"])[:, 1] / SVG_DOMAIN[1]
+    return ad
+
+
+def planted_of(names, band):
+    """The planted genes of `band` (gene i is planted in band i % SVG_BANDS)."""
+    return [names[i] for i in range(SVG_PLANTED) if i % SVG_BANDS == band]
+
+
+def host_tools_stages(stt, ad, device="cuda", profile=True, raster=HT_RASTER, deg_genes=HT_DEG_GENES,
+                      stat_genes=HT_STAT_GENES, sample_n=HT_SAMPLE, permutations=HT_PERMUTATIONS):
+    """Phase 30's stages on `device`: {stage: dict(seconds, idle, launches,
+    peak_gb, ...)} with each stage's answer. Under the profiler a stage runs
+    again (the PCA, the k-means sample, the bridge helpers, LISA, the
+    spatial-lag model and bivariate Moran); the host stages are timed only."""
+    import pandas as pd
+    from scipy.spatial import cKDTree
+
+    from bench import make_raster
+    from spateo_tpu_torch.alignment.methods import sampling
+    from spateo_tpu_torch.core import bridge
+    from spateo_tpu_torch.segmentation import moran
+    from spateo_tpu_torch.tools.dimensionality_reduction import PCA, pca_fit
+
+    out = {}
+
+    def stage(name, fn, prof=True):
+        res, out[name] = stage_run(fn, device, None, profile and prof)
+        return res
+
+    names = list(ad.var_names)
+    planted = names[:SVG_PLANTED]
+    unplanted = names[SVG_PLANTED : SVG_PLANTED + stat_genes - SVG_PLANTED]
+    cell_band = np.asarray(ad.obs["band"]).astype(int)
+    P = np.asarray(ad.obsm["spatial"])
+
+    X = ad.X.toarray()
+    fit, _ = stage("pca", lambda: pca_fit(X, n_components=HT_PCA, random_state=0, device=device))
+    full = stage("pca_full", lambda: PCA(HT_PCA, svd_solver="full", device=device).fit(X), prof=False)
+    ev, ev_full = fit.explained_variance_, full.explained_variance_
+    bands = SVG_BANDS - 1  # the planted bands' components; the rest is noise
+    out["pca"].update(solver=fit._solver(*X.shape, HT_PCA),
+                      band_ev_err=float(np.abs(ev[:bands] - ev_full[:bands]).max() / ev_full[0]),
+                      noise_ev_err=float(np.abs(ev[bands:] - ev_full[bands:]).max() / ev_full[0]))
+    del X
+
+    V = np.c_[-(P[:, 1] - P[:, 1].mean()), P[:, 0] - P[:, 0].mean()]  # a rotation field
+    cover = {}
+    for m in ("random", "kmeans", "lhs", "velocity"):
+        s = stage(f"sample_{m}", lambda m=m: sampling.sample(P, sample_n, method=m, V=V, device=device),
+                  prof=False)
+        cover[m] = (len(np.unique(s, axis=0)), float(cKDTree(s).query(P)[0].mean()))
+        out[f"sample_{m}"].update(points=cover[m][0], mean_distance=cover[m][1])
+    W = stage("trnet", lambda: sampling.TRNET(sample_n, P, seed=0).run(), prof=False)
+    out["trnet"].update(nodes=len(W), mean_distance=float(cKDTree(W).query(P)[0].mean()))
+
+    counts = ad.layers["counts"]
+    dense, shape = stage("layer_to_device", lambda: bridge.layer_to_device(ad, "counts", device=device))
+    sums = stage("segment_sum_device", lambda: bridge.segment_sum_device(dense, cell_band, SVG_BANDS, device=device))
+    host = np.stack([np.asarray(counts[cell_band == b].astype(np.float64).sum(0)).ravel() for b in range(SVG_BANDS)])
+    out["segment_sum_device"]["equal_to_host"] = bool(np.array_equal(sums.cpu().numpy().astype(np.float64), host))
+    del dense, sums
+    tot = np.asarray(counts.astype(np.float64).sum(1)).ravel()
+    grid = (int(SVG_DOMAIN[0]), int(SVG_DOMAIN[1]))
+    R = stage("points_to_raster", lambda: bridge.points_to_raster(P[:, 0], P[:, 1], tot, grid, device=device))
+    out["points_to_raster"]["sum_equal"] = bool(float(R.double().sum()) == float(tot.sum()))
+    del R
+
+    Xr = make_raster(raster, raster, seed=0)
+    truth = planted_disks(raster, 0)
+    _, c, _, p = moran.moranI(Xr, moran._moran_kernel_weights(7), device=device)
+    for mode in ("otsu", "edge-watershed"):
+        m = stage(f"morani_{mode}", lambda mode=mode: moran.binary_morani_result(c, p, method=mode, device=device),
+                  prof=False)
+        out[f"morani_{mode}"].update(iou=iou(m, truth), share=float(m.mean()))
+
+    deg = names[:deg_genes]
+    stage("find_all_cluster_degs", lambda: stt.tl.find_all_cluster_degs(ad, "band", genes=deg, copy=False), prof=False)
+    top = stt.tl.top_n_degs(ad, "band", top_n_genes=10)
+    recall = [len(set(top.get(str(b), [])) & set(planted_of(names, b))) / 10 for b in range(SVG_BANDS)]
+    out["find_all_cluster_degs"]["recall"] = recall
+    sp = stage("find_spatial_cluster_degs", lambda: stt.tl.find_spatial_cluster_degs(
+        ad, "0", group="band", genes=deg, k=10, device=device), prof=False)
+    out["find_spatial_cluster_degs"]["recall"] = len(set(sp["gene"]) & set(planted_of(names, 0))) / 10
+
+    genes = planted + unplanted
+    stage("glm_degs", lambda: stt.tl.glm_degs(ad, genes=genes, layer="counts", llf_threshold=None), prof=False)
+    hits = set(ad.uns["glm_degs"]["glm_result"].index)
+    out["glm_degs"].update(recall=len(hits & set(planted)) / len(planted),
+                           false_share=len(hits & set(unplanted)) / max(len(unplanted), 1))
+    stage("local_moran_i", lambda: stt.tl.local_moran_i(ad, "band", genes=genes, device=device))
+    hot = ad.var.loc[genes, "hotspot_num_val"].astype(float)
+    out["local_moran_i"].update(hot_planted=float(hot[planted].mean()), hot_unplanted=float(hot[unplanted].mean()))
+    stage("GM_lag_model", lambda: stt.tl.GM_lag_model(ad, "band", genes=genes, layer="counts", device=device))
+    own_z = [float(ad.var.loc[g, f"{i % SVG_BANDS}_GM_lag_zstat"]) for i, g in enumerate(planted)]
+    out["GM_lag_model"]["own_band_significant"] = float(np.mean(np.asarray(own_z) > 1.96))
+
+    leads = range(HT_BV_PAIRS // 4)  # a band's first planted gene against its next 4, and 4 unplanted
+    pairs = {b: (planted_of(names, b)[1:5], unplanted[4 * b : 4 * b + 4]) for b in leads}
+    for b in leads:
+        ad.obs[f"lead{b}"] = ad.X[:, [b]].toarray().ravel()
+    bv = stage("spatial_bv_moran_obs_genes", lambda: pd.concat([stt.tl.spatial_bv_moran_obs_genes(
+        ad, f"lead{b}", genes=sum(pairs[b], []), permutations=permutations, copy=True, device=device) for b in leads]))
+    mates = sum((pairs[b][0] for b in leads), [])
+    out["spatial_bv_moran_obs_genes"].update(
+        pairs=len(mates), planted_share=float((bv.loc[mates, "pval_sim"] <= 0.05).mean()),
+        control_share=float((bv.drop(index=mates)["pval_sim"] <= 0.05).mean()), I_planted=float(bv.loc[mates, "I"].mean()))
+    loc = stage("spatial_bv_local_moran", lambda: stt.tl.spatial_bv_local_moran(
+        ad, "lead0", pairs[0][0][0], permutations=permutations, copy=True, device=device))
+    hh = (loc["q"].values == 1) & (loc["pval_sim"].values <= 0.05)
+    out["spatial_bv_local_moran"].update(hh_in_band=float(hh[cell_band == 0].mean()),
+                                         hh_outside=float(hh[cell_band != 0].mean()))
+
+    x_new, _ = stage("smooth", lambda: stt.tl.smooth(counts, ad.obsp["spatial_connectivities"]), prof=False)
+    out["smooth"].update(nnz=int(x_new.nnz), finite=bool(np.isfinite(x_new.data).all()))
+    return out
+
+
+def host_tools_checks(st):
+    """Phase 30's answers held to `HT_BAR`."""
+    bar = HT_BAR
+    check(st["pca"]["solver"] == "randomized" and st["pca"]["band_ev_err"] <= bar["pca_ev"],
+          f"PCA: {st['pca']}")
+    for m in ("random", "velocity"):
+        check(st[f"sample_{m}"]["points"] == HT_SAMPLE, f"sample {m}: {st[f'sample_{m}']}")
+    check(st["sample_kmeans"]["mean_distance"] < st["sample_random"]["mean_distance"], "sample kmeans: coverage")
+    check(st["segment_sum_device"]["equal_to_host"] and st["points_to_raster"]["sum_equal"], "bridge helpers")
+    for mode in ("otsu", "edge-watershed"):
+        check(st[f"morani_{mode}"]["iou"] >= bar["iou"], f"binary_morani_result {mode}: {st[f'morani_{mode}']}")
+    check(min(st["find_all_cluster_degs"]["recall"]) >= bar["deg_recall"], "find_all_cluster_degs: recall")
+    check(st["find_spatial_cluster_degs"]["recall"] >= bar["deg_recall"], "find_spatial_cluster_degs: recall")
+    check(st["glm_degs"]["recall"] >= bar["glm_recall"], f"glm_degs: {st['glm_degs']}")
+    check(st["local_moran_i"]["hot_planted"] > st["local_moran_i"]["hot_unplanted"], "local_moran_i: hot spots")
+    check(st["GM_lag_model"]["own_band_significant"] >= bar["own_band"], "GM_lag_model: own band")
+    bv = st["spatial_bv_moran_obs_genes"]
+    check(bv["planted_share"] >= bar["bv_share"] and bv["planted_share"] > bv["control_share"], f"bivariate: {bv}")
+    loc = st["spatial_bv_local_moran"]
+    check(loc["hh_in_band"] > loc["hh_outside"], f"local bivariate: {loc}")
+    check(st["smooth"]["finite"], "smooth")
+
+
+def phase_host_tools(stt):
+    """Phase 30: the host tools and the names of item 17 at full width on
+    the card, after a warm-up of every stage at a small size."""
+    t_phase = time.perf_counter()
+    host_tools_stages(stt, host_tools_section(stt, 1_000, 200), profile=False, raster=256, deg_genes=100,
+                      stat_genes=80, sample_n=100, permutations=9)
+    t0 = time.perf_counter()
+    ad = host_tools_section(stt)
+    t_prep = time.perf_counter() - t0
+    st = host_tools_stages(stt, ad)
+    print(f"phase 30: cortex_section {HT_CELLS:,} cells x {HT_GENES:,} genes, normalize_total + log1p {t_prep!r} s; "
+          + "; ".join(f"{k} {fmt_stats(v)} " + ", ".join(f"{m} {v[m]!r}" for m in v if m not in (
+              "seconds", "idle", "launches", "peak_gb")) for k, v in st.items()))
+    host_tools_checks(st)
+    print(f"phase 30: {time.perf_counter() - t_phase!r} s")
+
+
+#: Phase 31's bars, card against CPU at HT_CVC_CELLS cells x 200 genes:
+#: PCA's explained variance and its top 6 components of scale (`PCA_TOL`,
+#: tests/test_torch_surface.py; the noise components of a randomized solve
+#: may turn within their near-degenerate subspace), the GM-lag statistics
+#: and bivariate Moran's I and null moments relative (the CPU tests' bar
+#: against the JAX package, tests/test_torch_host_tools.py); the bridge
+#: helpers, the k-means sample, the Moran masks, LISA's statistics and
+#: p-values, the local bivariate statistic and the p-values of both
+#: bivariate tests equal (LISA's and the local bivariate lags add their terms
+#: in a fixed order by elementwise operations, the same bits on both).
+HT_CVC_CELLS = 1_000
+HT_CVC_BAR = {"pca explained variance": 1e-10, "pca top components": 1e-10, "arpack components": 1e-10,
+              "sample kmeans": 0.0, "bridge": 0.0, "morani otsu pixels": 0.0, "morani edge-watershed pixels": 0.0,
+              "lisa I, lag, p-values": 0.0, "lisa quadrants": 0.0, "lisa_geo_df Is": 0.0, "local_moran_i": 0.0,
+              "GM_lag_model": 1e-10, "bv I": 1e-10, "bv null": 1e-10, "bv p-values": 0.0,
+              "bv local I, p-values": 0.0, "bv local null": 1e-10, "spatial DEGs": 1e-12}
+
+
+def host_tools_cuda_vs_cpu(stt, card="cuda", n=HT_CVC_CELLS):
+    """Phase 31's comparisons of `card` against the CPU: every new public
+    entry point of phase 30 that takes `device` runs once on each side:
+    {check: (value, bar)}; `check` fails where a value passes its bar."""
+    from bench import make_raster
+    from spateo_tpu_torch.alignment.methods import sampling
+    from spateo_tpu_torch.core import bridge
+    from spateo_tpu_torch.segmentation import moran
+    from spateo_tpu_torch.tools import lisa as tl
+    from spateo_tpu_torch.tools.dimensionality_reduction import PCA, pca_fit
+
+    sides = (card, "cpu")
+    ads = {d: host_tools_section(stt, n, 200) for d in sides}
+    ad = ads["cpu"]
+    names = list(ad.var_names)
+    bands = np.asarray(ad.obs["band"]).astype(int)
+    P = np.asarray(ad.obsm["spatial"])
+    out = {}
+
+    def differ(a, b):  # the share of entries that differ
+        return float(np.mean(np.asarray(a) != np.asarray(b)))
+
+    X = ad.X.toarray().astype(np.float64)
+    fits = [pca_fit(X, n_components=10, svd_solver="randomized", random_state=0, device=d)[0] for d in sides]
+    out["pca explained variance"] = rel_err(fits[0].explained_variance_, fits[1].explained_variance_)
+    out["pca top components"] = rel_err(fits[0].components_[:6], fits[1].components_[:6])
+    ar = [PCA(10, svd_solver="arpack", random_state=0, device=d).fit(X) for d in sides]
+    out["arpack components"] = rel_err(ar[0].components_, ar[1].components_)
+
+    out["sample kmeans"] = differ(*(sampling.sample(P, 100, method="kmeans", device=d) for d in sides))
+    dense = [bridge.layer_to_device(ad, "counts", pad_rows_to=8, pad_cols_to=128, device=d)[0] for d in sides]
+    seg = [bridge.segment_sum_device(x[:n], bands, SVG_BANDS, device=d).cpu() for x, d in zip(dense, sides)]
+    csr = [bridge.csr_to_dense_device(ad.layers["counts"], device=d)[0].cpu() for d in sides]
+    tot = np.asarray(ad.layers["counts"].sum(1)).ravel()
+    ras = [bridge.points_to_raster(P[:, 0] / 10, P[:, 1] / 10, tot, (1000, 600), device=d).cpu() for d in sides]
+    out["bridge"] = float(not all(torch.equal(a.cpu(), b.cpu()) for a, b in (dense, seg, csr, ras)))
+
+    Xr = make_raster(256, 256, seed=0)
+    _, c, _, p = moran.moranI(Xr, moran._moran_kernel_weights(7), device="cpu")
+    for mode in ("otsu", "edge-watershed"):
+        out[f"morani {mode} pixels"] = differ(*(moran.binary_morani_result(c, p, method=mode, device=d)
+                                                for d in sides))
+
+    Xs = ad.X[:, :40].toarray().astype(np.float64)
+    lm_ = [tl._local_moran(Xs, *tl._row_std_knn_w(P, 5, d), permutations=99) for d in sides]
+    out["lisa I, lag, p-values"] = max(differ(lm_[0][k], lm_[1][k]) for k in (0, 2, 4))
+    out["lisa quadrants"] = differ(lm_[0][1], lm_[1][1])
+    geo = [stt.tl.lisa_geo_df(ads[d], names[0], device=d)[1] for d in sides]
+    out["lisa_geo_df Is"] = differ(geo[0]["Is"], geo[1]["Is"])
+    for d in sides:
+        stt.tl.local_moran_i(ads[d], "band", genes=names[:20], device=d)
+        stt.tl.GM_lag_model(ads[d], "band", genes=names[:20], layer="counts", device=d)
+    spots = [k for k in ad.var.columns if k.endswith(("_val", "_group"))]
+    out["local_moran_i"] = differ(ads[card].var.loc[names[:20], spots], ad.var.loc[names[:20], spots])
+    cols = [k for k in ad.var.columns if "_GM_lag_" in k]
+    out["GM_lag_model"] = max(rel_err(ads[card].var.loc[names[:20], k].astype(float),
+                                      ad.var.loc[names[:20], k].astype(float)) for k in cols)
+
+    for d in sides:
+        ads[d].obs["x0"] = ads[d].X[:, [0]].toarray().ravel()
+    bv = [stt.tl.spatial_bv_moran_obs_genes(ads[d], "x0", genes=names[1:21], copy=True, device=d) for d in sides]
+    out["bv I"] = rel_err(bv[0]["I"], bv[1]["I"])
+    out["bv null"] = max(rel_err(bv[0][k], bv[1][k]) for k in ("EI_sim", "z_sim"))
+    out["bv p-values"] = differ(bv[0]["pval_sim"], bv[1]["pval_sim"])
+    loc = [stt.tl.spatial_bv_local_moran(ads[d], "x0", names[6], copy=True, device=d) for d in sides]
+    out["bv local I, p-values"] = max(differ(loc[0][k], loc[1][k]) for k in ("I", "q", "pval_sim"))
+    out["bv local null"] = max(rel_err(loc[0][k], loc[1][k]) for k in ("EI_sim", "z_sim"))
+
+    sdeg = [stt.tl.find_spatial_cluster_degs(ads[d], "0", group="band", genes=names[:60], k=10, device=d) for d in sides]
+    num = [k for k in sdeg[1].columns if sdeg[1][k].dtype.kind == "f"]
+    same = list(sdeg[0]["gene"]) == list(sdeg[1]["gene"])
+    out["spatial DEGs"] = max(rel_err(sdeg[0][k], sdeg[1][k]) for k in num) if same and len(sdeg[1]) else float(not same)
+    return {k: (v, HT_CVC_BAR[k]) for k, v in out.items()}
+
+
+def phase_host_tools_cuda_vs_cpu(stt):
+    """Phase 31: phase 30's entry points on the card against the CPU, at a
+    small size."""
+    t_phase = time.perf_counter()
+    out = host_tools_cuda_vs_cpu(stt)
+    print(f"phase 31: card vs CPU at {HT_CVC_CELLS:,} cells: " + "; ".join(
+        f"{k} {v!r} (bar {b})" for k, (v, b) in out.items()) + f"; phase 31 {time.perf_counter() - t_phase!r} s")
+    for k, (v, bar) in out.items():
+        check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
+
+
 def main(argv=None):
     import argparse
 
@@ -4203,9 +4531,10 @@ def main(argv=None):
     t_start = time.perf_counter()
     phase_seconds, last = {}, [t_start]
 
-    def mark(group):  # the seconds since the last mark, under `group`
+    def mark(phase):  # the seconds since the last mark, under `phase`, printed as they end
         now = time.perf_counter()
-        phase_seconds[group], last[0] = now - last[0], now
+        phase_seconds[phase], last[0] = now - last[0], now
+        print(f"chip_smoke: phase {phase} {phase_seconds[phase]!r} s", flush=True)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU")
@@ -4242,22 +4571,26 @@ def main(argv=None):
     launches = delta_launches = 0
     if want(3):
         launches, delta_launches, mask = phase_starro_main(stt, bp_cuda, em, ts, make_raster)
+    mark("3")
     if want(4):
         phase_starro_cuda_vs_cpu_512(em, ts, make_raster)
 
-    mark("3-4")
+    mark("4")
     # -- phases 5-7: Morpho ---------------------------------------------------------
     estats = phase_estep_kernels()
     istats = phase_inlier_kernel()
+    mark("5")
     est_launches = phase_morpho_main() if want(6) else {"colnorm": 0, "rowred": 0, "inlier": 0}
+    mark("6")
     if want(7):
         phase_morpho_cuda_vs_cpu()
 
-    mark("5-7")
+    mark("7")
     # -- phases 8-10: digitization and labeling ---------------------------------------
     from spateo_tpu_torch.ops import jacobi_cuda
 
     jstats = phase_jacobi_kernel()
+    mark("8")
     jacobi_cuda.jacobi_block.launches = jacobi_cuda.jacobi_block.err_launches = 0
     if want(9):
         pde_launches = phase_pde_configs()
@@ -4271,73 +4604,100 @@ def main(argv=None):
         print(f"phase 9: jacobi_block launches in the main path {jacobi_launches}, fused-reduction launches "
               f"{reduce_launches}")
         phase_labeling(mask)
+    mark("9")
     if want(10):
         phase_digitization_cuda_vs_cpu(stt)
 
-    mark("8-10")
+    mark("10")
     # -- phases 11-13: morphofields, and the atlas chain through the port ---------
     if want(11):
         phase_morphofield_main(stt)
+    mark("11")
     if want(12):
         phase_morphofield_cuda_vs_cpu(stt)
+    mark("12")
     if want(13):
         phase_atlas_chain()
 
-    mark("11-13")
+    mark("13")
     # -- phases 14-15: MuSIC ----------------------------------------------------------
     if want(14):
         phase_music_bench()
         phase_music_fit()
+    mark("14")
     if want(15):
         phase_music_cuda_vs_cpu()
 
-    mark("14-15")
+    mark("15")
     # -- phases 16-17: the rest of Starro ------------------------------------------------
     staged_launches, staged_deltas = phase_starro_tutorial() if want(16) else (0, 0)
+    mark("16")
     if want(17):
         phase_starro_cuda_vs_cpu()
 
-    mark("16-17")
+    mark("17")
     # -- phases 18-19: SVG detection and PASTE -------------------------------------------
     if want(18):
-        phase_svg_paste_cuda_vs_cpu(*phase_svg_paste())
+        svg_inputs = phase_svg_paste()
+        mark("18")
+        phase_svg_paste_cuda_vs_cpu(*svg_inputs)
 
-    mark("18-19")
+    mark("19")
     # -- phases 20-21: rigid alignment, mesh correction, st.pp, k-means --------------------
     if want(20):
         phase_e95(stt)
+    mark("20")
     if want(21):
         phase_e95_cuda_vs_cpu(stt)
 
-    mark("20-21")
+    mark("21")
     # -- phases 22-23: 3D reconstruction ------------------------------------------------------
     backbone = phase_tdr(stt) if want(22) else None
+    mark("22")
     if want(23):
         phase_tdr_cuda_vs_cpu(stt)
 
-    mark("22-23")
+    mark("23")
     # -- phases 24-25: MuSIC's interpretation, refine_alignment, the Frobenius NMF --------------
     if want(24):
         phase_interpretation()
+    mark("24")
     if want(25):
         phase_interpretation_cuda_vs_cpu()
 
-    mark("24-25")
+    mark("25")
     # -- phases 26-27: interpolation engines, clustering, UMAP, the CCI test ---------------------
     if want(26):
         phase_interp_cluster(stt, backbone)
+    mark("26")
     if want(27):
         phase_interp_cluster_cuda_vs_cpu(stt)
 
-    mark("26-27")
+    mark("27")
     # -- phases 28-29: the external models (CAST, STAGATE, merfishVI) ------------------------------
     if want(28):
         phase_external(stt)
+    mark("28")
     if want(29):
         phase_external_cuda_vs_cpu(stt)
 
-    mark("28-29")
-    print("chip_smoke: seconds by phase group " + json.dumps({k: round(v, 1) for k, v in phase_seconds.items()}))
+    mark("29")
+    # -- phases 30-31: the host tools and the names item 17 added ---------------------------------------------------
+    if want(30):
+        phase_host_tools(stt)
+    mark("30")
+    if want(31):
+        phase_host_tools_cuda_vs_cpu(stt)
+
+    mark("31")
+    groups = {}
+    for k, v in phase_seconds.items():  # as earlier runs grouped them: a slice's main path and its checks
+        n = int(k)
+        g = next((f"{lo}-{hi}" for lo, hi in ((3, 4), (5, 7), (8, 10), (11, 13), (14, 15)) if lo <= n <= hi),
+                 f"{n - n % 2}-{n - n % 2 + 1}" if n >= 16 else k)
+        groups[g] = groups.get(g, 0.0) + v
+    print("chip_smoke: seconds by phase " + json.dumps({k: round(v, 1) for k, v in phase_seconds.items()}))
+    print("chip_smoke: seconds by phase group " + json.dumps({k: round(v, 1) for k, v in groups.items()}))
     print(f"chip_smoke: every chosen phase passed in {time.perf_counter() - t_start!r} s")
     print(card)
     print(json.dumps({"kernels": [

@@ -15,7 +15,7 @@ from .math import (
 from .mesh_correction import Mesh_correction
 from .morpho import Morpho_pairwise, filter_common_genes, get_rep
 from .paste import KLNMF, center_NMF, generalized_procrustes_analysis, paste_center_align, paste_pairwise_align
-from .sampling import sample_indices
+from .sampling import sample, sample_indices
 
 
 def empty_cache(device="cuda"):

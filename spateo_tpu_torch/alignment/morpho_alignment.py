@@ -301,3 +301,16 @@ def morpho_align_apply_transformation(
         align_models.append(cur_model)
     if save_models_path is None:
         return align_models
+
+
+def remove_all_files_in_directory(directory: str) -> None:
+    """Clear a transformation-checkpoint directory (parity: reference
+    morpho_alignment.py remove_all_files_in_directory)."""
+    import os
+
+    if not os.path.isdir(directory):
+        return
+    for f in os.listdir(directory):
+        p = os.path.join(directory, f)
+        if os.path.isfile(p):
+            os.remove(p)

@@ -14,11 +14,20 @@ interpolator's SIREN, `sgpr_params_from_reference` a sparse GP's parameters,
 `cast_params_from_reference`, `stagate_params_from_reference` and
 `merfishvi_params_from_reference` the weights of the external models; all are
 duck-typed, so that this module never imports the JAX package.
+
+`csr_to_dense_device`, `layer_to_device`, `segment_sum_device` and
+`points_to_raster` are the JAX package's device helpers: a CSR layer or a
+list of point reads goes up as its nonzeros and is scattered into a padded
+dense tensor on the card (`index_put_(accumulate=True)`, or `index_add_`
+for a segment sum). Host float64 and int64 narrow to float32 and int32, as
+in the JAX package with x64 off, and an index out of range is dropped, as
+XLA's scatter drops it. Sums of whole numbers below 2^24 are exact in any
+order, so those agree with the JAX package bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +53,101 @@ def to_device(x, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Te
     else:
         t = t.to(device)
     return t if dtype is None else t.to(dtype)
+
+
+def _pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of m that is >= n."""
+    return ((n + m - 1) // m) * m
+
+
+def _narrow(a: np.ndarray) -> np.ndarray:
+    """64-bit host data as 32-bit, as JAX takes it with x64 off."""
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        return a.astype(np.float32)
+    if a.dtype == np.int64:
+        return a.astype(np.int32)
+    return a
+
+
+def _scatter_add(size: int, flat: np.ndarray, vals: np.ndarray, dtype, device) -> torch.Tensor:
+    """A [size] tensor on `device` with `vals` added at `flat` (out-of-range
+    indices dropped)."""
+    flat = np.asarray(flat, np.int64)
+    keep = (flat >= 0) & (flat < size)
+    vals = np.asarray(vals)
+    if not keep.all():
+        flat, vals = flat[keep], vals[keep]
+    out = torch.zeros(size, dtype=dtype, device=device)
+    return out.index_put_((to_device(flat, device),), to_device(vals, device, dtype), accumulate=True)
+
+
+def csr_to_dense_device(
+    mat: sparse.spmatrix,
+    dtype: torch.dtype = torch.float32,
+    pad_rows_to: int = 1,
+    pad_cols_to: int = 1,
+    device="cuda",
+) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """A sparse matrix as a zero-padded dense tensor on `device`, built there
+    from its nonzeros: (dense [padded R, padded C], (R, C))."""
+    mat = mat.tocoo()
+    R, C = mat.shape
+    Rp = _pad_to_multiple(max(R, 1), pad_rows_to)
+    Cp = _pad_to_multiple(max(C, 1), pad_cols_to)
+    flat = mat.row.astype(np.int64) * Cp + mat.col.astype(np.int64)
+    return _scatter_add(Rp * Cp, flat, _narrow(mat.data), dtype, device).reshape(Rp, Cp), (R, C)
+
+
+def layer_to_device(
+    adata,
+    layer: Optional[str] = None,
+    dtype: torch.dtype = torch.float32,
+    pad_rows_to: int = 1,
+    pad_cols_to: int = 1,
+    device="cuda",
+) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """An AnnData layer as a zero-padded dense tensor on `device`:
+    (dense [padded R, padded C], (R, C))."""
+    from ..configuration import SKM
+
+    X = SKM.select_layer_data(adata, layer)
+    if sparse.issparse(X):
+        return csr_to_dense_device(X, dtype, pad_rows_to, pad_cols_to, device)
+    X = np.asarray(X)
+    R, C = X.shape
+    Rp = _pad_to_multiple(max(R, 1), pad_rows_to)
+    Cp = _pad_to_multiple(max(C, 1), pad_cols_to)
+    out = torch.zeros((Rp, Cp), dtype=dtype, device=device)
+    out[:R, :C] = to_device(_narrow(X), device, dtype)
+    return out, (R, C)
+
+
+def segment_sum_device(values, segment_ids, num_segments: int, device="cuda") -> torch.Tensor:
+    """The sums of `values` over `segment_ids` on `device`, [num_segments,
+    ...] (ids outside [0, num_segments) dropped)."""
+    values = values if isinstance(values, torch.Tensor) else to_device(_narrow(values), device)
+    ids = segment_ids if isinstance(segment_ids, torch.Tensor) else to_device(np.asarray(segment_ids), device)
+    ids = ids.to(device=values.device, dtype=torch.int64)
+    keep = (ids >= 0) & (ids < num_segments)
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device)
+    return out.index_add_(0, ids[keep], values[keep])
+
+
+def points_to_raster(
+    x: np.ndarray,
+    y: np.ndarray,
+    counts: np.ndarray,
+    shape: Tuple[int, int],
+    dtype: torch.dtype = torch.float32,
+    device="cuda",
+) -> torch.Tensor:
+    """(x, y, count) reads summed into a dense [H, W] raster on `device`
+    (what the reference builds on the host as
+    ``csr_matrix((count, (x, y)))``, reference spateo/io/bgi.py:186-213)."""
+    H, W = shape
+    flat = np.asarray(x).astype(np.int32).astype(np.int64) * W + np.asarray(y).astype(np.int32)
+    return _scatter_add(H * W, flat, _narrow(counts), dtype, device).reshape(H, W)
 
 
 def adata_from_reference(adata) -> AnnData:

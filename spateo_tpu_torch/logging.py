@@ -1,12 +1,14 @@
 """Leveled logger and a device-honest timer.
 
 Counterpart of `spateo_tpu.logging`: the same `logger_manager.main_*` surface,
-and `log_time`, which waits for the card (`torch.cuda.synchronize()`) where
-the JAX package waited on `jax.effects_barrier()`.
+`log_time`, which waits for the card (`torch.cuda.synchronize()`) where the
+JAX package waited on `jax.effects_barrier()`, and the helpers `timeit`,
+`silence_logger`, `set_logger_level` and `format_logging_message`, copied.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import sys
 import time
@@ -92,3 +94,45 @@ def log_time(name: str, logger: Optional[Logger] = None, sync: bool = True):
     if sync and torch.cuda.is_initialized():
         torch.cuda.synchronize()
     logger.info(f"{name}: {time.perf_counter() - t0:.4f}s")
+
+
+def timeit(fn):
+    """Wrap `fn` so that each call is timed by `log_time` under its name."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with log_time(fn.__qualname__):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def silence_logger(name: str) -> None:
+    """Silence a named stdlib logger completely (parity: reference
+    external/lack.py:30)."""
+    package_logger = logging.getLogger(name)
+    package_logger.setLevel(logging.CRITICAL + 100)
+    package_logger.propagate = False
+
+
+def set_logger_level(name: str, level) -> None:
+    """Set a named stdlib logger's level (parity: external/lack.py:41)."""
+    logging.getLogger(name).setLevel(level)
+
+
+def format_logging_message(msg, logging_level, indent_level: int = 1, indent_space_num: int = 6) -> str:
+    """The lack arrow-prefix message format (parity: external/lack.py:51):
+    ``|----->`` info, ``|-----?`` warning, ``|-----!!`` critical,
+    ``|----->>>`` debug."""
+    indent_str = "-" * indent_space_num
+    prefix = indent_str * indent_level
+    prefix = "|" + prefix[1:]
+    if logging_level == logging.INFO:
+        prefix += ">"
+    elif logging_level == logging.WARNING:
+        prefix += "?"
+    elif logging_level == logging.CRITICAL:
+        prefix += "!!"
+    elif logging_level == logging.DEBUG:
+        prefix += ">>>"
+    return prefix + " " + str(msg)

@@ -1,9 +1,10 @@
 """Preprocessing layer (`stt.pp`): filters, normalization (total counts,
 the edgeR factors with TMM on the device, Seurat HVFs), the expression
-transforms and spatial binning, ported from `spateo_tpu.preprocessing`.
-`auxseg` and `image` are not ported yet (ROADMAP Queue 1 item 11)."""
+transforms, spatial binning and the live-wire segmentation helpers of
+`auxseg`, ported from `spateo_tpu.preprocessing`. `image` is not ported yet
+(ROADMAP Queue 1 item 11)."""
 
-from . import filter
+from . import auxseg, filter
 from .aggregate import bin_adata
 from .filter import filter_by_coordinates, filter_cells, filter_genes
 from .normalize import (

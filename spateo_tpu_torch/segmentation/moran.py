@@ -4,6 +4,12 @@ Counterpart of `spateo_tpu.segmentation.moran`: the per-pixel local Moran's
 I, its z-score and two-sided p-value (the normal survival function through
 `torch.special.ndtr`), in one pass of reductions and one convolution.
 
+`binary_morani_result` turns the scores and p-values into a cell mask: the
+Otsu cut of the p-value histogram, or a Sobel edge map of the p-values (the
+JAX package's 3 x 3 taps on the reflect-padded map) flooded by
+`ops.labels`'s watershed from markers at p > 0.95 and p < 1e-5; both on
+`device`, the 8-bit scalings on the host as in the JAX package.
+
 The pixel count n is an int64 here. The JAX package takes it as int32 and
 forms ``(n - 1) * (n - 2)`` and ``(n - 1) ** 2`` in int32, which wrap above
 46,341 pixels; below that the two agree.
@@ -104,3 +110,55 @@ def run_moran_and_mask_pixels(
         m = m & _mask_tensor(X, mask)
     out = mask_layer or SKM.gen_new_layer_key(layer, SKM.MASK_SUFFIX)
     SKM.set_layer_data(adata, out, mclose_mopen(m, mk).cpu().numpy())
+
+
+def binary_morani_result(
+    c: np.ndarray,
+    p: np.ndarray,
+    pvalue_cutoff: Optional[float] = None,
+    method: str = "edge-watershed",
+    c_cutoff: Optional[float] = None,
+    tissue_mask: Optional[np.ndarray] = None,
+    device="cuda",
+) -> np.ndarray:
+    """Cell mask from per-pixel Moran's I scores `c` and p-values `p`
+    (parity: reference moran.py:129). Two significance modes: Otsu on the
+    p-value histogram, or Sobel-edge watershed into fore/background; the
+    final mask also requires the (0-255 scaled) Moran score to clear an Otsu
+    threshold."""
+    from ..ops.labels import _watershed_kernel
+
+    c = np.asarray(c, float)
+    p = np.asarray(p, float)
+    if pvalue_cutoff is None:
+        if method == "otsu":
+            p8 = (p * 255).astype(np.uint8)
+            p2 = p8[tissue_mask > 0] if isinstance(tissue_mask, np.ndarray) else p8.ravel()
+            pvalue_cutoff = threshold_otsu(p2.astype(np.float32), device=device)
+            p_cell_mask = p8 <= pvalue_cutoff
+        elif method == "edge-watershed":
+            kx = np.array([[1, 0, -1], [2, 0, -2], [1, 0, -1]], np.float32) / 8
+            pp = _reflect_pad(_as_tensor(p, device, torch.float32), 1)
+            gx = _conv2d_kernel(pp, kx)
+            gy = _conv2d_kernel(pp, kx.T)
+            edges = torch.sqrt(gx**2 + gy**2)
+            markers = np.zeros_like(p, np.int32)
+            markers[p > 0.95] = 2  # background
+            markers[p < 1e-5] = 1  # foreground
+            ws = _watershed_kernel(edges, _as_tensor(markers, device), torch.ones_like(edges, dtype=torch.bool))
+            p_cell_mask = (ws == 1).cpu().numpy()
+        else:
+            raise ValueError(f"unknown method {method}; use 'otsu' or 'edge-watershed'")
+    else:
+        p_cell_mask = p <= pvalue_cutoff
+
+    if c_cutoff is None:
+        c8 = ((c - c.min()) / max(c.max() - c.min(), 1e-12) * 255).astype(np.uint8)
+        sel = p_cell_mask & (tissue_mask > 0) if isinstance(tissue_mask, np.ndarray) else p_cell_mask
+        vals = c8[sel]
+        c_cutoff = threshold_otsu(vals.astype(np.float32), device=device) if vals.size else 0.0
+        c = c8
+    mask = p_cell_mask & (c >= c_cutoff)
+    if isinstance(tissue_mask, np.ndarray):
+        mask &= tissue_mask > 0
+    return mask.astype(bool)

@@ -3,14 +3,22 @@
 spatial clustering (`scc` with Louvain/Leiden, `mclust_py`, SpaGCN,
 k-means), UMAP, the Moran's I tests (`moran_i`, `cellbin_morani`), the
 two-group CCI test, the coarse slice pre-alignment (`procrustes`,
-`AffineTrans`, `pca_align`, `align_slices_pca`), PCA (`pca`, `pca_fit`) and
-the shared helpers of `tools.utils`, ported from `spateo_tpu.tools`. Not
-ported yet (ROADMAP Queue 1 item 11): the host tools (GLM DEGs, LISA,
-spatial smoothing and correlation, cluster DEGs and lasso, the CCI
+`AffineTrans`, `pca_align`, `align_slices_pca`), PCA (`pca`, `pca_fit`),
+the shared helpers of `tools.utils`, and the host tools: cluster and GLM
+DEGs, LISA and the spatial-lag model, bivariate Moran, smoothing, the CCI
 databases' niche tools and FDR, expression variance, labels, archetypes,
-live wire, ROI) and t-SNE."""
+the lasso, live wire and ROI, ported from `spateo_tpu.tools`. LISA,
+bivariate Moran and the spatial DEGs' kNN run on the card. t-SNE is not
+ported yet (ROADMAP Queue 1 item 11)."""
 
-from . import cci_two_cluster, find_neighbors, spatial_degs
+from . import cci_fdr, cci_two_cluster, find_neighbors, spatial_degs
+from .architype import (
+    archetypes,
+    archetypes_genes,
+    find_spatial_archetypes,
+    find_spatially_related_genes,
+    get_genes_from_spatial_archetype,
+)
 from .cci_two_cluster import find_cci_two_group, prepare_cci_cellpair_adata, prepare_cci_df
 from .cluster import (
     CAST,
@@ -33,7 +41,10 @@ from .cluster import (
     spagcn_vanilla,
     spatial_adj,
 )
+from .cell_communication import niches, predict_ligand_activities, predict_target_genes
 from .cluster.find_clusters import smooth as smooth_labels
+from .cluster_degs import find_all_cluster_degs, find_cluster_degs, find_spatial_cluster_degs, top_n_degs
+from .cluster_lasso import Lasso
 from .CCI_effects_modeling import (
     SWR,
     MuSIC,
@@ -56,4 +67,18 @@ from .find_neighbors import (
     local_dist,
     neighbors,
 )
+from .gene_expression_variance import (
+    compute_gene_groups_p_val,
+    compute_variance_decomposition,
+    genewise_variance_decomposition,
+    get_highvar_genes,
+    get_highvar_genes_sparse,
+)
+from .glm import glm_degs
+from .labels import Label, create_label_class, expand_labels, match_label_series, match_labels, row_normalize
+from .lisa import GM_lag_model, lisa_geo_df, local_moran_i
+from .live_wire import LiveWireSegmentation, compute_shortest_path, live_wire
+from .roi import ROIAnnotator, img_segmentation
+from .spatial_correlation import spatial_bv_local_moran, spatial_bv_moran_obs_genes
 from .spatial_degs import cellbin_morani, moran_i
+from .spatial_smooth import smooth

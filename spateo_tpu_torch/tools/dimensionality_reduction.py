@@ -7,8 +7,8 @@ The sketch products, the QR factorizations and the small SVD run in float64
 on `device`; a sparse X goes up as a CSR tensor (and its transpose as
 another) and is never densified. ``Omega`` is drawn on the host from
 ``np.random.default_rng(random_state)`` exactly as the JAX package draws it.
-`pca_fit` fits `PCA`, scikit-learn 1.9's exact PCA ported (the GPU machine
-has no scikit-learn), and `find_optimal_pca_components` takes its elbow from
+`pca_fit` fits `PCA`, scikit-learn 1.9's PCA with its four solvers ported
+(the GPU machine has no scikit-learn), and `find_optimal_pca_components` takes its elbow from
 `randomized_pca_centered`.
 
 UMAP (`umap_conn_indices_dist_embedding`, `perform_dimensionality_reduction`)
@@ -85,23 +85,88 @@ def randomized_pca_centered(
     return X_pca, components, explained_variance
 
 
-class PCA:
-    """``sklearn.decomposition.PCA(n_components, svd_solver)`` of
-    scikit-learn 1.9 for dense X, ported for the solvers its exact path
-    takes: ``"covariance_eigh"`` (the eigendecomposition of X^T X less
-    n mean mean^T, over n - 1; what ``"auto"`` picks when d <= 1,000 and
-    n >= 10 d) and ``"full"`` (the SVD of the centred X; ``"auto"``'s pick
-    when max(n, d) <= 500, or when n_components >= 0.8 min(n, d)). The
-    randomized and ARPACK solvers, and a float or ``"mle"`` n_components,
-    raise. Runs in float64 on `device`, with `svd_flip`'s signs (each
-    component's largest-magnitude entry positive). `fit` sets the host
-    arrays `mean_`, `components_`, `explained_variance_`,
-    `explained_variance_ratio_`, `singular_values_`, `noise_variance_`,
-    `n_components_` and `n_samples_`."""
+def _check_random_state(seed) -> np.random.RandomState:
+    """scikit-learn's `check_random_state`: None -> numpy's global
+    `RandomState`, an int -> a new one, a `RandomState` -> itself."""
+    if seed is None or seed is np.random:
+        return np.random.mtrand._rand
+    if isinstance(seed, (int, np.integer)):
+        return np.random.RandomState(seed)
+    if isinstance(seed, np.random.RandomState):
+        return seed
+    raise ValueError(f"{seed!r} cannot be used to seed a numpy.random.RandomState instance")
 
-    def __init__(self, n_components: Optional[int] = None, svd_solver: str = "auto", device="cuda"):
+
+def _svd_flip_rows(Vt: torch.Tensor) -> torch.Tensor:
+    """scikit-learn's ``svd_flip(u_based_decision=False)`` on Vt alone: each
+    row signed so that its largest-magnitude entry is positive."""
+    rows = torch.arange(Vt.shape[0], device=Vt.device)
+    return Vt * torch.sign(Vt[rows, torch.argmax(Vt.abs(), dim=1)])[:, None]
+
+
+def _randomized_svd(M: torch.Tensor, n_components: int, n_oversamples: int, n_iter, power_iteration_normalizer: str,
+                    random_state: np.random.RandomState):
+    """scikit-learn 1.9's ``_randomized_svd(M, ..., transpose="auto",
+    flip_sign=False)`` (`sklearn/utils/extmath.py`) on M's device: the
+    Gaussian sketch from `random_state` on the host, `n_iter` power
+    iterations normalised by LU (P applied to L, scipy's ``permute_l=True``),
+    QR or nothing, an economic QR, the small SVD. Returns (U, s, Vt)."""
+    n_random = n_components + n_oversamples
+    n_samples, n_features = M.shape
+    if n_iter == "auto":
+        n_iter = 7 if n_components < 0.1 * min(M.shape) else 4
+    transpose = n_samples < n_features
+    if transpose:
+        M = M.T
+    Q = torch.as_tensor(random_state.normal(size=(M.shape[1], n_random)), dtype=M.dtype, device=M.device)
+    if power_iteration_normalizer == "auto":
+        power_iteration_normalizer = "none" if n_iter <= 2 else "LU"
+
+    def qr(A):
+        return torch.linalg.qr(A, mode="reduced").Q
+
+    def lu(A):
+        P, L, _ = torch.linalg.lu(A)
+        return P @ L
+
+    normalizer = {"QR": qr, "LU": lu, "none": lambda A: A}[power_iteration_normalizer]
+    for _ in range(n_iter):
+        Q = normalizer(M @ Q)
+        Q = normalizer(M.T @ Q)
+    Q = qr(M @ Q)
+    Uhat, s, Vt = torch.linalg.svd(Q.T @ M, full_matrices=False)
+    U = Q @ Uhat
+    if transpose:
+        return Vt[:n_components].T, s[:n_components], U[:, :n_components].T
+    return U[:, :n_components], s[:n_components], Vt[:n_components]
+
+
+class PCA:
+    """``sklearn.decomposition.PCA`` of scikit-learn 1.9 for dense X, ported
+    (the GPU machine has no scikit-learn), with its four solvers and its
+    ``"auto"`` choice among them: ``"covariance_eigh"`` (the
+    eigendecomposition of X^T X less n mean mean^T, over n - 1; picked when
+    d <= 1,000 and n >= 10 d), ``"full"`` (the SVD of the centred X; picked
+    when max(n, d) <= 500, or when n_components >= 0.8 min(n, d)),
+    ``"randomized"`` (`_randomized_svd`, picked otherwise) and ``"arpack"``
+    (scipy's `svds` on the host, its start vector uniform(-1, 1) from
+    `random_state`, as scikit-learn's `_init_arpack_v0` draws it). A float
+    or ``"mle"`` n_components raises. Runs in float64 on `device`, with
+    `svd_flip`'s signs (each component's largest-magnitude entry positive).
+    `fit` sets the host arrays `mean_`, `components_`,
+    `explained_variance_`, `explained_variance_ratio_`, `singular_values_`,
+    `noise_variance_`, `n_components_` and `n_samples_`."""
+
+    def __init__(self, n_components: Optional[int] = None, svd_solver: str = "auto", tol: float = 0.0,
+                 iterated_power="auto", n_oversamples: int = 10, power_iteration_normalizer: str = "auto",
+                 random_state=None, device="cuda"):
         self.n_components = n_components
         self.svd_solver = svd_solver
+        self.tol = tol
+        self.iterated_power = iterated_power
+        self.n_oversamples = n_oversamples
+        self.power_iteration_normalizer = power_iteration_normalizer
+        self.random_state = random_state
         self.device = device
 
     def _solver(self, n: int, d: int, k: int) -> str:
@@ -113,24 +178,39 @@ class PCA:
                 solver = "full"
             else:
                 solver = "randomized"
-        if solver not in ("full", "covariance_eigh"):
-            raise NotImplementedError(
-                f"PCA(svd_solver={self.svd_solver!r}) at {n} x {d} with {k} components takes scikit-learn's "
-                f"{solver!r} solver, which is not ported; pass svd_solver='full' or 'covariance_eigh'."
-            )
+        if solver not in ("full", "covariance_eigh", "randomized", "arpack"):
+            raise ValueError(f"PCA(svd_solver={self.svd_solver!r}): unknown solver")
         return solver
 
     def fit(self, X) -> "PCA":
         X = np.asarray(X, dtype=np.float64)
         n, d = X.shape
-        k = min(n, d) if self.n_components is None else self.n_components
+        if self.n_components is None:
+            k = min(n, d) - 1 if self.svd_solver == "arpack" else min(n, d)
+        else:
+            k = self.n_components
         if not isinstance(k, (int, np.integer)):
             raise NotImplementedError(f"PCA(n_components={k!r}): only a whole number of components is ported.")
-        if not 0 <= k <= min(n, d):
-            raise ValueError(f"n_components={k} must be between 0 and min(n_samples, n_features)={min(n, d)}")
         solver = self._solver(n, d, k)
+        if solver in ("full", "covariance_eigh"):
+            if not 0 <= k <= min(n, d):
+                raise ValueError(f"n_components={k} must be between 0 and min(n_samples, n_features)={min(n, d)}")
+        elif not 1 <= k <= min(n, d) - (solver == "arpack"):
+            raise ValueError(f"n_components={k} must be between 1 and min(n_samples, n_features)={min(n, d)} "
+                             f"(strictly below it with svd_solver='arpack')")
         Xd = torch.as_tensor(X, device=self.device)
         mean = Xd.mean(0)
+        if solver in ("randomized", "arpack"):
+            self._fit_truncated(X, Xd - mean, k, solver)
+        else:
+            self._fit_full(Xd, mean, k, solver)
+        self.n_samples_, self.n_components_ = n, k
+        self.mean_ = mean.cpu().numpy()
+        self._mean_d = mean
+        return self
+
+    def _fit_full(self, Xd: torch.Tensor, mean: torch.Tensor, k: int, solver: str) -> None:
+        n, d = Xd.shape
         if solver == "full":
             _, S, Vt = torch.linalg.svd(Xd - mean, full_matrices=False)
             explained_variance = S**2 / (n - 1)
@@ -143,18 +223,39 @@ class PCA:
             explained_variance = evals
             S = torch.sqrt(evals * (n - 1))
             Vt = evecs.flip(1).T
-        rows = torch.arange(Vt.shape[0], device=Vt.device)
-        Vt = Vt * torch.sign(Vt[rows, torch.argmax(Vt.abs(), dim=1)])[:, None]
+        Vt = _svd_flip_rows(Vt)
         ratio = explained_variance / explained_variance.sum()
         self.noise_variance_ = float(explained_variance[k:].mean()) if k < min(n, d) else 0.0
-        self.n_samples_, self.n_components_ = n, k
-        self.mean_ = mean.cpu().numpy()
         self.components_ = Vt[:k].cpu().numpy()
         self.explained_variance_ = explained_variance[:k].cpu().numpy()
         self.explained_variance_ratio_ = ratio[:k].cpu().numpy()
         self.singular_values_ = S[:k].cpu().numpy()
-        self._components_d, self._mean_d = Vt[:k].contiguous(), mean
-        return self
+        self._components_d = Vt[:k].contiguous()
+
+    def _fit_truncated(self, X: np.ndarray, Xc: torch.Tensor, k: int, solver: str) -> None:
+        """scikit-learn's `_fit_truncated` for dense X (`_pca.py:697-790`)."""
+        n, d = X.shape
+        random_state = _check_random_state(self.random_state)
+        if solver == "arpack":
+            from scipy.sparse.linalg import svds
+
+            v0 = random_state.uniform(-1, 1, min(X.shape))
+            _, S, Vt = svds(X - X.mean(axis=0), k=k, tol=self.tol, v0=v0)
+            S = torch.as_tensor(S[::-1].copy(), device=Xc.device)
+            Vt = torch.as_tensor(Vt[::-1].copy(), device=Xc.device)
+        else:
+            _, S, Vt = _randomized_svd(Xc, k, self.n_oversamples, self.iterated_power,
+                                       self.power_iteration_normalizer, random_state)
+        Vt = _svd_flip_rows(Vt)
+        explained_variance = S**2 / (n - 1)
+        total_var = torch.sum(Xc**2) / (n - 1)
+        self.components_ = Vt.cpu().numpy()
+        self.explained_variance_ = explained_variance.cpu().numpy()
+        self.explained_variance_ratio_ = (explained_variance / total_var).cpu().numpy()
+        self.singular_values_ = S.cpu().numpy()
+        self.noise_variance_ = (float((total_var - explained_variance.sum()) / (min(n, d) - k))
+                                if k < min(n, d) else 0.0)
+        self._components_d = Vt.contiguous()
 
     def transform(self, X) -> np.ndarray:
         """The projection ``X C^T - mean C^T`` (scikit-learn's order), host."""

@@ -1243,3 +1243,39 @@ def test_no_host_read_in_external_loops(cuda):
         es._bspline_gd(q, r, cov, 50.0, 0.0, 10.0, 2.0, mx, 3, 5)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_host_tools_cuda_match_cpu(cuda):
+    """Phase 31 of chip_smoke.py at 500 cells, TF32 off: PCA's randomized and
+    ARPACK solvers, the k-means sample, the bridge helpers, both Moran
+    masks, LISA (statistics and p-values equal), the spatial-lag model,
+    bivariate Moran and the spatial DEGs, at `chip_smoke.HT_CVC_BAR`."""
+    import chip_smoke
+    import spateo_tpu_torch as stt
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = chip_smoke.host_tools_cuda_vs_cpu(stt, n=500)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    assert all(v <= bar for v, bar in out.values()), out
+
+
+def test_lisa_null_has_no_host_read(cuda):
+    """LISA's permutation null and the spatial-lag fits run with no host
+    read once their inputs are on the card."""
+    from spateo_tpu_torch.tools import lisa as tl
+
+    rng = np.random.default_rng(0)
+    nbr, w = tl._row_std_knn_w(rng.uniform(0, 10, (300, 2)), 5, "cuda")
+    Z = torch.from_numpy(rng.normal(size=(4, 300))).cuda()
+    H = torch.from_numpy(rng.normal(size=(300, 5))).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lag = tl._lag(nbr, w, Z)
+        (Z[:, None] * tl._neighbour_sum(Z, nbr[None].expand(3, -1, -1), w) >= lag[:, None]).sum(1)
+        tl._lag(nbr, w, H.T)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

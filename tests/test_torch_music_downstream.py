@@ -530,9 +530,10 @@ def test_compute_dim_reduction_matches_jax(monkeypatch):
 
 def test_pca_fit_matches_sklearn():
     """`pca_fit` and `PCA` against `sklearn.decomposition.PCA` for the
-    solvers `auto` picks (covariance_eigh, full) and both by name:
-    components, projections and variances within `PCA_TOL` of scale, the
-    same signs; other solvers raise."""
+    solvers `auto` picks (covariance_eigh, full, and randomized at 2,000 x
+    1,500) and the first two by name: components, projections and variances
+    within `PCA_TOL` of scale, the same signs; a float n_components
+    raises."""
     from sklearn.decomposition import PCA as SkPCA
 
     from spateo_tpu_torch.tools.dimensionality_reduction import PCA, pca_fit
@@ -551,8 +552,12 @@ def test_pca_fit_matches_sklearn():
     X = rng.normal(size=(300, 8))
     fit, X_pca = pca_fit(X, n_components=30, device="cpu")
     assert fit.n_components_ == 7 and _scaled(X_pca, SkPCA(n_components=7).fit(X).transform(X)) <= PCA_TOL
-    with pytest.raises(NotImplementedError, match="randomized"):
-        PCA(n_components=10, device="cpu").fit(rng.normal(size=(2000, 1500)))
+    X = rng.normal(size=(2000, 1500))
+    a = SkPCA(n_components=10, random_state=0).fit(X)
+    b = PCA(n_components=10, random_state=0, device="cpu").fit(X)
+    assert a._fit_svd_solver == "randomized"
+    assert _scaled(b.components_, a.components_) <= PCA_TOL
+    assert _scaled(b.explained_variance_, a.explained_variance_) <= PCA_TOL
     with pytest.raises(NotImplementedError, match="whole number"):
         PCA(n_components=0.9, device="cpu").fit(X)
 

@@ -266,9 +266,11 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
     the Frobenius center NMF, `cal_ami`, `cal_f1score`; the neighbour
     graphs, `scc`, `mclust_py`, k-means, the silhouette, SpaGCN, UMAP, the
     two-group CCI test, Moran's I of cell bins, the three interpolation
-    engines and `backbone_scc`) run on the CPU, bring in no scikit-learn,
-    JAX, optax, umap or `spateo_tpu`; and no line of the package imports
-    them."""
+    engines and `backbone_scc`; PCA's randomized and ARPACK solvers,
+    `sample`, `binary_morani_result`, the `core` device helpers, LISA, the
+    spatial-lag model, bivariate Moran, the spatial DEGs and smoothing) run
+    on the CPU, bring in no scikit-learn, JAX, optax, umap, `spateo_tpu`,
+    matplotlib or imageio; and no line of the package imports them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import numpy as np\n"
@@ -313,8 +315,29 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
         "bb = stt.tdr.PointCloud(np.c_[np.linspace(0, 10, 4), np.linspace(0, 10, 4)])\n"
         "bb.edges = np.array([[0, 1], [1, 2], [2, 3]])\n"
         "stt.tdr.backbone_scc(a, bb, e_neigh=8, s_neigh=4, device='cpu')\n"
+        "Y = rng.normal(size=(80, 40))\n"
+        "stt.tl.pca_fit(Y, n_components=5, svd_solver='randomized', device='cpu')\n"
+        "stt.tl.pca_fit(Y, n_components=5, svd_solver='arpack', device='cpu')\n"
+        "for m in ('random', 'trn', 'kmeans', 'lhs'):\n"
+        "    stt.align.methods.sample(c, 20, method=m, device='cpu')\n"
+        "stt.align.methods.sample(c, 20, method='velocity', V=c, device='cpu')\n"
+        "from spateo_tpu_torch.segmentation.moran import binary_morani_result, moranI, _moran_kernel_weights\n"
+        "_, mc, _, mp = moranI(np.abs(Y), _moran_kernel_weights(5), device='cpu')\n"
+        "binary_morani_result(mc, mp, method='otsu', device='cpu')\n"
+        "binary_morani_result(mc, mp, method='edge-watershed', device='cpu')\n"
+        "stt.core.layer_to_device(a, device='cpu')\n"
+        "stt.core.segment_sum_device(E, np.arange(120) % 3, 3, device='cpu')\n"
+        "stt.core.points_to_raster(np.arange(5), np.arange(5), np.ones(5), (6, 6), device='cpu')\n"
+        "a.obs['score'] = E[:, 0]\n"
+        "stt.tl.local_moran_i(a, 'g', device='cpu')\n"
+        "stt.tl.lisa_geo_df(a, 'g2', device='cpu')\n"
+        "stt.tl.GM_lag_model(a, 'g', genes=['g2', 'g3'], device='cpu')\n"
+        "stt.tl.spatial_bv_moran_obs_genes(a, 'score', genes=['g2'], permutations=9, device='cpu')\n"
+        "stt.tl.spatial_bv_local_moran(a, 'g2', 'score', permutations=9, device='cpu')\n"
+        "stt.tl.find_spatial_cluster_degs(a, 'A', group='g', k=5, device='cpu')\n"
+        "stt.tl.smooth(E, a.obsp['spatial_connectivities'])\n"
         "bad = sorted({k.split('.')[0] for k in sys.modules}\n"
-        "             & {'sklearn', 'jax', 'jaxlib', 'optax', 'umap', 'spateo_tpu'})\n"
+        "             & {'sklearn', 'jax', 'jaxlib', 'optax', 'umap', 'spateo_tpu', 'matplotlib', 'imageio'})\n"
         "print('BAD', bad)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)

@@ -329,6 +329,27 @@ final ``ok`` line:
    model and bivariate Moran's I to 1e-10; the samples, the bridge helpers,
    the Moran masks, LISA's statistics and p-values and the local bivariate
    statistic and p-values equal.
+32. t-SNE, the widgets, the image and IO readers at full width: (a)
+   `tl.perform_dimensionality_reduction(reduction_method="tsne")` at
+   scikit-learn's defaults (1,000 iterations, 2-D) on phase 26b's
+   `cluster_section` (20,000 cells, 30 PCs): seconds, iterations, last KL,
+   host reads, peak GB, 15-NN preservation and the bands' k-means ARI (bars
+   `TSNE_PRES_BAR`, `TSNE_ARI_BAR`), and under the profiler 10 iterations of
+   its final stage (ms an iteration, idle share, launches); (b)
+   `tdr.widgets.points_inside_mesh` of the E9.5 cloud's 100,000 cells, each
+   moved from the centre by a factor in [0.7, 1.3], against phase 22's Poisson
+   surface (rebuilt where phase 22 did not run): the share that agrees with
+   the planted ellipsoid (bar `PIM_AGREE_BAR`), then `overlap_pc_pick` and
+   `three_d_slice` on the same cloud; (c) every platform reader on files
+   written in its format (`platform_files`: a Visium section of 4,992 spots
+   for `read_10x`), each read back equal to what was written (the HDF5
+   readers in the CPU tests only), and `pp.remove_background` on a 2048²
+   stain against OpenCV's Otsu threshold. No kernel of `csrc/` is on this
+   path.
+33. Card against CPU at 1,000 cells (`tsne_widgets_cuda_vs_cpu`, bars
+   `TSNE_CVC_BAR`): t-SNE's P, one Barnes-Hut gradient, 10 iterations from
+   the PCA init and the full run's 15-NN preservation; `points_inside_mesh`
+   on 2,000 points against the E9.5 ellipsoid's hull: masks equal.
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
@@ -3058,7 +3079,7 @@ def phase_tdr(stt):
           f"morphofield_sparsevfc {t_vfc!r} s; construct_field_streams {TDR_STREAMS} x {TDR_STEPS} {t_streams!r} s; "
           f"pairwise_shape_similarity (cells, Poisson mesh) {sim!r} in {t_sim!r} s; phase 22 "
           f"{time.perf_counter() - t_phase!r} s")
-    return bb
+    return bb, mesh
 
 
 def phase_tdr_cuda_vs_cpu(stt):
@@ -3729,7 +3750,7 @@ def cluster_stages(stt, ad, device="cuda", profile=True, num=CCI_PERMUTATIONS, s
     finally:
         dr.umap_layout = umap_layout
     out["umap"].update(host_reads=reads[0], layout_s=layout["seconds"], epochs=layout["args"][6],
-                       preservation=dr.knn_preservation(X30, ad.obsm["X_umap"], 15))
+                       preservation=dr.knn_preservation(X30, ad.obsm["X_umap"], 15, device=device))
     ad.obs["Celltype"] = ad.obs["band"]
     mi = stage("morani", lambda: stt.tl.cellbin_morani(ad, binsize=MORAN_BIN, cluster_key="Celltype"), lambda: None)
     out["morani"]["min_i"] = float(mi["moran_i"].min())
@@ -3794,6 +3815,7 @@ def phase_interp_cluster(stt, backbone=None):
     check(k >= 2, f"backbone_scc: {k} clusters")
     print(f"phase 26: backbone_scc of {BACKBONE_SCC_CELLS:,} cells along a {backbone.n_points}-node backbone "
           f"{fmt_stats(stats)}, {k} clusters; phase 26 {time.perf_counter() - t_phase!r} s")
+    return sec
 
 
 #: Phase 27's bars, card against CPU (measured on the card, PERF.md): the
@@ -3869,7 +3891,7 @@ def interp_cluster_cuda_vs_cpu(stt, card="cuda", n=2_000):
                                               return_mapper=False, device=d)[3] for d in sides]
     out["UMAP 3 epochs"] = (rel(*e3), CVC_UMAP_BAR)
     pres = [dr.knn_preservation(Xu, dr.umap_conn_indices_dist_embedding(Xu, n_neighbors=15, return_mapper=False,
-                                                                       device=d)[3], 15) for d in sides]
+                                                                       device=d)[3], 15, device=card) for d in sides]
     out["UMAP 15-NN preservation"] = (abs(pres[0] - pres[1]), CVC_UMAP_PRESERVATION)
 
     lig, rec = (torch.from_numpy(np.asarray(ad.X[:, j : j + 2], np.float32)) for j in (0, 2))
@@ -4510,6 +4532,440 @@ def phase_host_tools_cuda_vs_cpu(stt):
         check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
 
 
+# -- phases 32-33: t-SNE, the widgets, the image and IO readers --------------------------------------------------
+
+#: Phase 32a: scikit-learn's Barnes-Hut `TSNE` at its defaults on
+#: `cluster_section(CLUSTER_CELLS, CLUSTER_GENES)`'s 30 PCs. Bars: scikit-learn's
+#: own run on the same section on a CPU (`scripts/tsne_widgets_bars.py`: 15-NN
+#: preservation 0.1602, the bands' k-means ARI 0.8598) less a margin; there the
+#: port's CPU run held to scikit-learn's at 5,000 cells (0.1955 against 0.1951,
+#: ARI 0.8525 against 0.8556).
+TSNE_PRES_BAR, TSNE_ARI_BAR = 0.14, 0.8
+#: Phase 32b: `points_inside_mesh` on the E9.5 cloud's 100,000 cells, each
+#: moved from the centre by a factor in [PIM_SCALE_LO, PIM_SCALE_HI], against
+#: phase 22's Poisson surface; the share whose inside/outside agrees with the
+#: planted ellipsoid's equation. Bar: the port's CPU run on 2,000 of the same
+#: points against a CPU-built surface (`scripts/tsne_widgets_bars.py`: 0.9965)
+#: less a margin.
+PIM_SCALE_LO, PIM_SCALE_HI, PIM_AGREE_BAR = 0.7, 1.3, 0.99
+#: Phase 32c: a Visium section's 4,992 spots for `read_10x`; the other
+#: readers' files at IO_CELLS cells x IO_GENES genes; `remove_background` on an
+#: IO_IMAGE² stain.
+VISIUM_SPOTS, VISIUM_GENES, IO_CELLS, IO_GENES, IO_IMAGE = 4_992, 2_000, 2_000, 100, 2048
+#: Phase 33's bars, card against CPU at TSNE_CVC_CELLS cells: P to 1e-6 of its
+#: largest entry, one Barnes-Hut gradient to 1e-4 of its scale, 10 iterations
+#: to 1e-3 of the positions' scale, the full run's 15-NN preservation within
+#: 0.01; `points_inside_mesh` on PIM_CVC_POINTS points: masks equal.
+TSNE_CVC_CELLS, PIM_CVC_POINTS = 1_000, 2_000
+TSNE_CVC_BAR = {"P": 1e-6, "gradient": 1e-4, "10 iterations": 1e-3, "preservation": 0.01, "inside masks": 0.0}
+
+
+def dense(X):
+    return np.asarray(X.toarray() if hasattr(X, "toarray") else X)
+
+
+
+def platform_files(root, seed=0, visium_spots=VISIUM_SPOTS, visium_genes=VISIUM_GENES, n=IO_CELLS, g=IO_GENES):
+    """Write one input of every platform reader of `io.platforms` (and the
+    stains of `stitch_images`, a CSV and an MTX for `data_io`) in its
+    platform's format under `root`: {name: (reader, args, kwargs, expected)}
+    with `expected` the counts (cells x genes, dense), obs names, var names
+    and spatial coordinates the reader should return (None where it does not
+    set them), or for `stitch_images` the stitched canvas."""
+    import gzip
+    import io as _io
+    import os
+
+    import pandas as pd
+    import scipy.io
+    import scipy.sparse
+
+    rng = np.random.default_rng(seed)
+    root = str(root)
+    out = {}
+
+    def d(*p):
+        path = os.path.join(root, *p)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
+
+    # 10x Visium: matrix dir (barcodes x genes on disk, as the readers take it) + positions
+    bcs = [f"{''.join(rng.choice(list('ACGT'), 16))}-1" for _ in range(visium_spots)]
+    M = scipy.sparse.random(visium_spots, visium_genes, density=0.05, random_state=seed, format="csr")
+    M.data = rng.integers(1, 20, M.nnz).astype(float)
+    with gzip.open(d("tenx", "barcodes.tsv.gz"), "wt") as f:
+        f.write("\n".join(bcs) + "\n")
+    with gzip.open(d("tenx", "features.tsv.gz"), "wt") as f:
+        f.write("\n".join(f"GENE{j}\tENSG{j:011d}\tGene Expression" for j in range(visium_genes)) + "\n")
+    buf = _io.BytesIO()
+    scipy.io.mmwrite(buf, M)
+    with gzip.open(d("tenx", "matrix.mtx.gz"), "wb") as f:
+        f.write(buf.getvalue())
+    rows, cols = np.divmod(np.arange(visium_spots), 64)
+    pos = pd.DataFrame({"barcode": bcs, "in_tissue": 1, "array_row": rows, "array_col": cols,
+                        "pxl_row_in_fullres": rows * 180 + 500, "pxl_col_in_fullres": cols * 208 + 700})
+    pos.to_csv(d("tenx_positions.csv"), index=False, header=False)
+    out["read_10x"] = ("read_10x", (d("tenx"), d("tenx_positions.csv")), {},
+                       (M.toarray(), bcs, [f"ENSG{j:011d}" for j in range(visium_genes)],
+                        pos[["pxl_row_in_fullres", "pxl_col_in_fullres"]].values.astype(float)))
+
+    # MERFISH: genes x cells CSV + (cell, x, y) positions without a header
+    counts = rng.poisson(2.0, (n, g)).astype(np.uint16)
+    cells = [f"cell{i}" for i in range(n)]
+    genes = [f"g{j}" for j in range(g)]
+    pd.DataFrame(counts.T, index=genes, columns=cells).to_csv(d("merfish.csv"))
+    xy = rng.uniform(100, 5000, (n, 2)).astype(np.float32).round(1)
+    pd.DataFrame(xy, index=cells).to_csv(d("merfish_pos.csv"), header=False)
+    order = np.argsort(np.asarray(cells))  # the reader keeps the sorted intersection of names
+    shift = np.float32(min(xy[:, 0].min(), xy[:, 1].min()))
+    out["read_merfish"] = ("read_merfish", (d("merfish.csv"), d("merfish_pos.csv")), {},
+                           (counts[order], list(np.asarray(cells)[order]), genes, (xy - shift)[order]))
+
+    # seqFISH: wide uint16 counts + the FOV/cell/X/Y/region table
+    counts = rng.poisson(1.5, (n, g)).astype(np.uint16)
+    pd.DataFrame(counts, columns=genes).to_csv(d("seqfish.csv"), index=False)
+    meta = pd.DataFrame({"Field of View": rng.integers(0, 5, n), "Cell ID": np.arange(n),
+                         "X": rng.uniform(0, 2000, n).round(2), "Y": rng.uniform(0, 2000, n).round(2),
+                         "Region": rng.choice(["a", "b"], n)})
+    meta.to_csv(d("seqfish_meta.csv"), index=False)
+    out["read_seqfish"] = ("read_seqfish", (d("seqfish.csv"), d("seqfish_meta.csv")), {},
+                           (counts, [str(i) for i in range(n)], genes,
+                            np.stack([meta["X"].astype(int), meta["Y"].astype(int)], 1)))
+
+    # Slide-seq: the GENE x barcode DGE (tab) + bead locations with a header
+    counts = rng.poisson(0.5, (g, n)).astype(int)
+    beads = [f"bead{i:05d}" for i in range(n)]
+    dge = pd.DataFrame(counts, columns=beads)
+    dge.insert(0, "GENE", genes)
+    dge.to_csv(d("slideseq_dge.txt"), sep="\t", index=False)
+    bxy = rng.uniform(0, 3000, (n, 2)).round(1)
+    pd.DataFrame({"barcode": beads, "x": bxy[:, 0], "y": bxy[:, 1]}).to_csv(d("slideseq_beads.csv"), index=False)
+    seen_b = counts.sum(0) > 0
+    seen_g = counts.sum(1) > 0
+    gsort = np.argsort(np.asarray(genes)[seen_g])
+    out["read_slideseq"] = ("read_slideseq", (d("slideseq_dge.txt"), d("slideseq_beads.csv")), {},
+                            (counts[seen_g][gsort][:, seen_b].T, list(np.asarray(beads)[seen_b]),
+                             list(np.asarray(genes)[seen_g][gsort]), bxy[seen_b]))
+
+    # Seq-Scope: the matrix dir (genes x barcodes) + whitespace positions; barcodes on a lattice
+    nq = n
+    qbcs = [f"SB{i:05d}" for i in range(nq)]
+    Mq = rng.poisson(1.0, (g, nq))
+    with open(d("seqscope", "barcodes.tsv"), "w") as f:
+        f.write("\n".join(qbcs) + "\n")
+    with open(d("seqscope", "features.tsv"), "w") as f:
+        f.write("\n".join(f"nm{j}\tENSQ{j}\tGene Expression" for j in range(g)) + "\n")
+    scipy.io.mmwrite(d("seqscope", "matrix.mtx"), scipy.sparse.csr_matrix(Mq))
+    qx, qy = rng.integers(0, 30, nq) * 10, rng.integers(0, 30, nq) * 10
+    with open(d("seqscope_pos.txt"), "w") as f:
+        for b, x, y in zip(qbcs, qx, qy):
+            f.write(f"{b} 1 1 {x} {y}\n")
+    lab = pd.Categorical([f"{x // 10}-{y // 10}" for x, y in zip(qx, qy)])
+    Xq = np.zeros((len(lab.categories), g), int)
+    np.add.at(Xq, lab.codes, Mq.T)
+    out["read_seqscope"] = ("read_seqscope", (d("seqscope"), d("seqscope_pos.txt")), {"binsize": 10},
+                            (Xq, list(lab.categories), [f"ENSQ{j}" for j in range(g)], None))
+
+    # NanoString CosMx: one transcript a row, fov and cell_ID labels; cell 0 is background
+    nt = 20 * n
+    tx = pd.DataFrame({"fov": rng.integers(1, 4, nt), "cell_ID": rng.integers(0, n // 3, nt),
+                       "target": rng.choice(genes, nt), "x_global_px": rng.uniform(0, 4000, nt).round(3),
+                       "y_global_px": rng.uniform(0, 4000, nt).round(3)})
+    tx.to_csv(d("cosmx_tx.csv"), index=False)
+    kept = tx[tx["cell_ID"] > 0]
+    table = pd.crosstab(kept["fov"].astype(str) + "-" + kept["cell_ID"].astype(str), kept["target"])
+    table = table.loc[sorted(table.index), sorted(table.columns)]
+    out["read_nanostring"] = ("read_nanostring", (d("cosmx_tx.csv"),), {"label_columns": ["fov", "cell_ID"]},
+                              (table.values, list(table.index), list(table.columns), None))
+
+    # STARmap: counts + names + a labels raster (cells of area 1,600; the largest label dropped)
+    lab = np.zeros((400, 400), np.int32)
+    boxes = [(r, c) for r in range(0, 400, 50) for c in range(0, 400, 50)][:9]
+    for i, (r, c) in enumerate(boxes, 1):
+        lab[r + 5 : r + 45, c + 5 : c + 45] = i
+    np.savez(d("starmap", "labels.npz"), labels=lab)
+    sc = rng.poisson(2.0, (8, g))
+    pd.DataFrame(sc).to_csv(d("starmap", "cell_barcode_count.csv"), header=False, index=False)
+    pd.DataFrame({0: range(g), 1: ["b"] * g, 2: genes}).to_csv(d("starmap", "cell_barcode_names.csv"), header=False,
+                                                                index=False)
+    out["read_starmap"] = ("read_starmap", (d("starmap"),), {}, (sc, [f"Cell_{i}" for i in range(8)], genes, None))
+
+    # CosMx stains: four FOV tiles and their global offsets
+    import cv2
+
+    tiles, offs = {}, {1: (0, 0), 2: (300, 0), 3: (0, 250), 4: (300, 250)}
+    for fov, (x, y) in offs.items():
+        tiles[fov] = rng.integers(0, 255, (250, 300), dtype=np.uint8)
+        cv2.imwrite(d("stains", f"tile_F{fov:03d}.png"), tiles[fov])
+    pd.DataFrame({"fov": list(offs), "x_global_px": [o[0] for o in offs.values()],
+                  "y_global_px": [o[1] for o in offs.values()]}).to_csv(d("fov_positions.csv"), index=False)
+    canvas = np.zeros((600, 500), np.uint8)
+    for fov, (x, y) in offs.items():
+        canvas[x : x + 300, y : y + 250] = np.fliplr(np.swapaxes(tiles[fov], 0, 1))
+    out["stitch_images"] = ("stitch_images", (d("stains"), d("fov_positions.csv")), {}, canvas)
+
+    # data_io: a cells x genes CSV and a Matrix Market file
+    tab = pd.DataFrame(rng.poisson(2.0, (n, g)).astype(float), index=cells, columns=genes)
+    tab.to_csv(d("table.csv"))
+    out["read_csv"] = ("read_csv", (d("table.csv"),), {}, (tab.values, cells, genes, None))
+    Mx = scipy.sparse.random(n, g, density=0.1, random_state=seed + 1, format="csr")
+    scipy.io.mmwrite(d("table.mtx"), Mx)
+    out["read_mtx"] = ("read_mtx", (d("table.mtx"),), {},
+                       (Mx.toarray().astype(np.float32), [str(i) for i in range(n)], [str(j) for j in range(g)], None))
+    return out
+
+
+def read_platform(stt, name, spec):
+    """Run one `platform_files` reader through `stt` (the port's package or
+    the JAX package): the AnnData, or the canvas of `stitch_images`."""
+    fn, args, kw, _ = spec
+    return getattr(stt if fn in ("read_csv", "read_mtx") else stt.io, fn)(*args, **kw)
+
+
+def check_platform(name, spec, got):
+    """`got` (a reader's output) equal to what `platform_files` wrote."""
+    expected = spec[3]
+    if name == "stitch_images":
+        check(np.array_equal(got, expected), "stitch_images: the canvas differs from the tiles written")
+        return
+    X, obs, var, spatial = expected
+    check(np.array_equal(dense(got.X), X), f"{name}: X differs from what was written")
+    check(list(map(str, got.obs_names)) == list(obs), f"{name}: obs names differ")
+    check(list(map(str, got.var_names)) == list(var), f"{name}: var names differ")
+    if spatial is not None:
+        check(np.array_equal(np.asarray(got.obsm["spatial"], float), np.asarray(spatial, float)),
+              f"{name}: spatial coordinates differ")
+
+
+def poisson_surface(stt, device="cuda"):
+    """Phase 22's screened Poisson surface of TDR_SURFACE points on the
+    planted ellipsoid, at max_resolution TDR_RES, on `device`."""
+    from spateo_tpu_torch.tdr.models.models_individual import reconstruction as rec
+
+    surf = ellipsoid_surface(TDR_SURFACE)
+    mesh, _, _ = stt.tdr.construct_surface(stt.tdr.PointCloud(surf), cs_method="poisson", device=device,
+                                           cs_args={"max_resolution": TDR_RES, "normals": rec.estimate_normals(surf)})
+    return mesh
+
+
+def inside_probe(seed=0):
+    """The E9.5 cloud's cells, each moved from the centre by a factor drawn
+    in [PIM_SCALE_LO, PIM_SCALE_HI], and whether each lies inside the planted
+    ellipsoid by its equation."""
+    cells = e95_cloud()
+    pts = cells * np.random.default_rng(seed).uniform(PIM_SCALE_LO, PIM_SCALE_HI, len(cells))[:, None]
+    return pts, ((pts / np.asarray(E95_AXES)) ** 2).sum(1) <= 1.0
+
+
+def tsne_stage(stt, ad, device="cuda", profile=True):
+    """`tl.perform_dimensionality_reduction(reduction_method="tsne")` on
+    `ad`'s 30 PCs: (embedding, stats) with its seconds and peak GB, the
+    iterations run, the last KL, the host reads, 15-NN preservation and the
+    bands' k-means ARI; under the profiler 10 iterations of its final stage
+    from the embedding (ms an iteration, idle share, launches)."""
+    from spateo_tpu_torch.ops.kmeans import KMeans
+    from spateo_tpu_torch.tools import _tsne as T
+    from spateo_tpu_torch.tools.dimensionality_reduction import knn_preservation
+
+    fits, orig = [], T.TSNE.fit_transform
+
+    def spy(self, X, y=None):
+        r0 = T.gradient_descent.host_reads
+        emb = orig(self, X, y)
+        fits.append((self, T.gradient_descent.host_reads - r0))
+        return emb
+
+    T.TSNE.fit_transform = spy
+    try:
+        _, stats = stage_run(lambda: stt.tl.perform_dimensionality_reduction(ad, reduction_method="tsne",
+                                                                             device=device), device, profile=False)
+    finally:
+        T.TSNE.fit_transform = orig
+    est, reads = fits[0]
+    X30 = np.asarray(ad.obsm["X_pca"])[:, :30]
+    emb = np.asarray(ad.obsm["X_tsne"])
+    check(emb.shape == (len(X30), 2) and bool(np.isfinite(emb).all()), "t-SNE embedding")
+    labels = KMeans(SVG_BANDS, n_init=10, random_state=0, device=device).fit(emb).labels_
+    stats.update(iterations=est.n_iter_ + 1, kl=est.kl_divergence_, host_reads=reads,
+                 preservation=knn_preservation(X30, emb, 15, device=device), ari=ari(labels, np.asarray(ad.obs["band"])))
+    if profile and torch.device(device).type == "cuda":
+        nb, sq = T.knn_sqdistances(X30, min(len(X30) - 1, 91), device=device)
+        P = T.joint_probabilities_nn(nb, sq, 30.0)
+        vals, Y = P.values.to(torch.float32), torch.as_tensor(emb, device=device)
+        _, wall, busy, launches, ops = device_profile(lambda: T.gradient_descent(
+            lambda y, ce: T.kl_divergence_bh(y, P, vals, 1, 0.5, ce), Y, 0, 10, n_iter_check=T.N_ITER_CHECK,
+            learning_rate=est.learning_rate_))
+        stats.update(idle=1 - busy / wall, launches=launches, ms_an_iteration=wall / 10,
+                     top_ops=", ".join(f"{short_op(k)} {v[0]:.1f} ms" for k, v in list(ops.items())[:3]))
+    return emb, stats
+
+
+def widget_stages(stt, mesh, pts, truth, device="cuda", profile=True):
+    """`points_inside_mesh` of `pts` against `mesh` (the share that agrees
+    with `truth`), then `overlap_pc_pick` and `three_d_slice` on the same
+    point cloud: {stage: stats}."""
+    from spateo_tpu_torch.tdr.widgets import ops as wo
+
+    out = {}
+    inside, out["points_inside_mesh"] = stage_run(lambda: wo.points_inside_mesh(pts, mesh, device=device), device,
+                                                  profile=profile)
+    out["points_inside_mesh"].update(agree=float((inside == truth).mean()), inside=int(inside.sum()),
+                                     faces=int(mesh.n_faces), pairs=len(pts) * int(mesh.n_faces))
+    pc = stt.tdr.PointCloud(pts, {"truth": truth.astype(np.int64)})
+    (ins, outs), out["overlap_pc_pick"] = stage_run(lambda: stt.tdr.overlap_pc_pick(pc, mesh, device=device), device,
+                                                    profile=False)
+    check(ins.n_points == int(inside.sum()) and ins.n_points + outs.n_points == len(pts), "overlap_pc_pick split")
+    slabs, out["three_d_slice"] = stage_run(lambda: stt.tdr.three_d_slice(pc, n_slices=10, axis="z"), "cpu",
+                                            profile=False)
+    check(sum(s.n_points for s in slabs) == len(pts), "three_d_slice: the slabs do not cover the cloud")
+    return inside, out
+
+
+def stain(n, seed=0):
+    """A uint8 stain of n x n: dim noise with bright planted disks."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 40, (n, n)).astype(np.uint8)
+    yy, xx = np.mgrid[:n, :n]
+    for cy, cx, r in zip(rng.integers(0, n, 60), rng.integers(0, n, 60), rng.integers(n // 80, n // 30, 60)):
+        disk = (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+        img[disk] = rng.integers(150, 255, int(disk.sum()))
+    return img
+
+
+def io_stages(stt, root, seed=0, image=IO_IMAGE, visium_spots=VISIUM_SPOTS, visium_genes=VISIUM_GENES):
+    """Every reader of `platform_files` on the files it writes under `root`,
+    each checked against what was written, and `pp.remove_background` on an
+    `image`² stain against OpenCV's Otsu threshold applied directly: {stage:
+    seconds}. The HDF5 readers are left to the CPU tests: the card's machine
+    has no h5py."""
+    import cv2
+
+    out = {}
+    t0 = time.perf_counter()
+    files = platform_files(root, seed, visium_spots, visium_genes)
+    out["write the files"] = time.perf_counter() - t0
+    for name, spec in files.items():
+        t0 = time.perf_counter()
+        got = read_platform(stt, name, spec)
+        out[name] = time.perf_counter() - t0
+        check_platform(name, spec, got)
+    img = stain(image, seed)
+    ad = stt.AnnData(X=np.zeros((1, 1), np.float32))
+    stt.io.add_image_layer(ad, img, 1.0, "section", "stain")
+    t0 = time.perf_counter()
+    stt.pp.remove_background(ad, slice="section", used_img_layer="stain", return_img_layer="fg", inplace=True)
+    out["remove_background"] = time.perf_counter() - t0
+    thr, _ = cv2.threshold(img.copy(), 0, 255, cv2.THRESH_OTSU)
+    fg = ad.uns["spatial"]["section"]["images"]["fg"]
+    check(np.array_equal(fg, np.where(img > thr, img, 0)) and not fg[img < 40].any()
+          and np.array_equal(fg[img >= 150], img[img >= 150]), f"remove_background (Otsu {thr})")
+    return out
+
+
+def tsne_warmup(device="cuda"):
+    """Each step of t-SNE once at 500 cells: the PCA init, the kNN, P and 3
+    iterations; and a k-means."""
+    from spateo_tpu_torch.ops.kmeans import KMeans
+    from spateo_tpu_torch.tools import _tsne as T
+
+    X = np.random.default_rng(0).normal(size=(500, 30))
+    Y0 = T.TSNE(device=device).initial_embedding(X)
+    P = T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device=device), 30.0)
+    vals = P.values.to(torch.float32)
+    T.gradient_descent(lambda y, ce: T.kl_divergence_bh(y, P, vals, 1, 0.5, ce), Y0, 0, 3, n_iter_check=1)
+    KMeans(SVG_BANDS, n_init=2, random_state=0, device=device).fit(X[:, :2])
+
+
+def phase_tsne_widgets_io(stt, section=None, surface=None):
+    """Phase 32: t-SNE at scikit-learn's defaults on `cluster_section`'s
+    20,000 cells (a; phase 26's section where it ran), `points_inside_mesh`
+    and the picks on the E9.5 cloud's 100,000 points against phase 22's
+    Poisson surface (b), the image and IO readers (c), each after a warm-up
+    at a small size."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tsne_warmup()
+    pts, truth = inside_probe()
+    warm = e95_stack(n_sections=2, n_cells=10, n_surface=500)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        io_stages(stt, tmp, image=256, visium_spots=100, visium_genes=50)
+    t0 = time.perf_counter()
+    ad = cluster_section(stt) if section is None else section
+    t_prep = time.perf_counter() - t0
+    emb, st = tsne_stage(stt, ad)
+    check(st["preservation"] >= TSNE_PRES_BAR and st["ari"] >= TSNE_ARI_BAR,
+          f"t-SNE: 15-NN preservation {st['preservation']} (bar {TSNE_PRES_BAR}), ARI {st['ari']} (bar {TSNE_ARI_BAR})")
+    print(f"phase 32a: cortex_section {CLUSTER_CELLS:,} x {CLUSTER_GENES:,} to pca(30) "
+          f"{'phase 26s' if section is not None else repr(t_prep) + ' s'}; t-SNE "
+          + fmt_stats(st) + " " + ", ".join(f"{k} {v!r}" for k, v in st.items() if k not in (
+              "seconds", "idle", "launches", "peak_gb")))
+    if surface is None:
+        t0 = time.perf_counter()
+        surface = poisson_surface(stt)
+        print(f"phase 32b: phase 22's Poisson surface rebuilt in {time.perf_counter() - t0!r} s")
+    widget_stages(stt, warm, pts[:1000], truth[:1000], profile=False)
+    _, wst = widget_stages(stt, surface, pts, truth)
+    agree = wst["points_inside_mesh"]["agree"]
+    check(agree >= PIM_AGREE_BAR, f"points_inside_mesh agrees with the ellipsoid on {agree} (bar {PIM_AGREE_BAR})")
+    print(f"phase 32b: {len(pts):,} points: " + "; ".join(f"{k} {fmt_stats(v)} " + ", ".join(
+        f"{m} {v[m]!r}" for m in v if m not in ("seconds", "idle", "launches", "peak_gb")) for k, v in wst.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        ist = io_stages(stt, tmp)
+    print("phase 32c: " + "; ".join(f"{k} {v!r} s" for k, v in ist.items()))
+    print(f"phase 32: {time.perf_counter() - t_phase!r} s")
+
+
+def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
+    """Phase 33's comparisons of `card` against the CPU: {check: (value,
+    bar)}."""
+    from spateo_tpu_torch.tdr.widgets import ops as wo
+    from spateo_tpu_torch.tools import _tsne as T
+    from spateo_tpu_torch.tools.dimensionality_reduction import knn_preservation
+
+    ad = cluster_section(stt, n, 500, device="cpu")
+    X = np.asarray(ad.obsm["X_pca"])[:, :30]
+    devs = (card, "cpu")
+    P = {d: T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device=d), 30.0) for d in devs}
+    check(torch.equal(P[card].rows.cpu(), P["cpu"].rows) and torch.equal(P[card].cols.cpu(), P["cpu"].cols),
+          "t-SNE P: the kNN graphs differ")
+    out = {"P": (rel_err(P[card].values.cpu().numpy(), P["cpu"].values.numpy()), TSNE_CVC_BAR["P"])}
+    Y = torch.as_tensor((np.random.default_rng(1).normal(size=(n, 2)) * 5).astype(np.float32))
+    g = {d: T.kl_divergence_bh(Y.to(d), P[d], P[d].values.to(torch.float32), 1, 0.5)[1].cpu().numpy() for d in devs}
+    out["gradient"] = (rel_err(g[card], g["cpu"]), TSNE_CVC_BAR["gradient"])
+    Y0 = T.TSNE(device="cpu").initial_embedding(X)
+    it = {}
+    for d in devs:
+        vals = (P[d].values * 12.0).to(torch.float32)
+        it[d] = T.gradient_descent(lambda y, ce, d=d, vals=vals: T.kl_divergence_bh(y, P[d], vals, 1, 0.5, ce),
+                                   Y0.to(d), 0, 10, n_iter_check=T.N_ITER_CHECK, momentum=0.5,
+                                   learning_rate=max(n / 48, 50))[0].cpu().numpy()
+    out["10 iterations"] = (rel_err(it[card], it["cpu"]), TSNE_CVC_BAR["10 iterations"])
+    pres, seconds = {}, {}
+    for d in devs:
+        t0 = time.perf_counter()
+        pres[d] = knn_preservation(X, T.TSNE(device=d).fit_transform(X), 15, device=card)
+        seconds[d] = time.perf_counter() - t0
+    out["preservation"] = (abs(pres[card] - pres["cpu"]), TSNE_CVC_BAR["preservation"])
+    print(f"phase 33: the full t-SNE runs at {n:,} cells: card {seconds[card]!r} s (15-NN preservation "
+          f"{pres[card]!r}), CPU {seconds['cpu']!r} s ({pres['cpu']!r}, {torch.get_num_threads()} threads)")
+    mesh = e95_stack(n_sections=2, n_cells=10)[0]
+    q = np.random.default_rng(2).uniform(-1.2, 1.2, (PIM_CVC_POINTS, 3)) * np.asarray(E95_AXES)
+    m = {d: wo.points_inside_mesh(q, mesh, device=d) for d in devs}
+    out["inside masks"] = (float((m[card] != m["cpu"]).sum()), TSNE_CVC_BAR["inside masks"])
+    return out
+
+
+def phase_tsne_widgets_cuda_vs_cpu(stt):
+    """Phase 33: t-SNE's steps and `points_inside_mesh`, card against CPU."""
+    t_phase = time.perf_counter()
+    out = tsne_widgets_cuda_vs_cpu(stt)
+    print(f"phase 33: card vs CPU at {TSNE_CVC_CELLS:,} cells: " + "; ".join(
+        f"{k} {v!r} (bar {b})" for k, (v, b) in out.items()) + f"; phase 33 {time.perf_counter() - t_phase!r} s")
+    for k, (v, bar) in out.items():
+        check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
+
+
 def main(argv=None):
     import argparse
 
@@ -4652,7 +5108,7 @@ def main(argv=None):
 
     mark("21")
     # -- phases 22-23: 3D reconstruction ------------------------------------------------------
-    backbone = phase_tdr(stt) if want(22) else None
+    backbone, surface = phase_tdr(stt) if want(22) else (None, None)
     mark("22")
     if want(23):
         phase_tdr_cuda_vs_cpu(stt)
@@ -4667,8 +5123,7 @@ def main(argv=None):
 
     mark("25")
     # -- phases 26-27: interpolation engines, clustering, UMAP, the CCI test ---------------------
-    if want(26):
-        phase_interp_cluster(stt, backbone)
+    section = phase_interp_cluster(stt, backbone) if want(26) else None
     mark("26")
     if want(27):
         phase_interp_cluster_cuda_vs_cpu(stt)
@@ -4690,6 +5145,14 @@ def main(argv=None):
         phase_host_tools_cuda_vs_cpu(stt)
 
     mark("31")
+    # -- phases 32-33: t-SNE, the widgets, the image and IO readers ------------------------------------------------
+    if want(32):
+        phase_tsne_widgets_io(stt, section, surface)
+    mark("32")
+    if want(33):
+        phase_tsne_widgets_cuda_vs_cpu(stt)
+
+    mark("33")
     groups = {}
     for k, v in phase_seconds.items():  # as earlier runs grouped them: a slice's main path and its checks
         n = int(k)

@@ -16,16 +16,31 @@ defaults to ``"cuda"``. It never imports JAX.
     stt.dd.digitize(adata, ctrs, 0, pnt_xy, pnt_Xy, pnt_xY, pnt_XY)
     stt.tdr.morphofield_sparsevfc_batch(aligned_slices, M=100, MaxIter=60)
     stt.tl.MuSIC(adata=adata, mod_type="lr", custom_ligands=[...], custom_receptors=[...]).fit()
+    stt.tl.perform_dimensionality_reduction(adata, reduction_method="tsne")
+    inside, outside = stt.tdr.overlap_pc_pick(cloud, surface)
 """
 
 from . import alignment as align
 from . import digitization as dd
 from . import io
+from . import plotting as pl
 from . import preprocessing as pp
+from . import sample_data
 from . import segmentation as cs
 from . import svg, tdr
 from . import tools as tl
 from .configuration import SKM
 from .core.anndata import AnnData, concat, read_h5ad
+from .data_io import (
+    read,
+    read_csv,
+    read_excel,
+    read_hdf,
+    read_loom,
+    read_mtx,
+    read_text,
+    read_umi_tools,
+    read_zarr,
+)
 from .errors import ConfigurationError, SegmentationError, SpateoError
 from .logging import logger_manager

@@ -1,12 +1,13 @@
 """Preprocessing layer (`stt.pp`): filters, normalization (total counts,
 the edgeR factors with TMM on the device, Seurat HVFs), the expression
 transforms, spatial binning and the live-wire segmentation helpers of
-`auxseg`, ported from `spateo_tpu.preprocessing`. `image` is not ported yet
-(ROADMAP Queue 1 item 11)."""
+`auxseg`, and the stain images' background removal (`image`, OpenCV's
+Otsu), ported from `spateo_tpu.preprocessing`."""
 
-from . import auxseg, filter
+from . import auxseg, filter, image
 from .aggregate import bin_adata
 from .filter import filter_by_coordinates, filter_cells, filter_genes
+from .image import remove_background
 from .normalize import (
     calcFactorRLE,
     calcFactorTMM,

@@ -5,11 +5,10 @@ device), voxels, backbones (ElPiGraph with its candidate fits batched on the
 device, SimplePPT, the NLPCA principal curve), the morphofield and
 morphopath models, model IO and utilities, morphofields and their
 differential geometry, trajectories, model morphology with the kernel
-density, shape similarity, and the interpolation engines (VTK-style, sparse
-GP, SparseVFC kernel, deep SIREN); `backbone_scc` clusters through
-`tools.cluster.scc`.
-
-Not ported yet (ROADMAP Queue 1 item 11): the widgets (`widgets/`)."""
+density, shape similarity, the interpolation engines (VTK-style, sparse
+GP, SparseVFC kernel, deep SIREN), and the model-editing widgets (clip,
+pick, slice; `points_inside_mesh` on the device, the matplotlib loops
+headless-drivable); `backbone_scc` clusters through `tools.cluster.scc`."""
 
 from . import models
 from .interpolations import (
@@ -38,3 +37,18 @@ from .morphometrics.morphofield_dg import (
     compute_torsion,
 )
 from .morphometrics import *  # noqa: F401,F403
+from .widgets import clip, pick, slice, utils  # noqa: F401
+from .widgets import (
+    clip_models,
+    interactive_box_clip,
+    interactive_pick,
+    interactive_rectangle_clip,
+    interactive_slice,
+    overlap_mesh_pick,
+    overlap_pc_pick,
+    overlap_pick,
+    pick_models,
+    slice_models,
+    three_d_pick,
+    three_d_slice,
+)

@@ -8,8 +8,9 @@ the shared helpers of `tools.utils`, and the host tools: cluster and GLM
 DEGs, LISA and the spatial-lag model, bivariate Moran, smoothing, the CCI
 databases' niche tools and FDR, expression variance, labels, archetypes,
 the lasso, live wire and ROI, ported from `spateo_tpu.tools`. LISA,
-bivariate Moran and the spatial DEGs' kNN run on the card. t-SNE is not
-ported yet (ROADMAP Queue 1 item 11)."""
+bivariate Moran and the spatial DEGs' kNN run on the card, and so does
+t-SNE (`perform_dimensionality_reduction(reduction_method="tsne")`,
+scikit-learn's Barnes-Hut solver ported in `_tsne`)."""
 
 from . import cci_fdr, cci_two_cluster, find_neighbors, spatial_degs
 from .architype import (

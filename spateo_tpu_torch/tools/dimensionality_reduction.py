@@ -16,9 +16,9 @@ is the JAX package's native one: the kNN (host cKDTree), the smooth-kNN
 calibration, the fuzzy union, the a/b curve fit and the spectral `eigsh`
 init stay on the host; the SGD layout runs on the device, each epoch's
 gathers, clips and `index_add_`s with its negatives drawn from a
-`torch.Generator`, with no host read inside the epochs. t-SNE is not ported
-yet (ROADMAP Queue 1 item 11): the JAX package calls scikit-learn's
-Barnes-Hut `TSNE`.
+`torch.Generator`, with no host read inside the epochs. t-SNE is
+scikit-learn's Barnes-Hut `TSNE`, which the JAX package calls, ported to the
+device in `_tsne`.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from scipy.sparse import issparse
 
 from ..core.anndata import AnnData
 from ..core.bridge import to_device
+from .find_neighbors import knn
 
 
 def _upload(X, device) -> torch.Tensor:
@@ -351,23 +352,26 @@ def perform_dimensionality_reduction(
     device="cuda",
     **kwargs,
 ):
-    """UMAP embedding on top of PCA (parity: dimensionality_reduction.py:37),
-    by the native UMAP with its layout on `device` (`umap-learn` is not a
-    dependency). t-SNE raises (ROADMAP Queue 1 item 11)."""
+    """UMAP or t-SNE embedding on top of PCA (parity:
+    dimensionality_reduction.py:37) on `device`: the native UMAP with its
+    layout on the device (`umap-learn` is not a dependency), or scikit-learn's
+    Barnes-Hut ``TSNE(n_components, random_state=0)`` ported (`_tsne.TSNE`)."""
     if copy:
         adata = adata.copy()
-    if reduction_method in ("tsne", "t-sne"):
-        raise NotImplementedError("t-SNE needs scikit-learn's Barnes-Hut TSNE, which the port does not have yet "
-                                  "(ROADMAP Queue 1 item 11)")
-    if reduction_method != "umap":
+    if reduction_method not in ("umap", "tsne", "t-sne"):
         raise ValueError(f"Unknown reduction_method {reduction_method}")
     if "X_pca" not in adata.obsm or enforce:
         pca(adata, n_pca_components=n_pca_components, device=device)
     X = np.asarray(adata.obsm["X_pca"])[:, :n_pca_components]
     embedding_key = embedding_key or f"X_{reduction_method}"
-    _, _, _, emb = umap_conn_indices_dist_embedding(
-        X, n_neighbors=n_neighbors, n_components=n_components, return_mapper=False, device=device, **kwargs
-    )
+    if reduction_method == "umap":
+        _, _, _, emb = umap_conn_indices_dist_embedding(
+            X, n_neighbors=n_neighbors, n_components=n_components, return_mapper=False, device=device, **kwargs
+        )
+    else:
+        from ._tsne import TSNE
+
+        emb = TSNE(n_components=n_components, device=device).fit_transform(X)
     adata.obsm[embedding_key] = emb
     if copy:
         return adata
@@ -534,14 +538,15 @@ class _FittedUMAP:
         return np.einsum("nk,nkd->nd", w, self.embedding_[idx])
 
 
-def knn_preservation(X: np.ndarray, emb: np.ndarray, k: int = 15) -> float:
+def knn_preservation(X: np.ndarray, emb: np.ndarray, k: int = 15, device="cuda") -> float:
     """Mean share of each point's k nearest neighbours in X that are among
-    its k nearest in `emb` (host cKDTree)."""
+    its k nearest in `emb`. X's neighbours come from `find_neighbors.knn` on
+    `device` (ties by index), the embedding's from a host cKDTree."""
     from scipy.spatial import cKDTree
 
     X = np.asarray(X, np.float32)
     k = min(k, len(X) - 1)
-    true_nbrs = cKDTree(X).query(X, k=k + 1)[1][:, 1:]
+    true_nbrs = knn(X, k + 1, device=device)[0][:, 1:]
     emb_nbrs = cKDTree(emb).query(emb, k=k + 1)[1][:, 1:]
     return float(np.mean([len(set(a) & set(b)) / k for a, b in zip(true_nbrs, emb_nbrs)]))
 
@@ -555,7 +560,7 @@ def find_optimal_n_umap_components(X, max_components: int = 10, device="cuda", *
     for d in dims:
         _, _, _, emb = umap_conn_indices_dist_embedding(X, n_components=d, max_iter=150, return_mapper=False,
                                                         device=device, **kwargs)
-        scores.append(knn_preservation(X, emb, 15))
+        scores.append(knn_preservation(X, emb, 15, device=device))
     gains = np.diff([0] + scores)
     best = int(np.argmax(gains < 0.01)) if (gains < 0.01).any() else len(dims) - 1
     return dims[best]

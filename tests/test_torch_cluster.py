@@ -263,12 +263,14 @@ def test_kmeans_clustering_and_pca_helpers_match_jax():
 
 
 def test_refusals_cite_their_items():
-    """t-SNE still raises, citing its item; `CAST` and `pySTAGATE.train`,
-    which raised until the external models were ported, now train (their
-    parity with the JAX package is in `tests/test_torch_external.py`)."""
+    """`CAST` and `pySTAGATE.train`, which raised until the external models
+    were ported, now train (their parity with the JAX package is in
+    `tests/test_torch_external.py`); t-SNE, which raised until it was ported,
+    is held to scikit-learn in `tests/test_torch_tsne.py`. An unknown method
+    raises."""
     _, at = _section(50)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        stt.tl.perform_dimensionality_reduction(at, reduction_method="tsne", device="cpu")
+    with pytest.raises(ValueError, match="Unknown reduction_method"):
+        stt.tl.perform_dimensionality_reduction(at, reduction_method="pacmap", device="cpu")
     stt.tl.CAST(at, n_epochs=2, d_hidden=8, d_out=4, device="cpu")
     assert at.obsm["X_cast"].shape == (50, 4)
     stt.tl.pySTAGATE(at, num_epoch=2, hidden_dims=[8, 2], rad_cutoff=1e9, device="cpu").train()
@@ -435,10 +437,26 @@ def test_umap_layout_structure_and_mapper_match_jax(fixed_eigsh):
     X = _umap_data()
     mj, *_, ej = JD.umap_conn_indices_dist_embedding(X, n_neighbors=10)
     mt, *_, et = TD.umap_conn_indices_dist_embedding(X, n_neighbors=10, device="cpu")
-    pj, pt = TD.knn_preservation(X, ej), TD.knn_preservation(X, et)
+    pj, pt = TD.knn_preservation(X, ej, device="cpu"), TD.knn_preservation(X, et, device="cpu")
     assert abs(pj - pt) <= UMAP_PRES_TOL and pt > 0.3
     np.testing.assert_array_equal(mt.transform(X[:20] + 0.01), _FittedUMAP_from(mj, et).transform(X[:20] + 0.01))
     assert et.shape == (300, 2) and np.isfinite(et).all()
+
+
+@pytest.mark.parametrize("k", [5, 15])
+def test_knn_preservation_matches_the_host_kdtree(k):
+    """`knn_preservation` takes X's neighbours from `find_neighbors.knn`; the
+    JAX package's `find_optimal_n_umap_components` scores with a host cKDTree
+    on both sides. On untied data the two give the same share."""
+    from scipy.spatial import cKDTree
+
+    X = _umap_data()
+    emb = X[:, :2] + np.random.default_rng(1).normal(0, 0.5, (len(X), 2)).astype(np.float32)
+    true_nbrs = cKDTree(X).query(X, k=k + 1)[1][:, 1:]
+    emb_nbrs = cKDTree(emb).query(emb, k=k + 1)[1][:, 1:]
+    ref = np.mean([len(set(a) & set(b)) / k for a, b in zip(true_nbrs, emb_nbrs)])
+    got = TD.knn_preservation(X, emb, k, device="cpu")
+    assert got == ref and 0.0 < got < 1.0
 
 
 def _FittedUMAP_from(mj, emb):

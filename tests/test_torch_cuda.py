@@ -1279,3 +1279,29 @@ def test_lisa_null_has_no_host_read(cuda):
         tl._lag(nbr, w, H.T)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_tsne_and_points_inside_mesh_cuda_match_cpu(cuda):
+    """t-SNE's P, one Barnes-Hut gradient, 10 iterations and a full run, and
+    `points_inside_mesh`, card against CPU at 300 cells, at
+    `chip_smoke.TSNE_CVC_BAR`."""
+    import chip_smoke
+    import spateo_tpu_torch as stt
+
+    out = chip_smoke.tsne_widgets_cuda_vs_cpu(stt, n=300)
+    assert all(v <= bar for v, bar in out.values()), out
+
+
+def test_tsne_optimizer_reads_the_host_once_a_check(cuda):
+    """50 iterations of the optimizer read the host once (its check); the
+    tree and the walk read one size a level."""
+    from spateo_tpu_torch.tools import _tsne as T
+
+    X = np.random.default_rng(0).normal(size=(400, 10))
+    P = T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device="cuda"), 30.0)
+    vals = P.values.to(torch.float32)
+    Y = torch.from_numpy((np.random.default_rng(1).normal(size=(400, 2)) * 5).astype(np.float32)).cuda()
+    reads = T.gradient_descent.host_reads
+    p, e, i = T.gradient_descent(lambda y, ce: T.kl_divergence_bh(y, P, vals, 1, 0.5, ce), Y, 0, 50,
+                                 n_iter_check=T.N_ITER_CHECK)
+    assert T.gradient_descent.host_reads - reads == 1 and i == 49 and np.isfinite(e) and p.is_cuda

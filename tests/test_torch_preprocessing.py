@@ -268,9 +268,11 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
     two-group CCI test, Moran's I of cell bins, the three interpolation
     engines and `backbone_scc`; PCA's randomized and ARPACK solvers,
     `sample`, `binary_morani_result`, the `core` device helpers, LISA, the
-    spatial-lag model, bivariate Moran, the spatial DEGs and smoothing) run
-    on the CPU, bring in no scikit-learn, JAX, optax, umap, `spateo_tpu`,
-    matplotlib or imageio; and no line of the package imports them."""
+    spatial-lag model, bivariate Moran, the spatial DEGs and smoothing;
+    t-SNE, `points_inside_mesh`, `remove_background`, the platform readers,
+    `data_io` and `sample_data.synthetic`) run on the CPU, bring in no
+    scikit-learn, JAX, optax, umap, `spateo_tpu`, matplotlib or imageio; and
+    no line of the package imports them."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import numpy as np\n"
@@ -336,6 +338,20 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
         "stt.tl.spatial_bv_local_moran(a, 'g2', 'score', permutations=9, device='cpu')\n"
         "stt.tl.find_spatial_cluster_degs(a, 'A', group='g', k=5, device='cpu')\n"
         "stt.tl.smooth(E, a.obsp['spatial_connectivities'])\n"
+        "from spateo_tpu_torch.tools import _tsne\n"
+        "Y0 = _tsne.TSNE(device='cpu').initial_embedding(a.obsm['X_pca'])\n"
+        "P = _tsne.joint_probabilities_nn(*_tsne.knn_sqdistances(a.obsm['X_pca'], 30, device='cpu'), 10.0)\n"
+        "_tsne.gradient_descent(lambda y, ce: _tsne.kl_divergence_bh(y, P, P.values.float(), 1, 0.5, ce), Y0, 0, 3)\n"
+        "import tempfile, chip_smoke\n"
+        "m = chip_smoke.e95_stack(n_sections=2, n_cells=10, n_surface=200)[0]\n"
+        "stt.tdr.overlap_pc_pick(stt.tdr.PointCloud(rng.uniform(-1, 1, (50, 3))), m, device='cpu')\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    spec = chip_smoke.platform_files(tmp, visium_spots=20, visium_genes=10, n=30, g=5)\n"
+        "    for name in spec:\n"
+        "        chip_smoke.read_platform(stt, name, spec[name])\n"
+        "stt.io.add_image_layer(a, chip_smoke.stain(64), 1.0, 's', 'stain')\n"
+        "stt.pp.remove_background(a, slice='s', used_img_layer='stain', return_img_layer='fg')\n"
+        "stt.sample_data.synthetic(n_cells=40, n_genes=6)\n"
         "bad = sorted({k.split('.')[0] for k in sys.modules}\n"
         "             & {'sklearn', 'jax', 'jaxlib', 'optax', 'umap', 'spateo_tpu', 'matplotlib', 'imageio'})\n"
         "print('BAD', bad)\n"

@@ -50,11 +50,34 @@ LEFT_OUT = {
     "configuration.py": {"SpateoConfig", "config_spateo_rcParams", "reset_rcParams", "set_figure_params",
                          "set_pub_style", "set_pub_style_mpltex", "shiftedColorMap", "spateo_theme"},  # item 16
     "ops/stencil.py": {"jacobi_solve_sharded"},  # item 13
+    "plotting/utils.py": {"plot_polygon"},  # item 15: draws through plotting.bbs
     "segmentation/starro.py": {"encode_tile", "upload_tile", "starro_em_bp_sharded"},  # items 9, 13
     # the port returns plain dicts filled by one batched copy
     "ops/vfc.py": {"LazyHostDict"},
 }
 RENAMED = {"ops/vfc.py": {"vector_field_function_jax": "vector_field_function_torch"}}
+#: Names that a JAX package's ``__init__.py`` binds and its port's does not,
+#: each with where it stands.
+ITEM_15_PLOTS_3D = {"acceleration", "backbone", "curl", "curvature", "deformation", "divergence", "jacobian",
+                    "merge_animations", "multi_models", "pairwise_iteration", "pairwise_iteration_panel",
+                    "pairwise_mapping", "pi_heatmap", "three_d_animate", "three_d_multi_plot", "torsion"}
+LEFT_OUT_EXPORTS = {
+    "__init__.py": {"parallel",  # item 13
+                    "ops", "config", "LazyAttribute", "LazyLoader", "get_version", "profiler", "AlignmentError",
+                    "DigitizationError", "MeshError", "PreprocessingError"},  # item 16
+    # item 15: the 2-D and 3-D plots
+    "plotting/__init__.py": ITEM_15_PLOTS_3D | {
+        "CCDotplot", "Dotplot", "PlotNetwork", "box_qc_regions", "cellbin_select", "color_label", "contours",
+        "delaunay", "dendrogram", "dotplot", "geo", "glm_fit", "glm_heatmap", "imshow", "interactive", "ligrec",
+        "lisa", "lisa_quantiles", "map2color", "multi_slices", "optimization_animation", "overlay_slices_2d",
+        "plot_cell_signaling", "plot_connections", "plot_deformation_grid", "plot_network", "plot_vectors",
+        "polarity", "polygon", "qc_regions", "save_fig", "save_return_show_fig_utils", "scatters",
+        "select_polygon", "slices_2d", "space", "space_polygons", "spatial_domains", "static"},
+    # item 15: the plots built on the renderer
+    "plotting/three_d_plot/__init__.py": ITEM_15_PLOTS_3D | {
+        "feature", "plot_expression_3D", "plot_multiple_genes_3D", "quick_plot_3D_celltypes", "three_d_plot",
+        "visualize_3D_increasing_direction_gradient", "wrap_to_plotter"},
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -104,6 +127,32 @@ def test_every_ported_module_has_its_counterparts_public_names():
         assert set(renamed.values()) <= port_names, rel
         missing = {renamed.get(n, n) for n in jax_names} - port_names
         assert missing == LEFT_OUT.get(rel, set()), (rel, sorted(missing))
+
+
+def _exported_names(path):
+    """The public names a package's ``__init__.py`` binds by its imports and
+    assignments (not submodules that other imports attach later, and not
+    names taken from `typing` or `__future__`)."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module in ("typing", "__future__"):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_ported_package_exports_its_counterparts_names():
+    """For every package of the port with a JAX counterpart, the names the
+    JAX package's ``__init__.py`` binds less the port's are exactly the
+    `LEFT_OUT_EXPORTS` set."""
+    packages = [rel for rel in _ported_modules() if rel.endswith("__init__.py")]
+    assert len(packages) > 25
+    for rel in packages:
+        missing = _exported_names(ROOT / "spateo_tpu" / rel) - _exported_names(ROOT / "spateo_tpu_torch" / rel)
+        assert missing == LEFT_OUT_EXPORTS.get(rel, set()), (rel, sorted(missing))
 
 
 # -- sampling ----------------------------------------------------------------------------------------

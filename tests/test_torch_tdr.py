@@ -674,11 +674,10 @@ def test_pc_kde_matches_sklearn(kernel, bandwidth):
 
 
 def test_tdr_exports_what_jax_exports_but_interpolation_engines_and_widgets():
-    """`stt.tdr` exports what `st.tdr` does but the widgets (ROADMAP item
-    11); the interpolation engines are ported."""
-    left_out = {"widgets", "clip", "pick", "slice", "utils", "clip_models", "interactive_box_clip", "interactive_pick", "interactive_rectangle_clip",
-                "interactive_slice", "overlap_mesh_pick", "overlap_pc_pick", "overlap_pick", "pick_models",
-                "slice_models", "three_d_pick", "three_d_slice"}
+    """`stt.tdr` exports what `st.tdr` does, the interpolation engines and
+    the widgets included (their parity is in `tests/test_torch_widgets.py`):
+    nothing is left out."""
+    left_out = set()
     jax_names = {n for n in dir(st.tdr) if not n.startswith("_")}
     port_names = {n for n in dir(stt.tdr) if not n.startswith("_")}
     assert jax_names - port_names == left_out

@@ -8,7 +8,8 @@ alignment refinement and PASTE's Frobenius center NMF, the interpolation
 engines, spatial clustering, UMAP and the two-group CCI test, the
 external models (CAST, STAGATE, merfishVI), and the host tools (DEGs, GLM,
 LISA, bivariate Moran, smoothing) with PCA's randomized solver, sampling,
-the Moran masks and the bridge helpers.
+the Moran masks and the bridge helpers, t-SNE, the widgets and the readers,
+and the profiler, configuration and package root.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -351,6 +352,27 @@ final ``ok`` line:
    the PCA init and the full run's 15-NN preservation; `points_inside_mesh`
    on 2,000 points against the E9.5 ellipsoid's hull: masks equal.
 
+34. The profiler, the configuration and the package root on the card:
+   `profiler.timer(block=True)` around 1,000 `jacobi_block` sweeps at 2048²
+   against CUDA events over the same launches, five times (each timer
+   reading at least the events', their median ratio at most
+   `TIMER_EVENTS_BAR`); `profiler.sync_audit` around `ops.stencil.
+   jacobi_solve` at 512² (blocks of 100 sweeps to 1,100): one "float" read
+   a block and one "array" copy of the result, nothing else;
+   `profiler.trace` of an `annotate`d range of 100 sweeps in a fresh
+   process (`TRACE_CHILD`, started before phase 33 so that its start
+   overlaps that phase), whose Chrome trace names the range and holds one
+   `jacobi_kernel` event per launch;
+   `config.mesh` raises `MeshError`, `enable_x64=True` raises
+   `ConfigurationError`; every module of the package imports, with no
+   matplotlib loaded, and `pl.scatters` raises `ModuleNotFoundError`
+   naming matplotlib; `get_all_dependencies_version` lists torch at its
+   version. No kernel's launch count in the kernels line comes from here.
+35. The same timer and audit checks on the CPU (a 512² field, 100 sweeps,
+   against the host clock): the audit counts equal the card's, and the
+   solved fields agree within 1e-4 (the kernel and its plain version do the
+   same float32 operations in the same order).
+
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (the environment, the build, and the kernels' checks against their
 plain versions that the kernels line reports); the launches of a main path
@@ -366,6 +388,7 @@ JSON line.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -830,14 +853,14 @@ def phase_morpho_cuda_vs_cpu():
           f"max_abs_err {x_err!r}, non-rigid coords max_abs_err {nr_err!r}; {tg!r} s on the card, {tc!r} s on the CPU")
 
 
-def jacobi_case(H, W, seed=0):
+def jacobi_case(H, W, seed=0, device="cuda"):
     """A random field in [0, 100) and the solver's moving set: the interior
     window minus 1% scattered Dirichlet pixels."""
     rng = np.random.default_rng(seed)
-    f = torch.from_numpy(rng.uniform(0, 100, (H, W)).astype(np.float32)).to("cuda")
-    upd = torch.zeros((H, W), dtype=torch.uint8, device="cuda")
+    f = torch.from_numpy(rng.uniform(0, 100, (H, W)).astype(np.float32)).to(device)
+    upd = torch.zeros((H, W), dtype=torch.uint8, device=device)
     upd[1:-1, 1:-1] = 1
-    upd[torch.from_numpy(rng.uniform(size=(H, W)) < 0.01).to("cuda")] = 0
+    upd[torch.from_numpy(rng.uniform(size=(H, W)) < 0.01).to(device)] = 0
     return f, upd
 
 
@@ -4557,6 +4580,50 @@ VISIUM_SPOTS, VISIUM_GENES, IO_CELLS, IO_GENES, IO_IMAGE = 4_992, 2_000, 2_000, 
 #: to 1e-3 of the positions' scale, the full run's 15-NN preservation within
 #: 0.01; `points_inside_mesh` on PIM_CVC_POINTS points: masks equal.
 TSNE_CVC_CELLS, PIM_CVC_POINTS = 1_000, 2_000
+#: phases 34-35: `profiler.timer(block=True)` against CUDA events (card) or the
+#: host clock (CPU) over the same sweeps: the median ratio of five, at most
+TIMER_EVENTS_BAR = 1.10
+#: `jacobi_solve` under `sync_audit`: a 512² field, blocks of 100 sweeps, 11 blocks
+AUDIT_SIDE, AUDIT_CHECK_EVERY, AUDIT_MAX_ITR = 512, 100, 1000
+#: phase 34's trace: 100 `annotate`d sweeps at 1024² under `profiler.trace`, in a
+#: fresh process; prints one JSON line of what the Chrome trace holds
+TRACE_CHILD = """
+import json, os, tempfile, time
+t0 = time.perf_counter()
+import torch
+import chip_smoke as cs
+from spateo_tpu_torch import profiler
+from spateo_tpu_torch.ops import jacobi_cuda as jc
+
+seconds = {"imports": time.perf_counter() - t0}
+f, upd = cs.jacobi_case(1024, 1024, seed=35)
+
+@profiler.annotate("chip_smoke.jacobi_range")
+def sweeps():
+    out = jc.jacobi_block(f, upd, 100)
+    torch.cuda.synchronize()
+    return out
+
+sweeps()
+seconds["card and first sweeps"] = time.perf_counter() - t0 - seconds["imports"]
+with tempfile.TemporaryDirectory() as tmp:
+    before = jc.jacobi_block.launches
+    with profiler.trace(tmp):
+        sweeps()
+    launched = jc.jacobi_block.launches - before
+    seconds["trace"] = time.perf_counter() - t0 - sum(seconds.values())
+    (path,) = [os.path.join(tmp, p) for p in os.listdir(tmp)]
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+kernels = [e for e in events if e.get("cat") == "kernel" and "jacobi_kernel" in str(e.get("name"))]
+categories = {}
+for e in events:
+    categories[str(e.get("cat"))] = categories.get(str(e.get("cat")), 0) + 1
+print(json.dumps({"events": len(events), "launched": launched, "kernels": len(kernels),
+                  "ranges": sum(e.get("name") == "chip_smoke.jacobi_range" for e in events),
+                  "kernel_us": sum(e.get("dur", 0) for e in kernels), "categories": categories,
+                  "seconds": {k: round(v, 2) for k, v in seconds.items()}}))
+"""
 TSNE_CVC_BAR = {"P": 1e-6, "gradient": 1e-4, "10 iterations": 1e-3, "preservation": 0.01, "inside masks": 0.0}
 
 
@@ -4966,6 +5033,174 @@ def phase_tsne_widgets_cuda_vs_cpu(stt):
         check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
 
 
+# -- phases 34-35: the profiler, the configuration and the package root ----------------------------------------
+
+
+def timer_vs_reference(device, reps=5):
+    """`profiler.timer(block=True)` around `jacobi_block` sweeps (1,000 at
+    2048² on the card, 100 at 512² on the CPU) against CUDA events over the
+    same launches (card) or the host clock inside the timer (CPU), `reps`
+    times after a warm-up. Returns [(timer ms, reference ms)]."""
+    from spateo_tpu_torch import profiler
+    from spateo_tpu_torch.ops import jacobi_cuda as jc
+
+    side, n = (2048, 1000) if device == "cuda" else (512, 100)
+    f, upd = jacobi_case(side, side, seed=34, device=device)
+    jc.jacobi_block(f, upd, n)
+    sync(device)
+    name = f"chip_smoke jacobi_block {n} sweeps {side}² {device}"
+    out = []
+    for _ in range(reps):
+        if device == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with profiler.timer(name, log=False):
+                start.record()
+                jc.jacobi_block(f, upd, n)
+                end.record()
+            ref = start.elapsed_time(end)
+        else:
+            with profiler.timer(name, log=False):
+                t0 = time.perf_counter()
+                jc.jacobi_block(f, upd, n)
+                ref = (time.perf_counter() - t0) * 1e3
+        out.append((profiler.timings()[name][-1] * 1e3, ref))
+    for t, ref in out:
+        check(t >= ref, f"timer on {device}: {t!r} ms read less than its reference {ref!r} ms")
+    ratio = sorted(t / ref for t, ref in out)[len(out) // 2]
+    check(ratio <= TIMER_EVENTS_BAR, f"timer on {device}: median ratio to its reference {ratio!r} "
+                                     f"(bar {TIMER_EVENTS_BAR})")
+    return out
+
+
+def audited_jacobi_solve(device):
+    """`ops.stencil.jacobi_solve` under `profiler.sync_audit` on a
+    `AUDIT_SIDE`² field that does not converge (max_err 0): the counts, the
+    iterations and the field. The module's docstring states one read of
+    `err` a block ("float") and one copy of the result ("array")."""
+    from spateo_tpu_torch import profiler
+    from spateo_tpu_torch.ops.stencil import jacobi_solve
+
+    P = AUDIT_SIDE
+    field = np.zeros((P, P), np.float32)
+    border = np.zeros((P, P), bool)
+    mask = np.ones((P, P), np.float32)
+    field[:, :4], field[:, -4:] = 1.0, 100.0
+    border[:, :4] = border[:, -4:] = True
+    with profiler.sync_audit(log=False) as audit:
+        sol, it, err = jacobi_solve(field, border, mask, max_err=0.0, max_itr=AUDIT_MAX_ITR,
+                                    check_every=AUDIT_CHECK_EVERY, device=device)
+    counts = {k: v for k, v in audit.items() if k != "stacks"}
+    blocks = it // AUDIT_CHECK_EVERY
+    check(it == AUDIT_MAX_ITR + AUDIT_CHECK_EVERY, f"jacobi_solve on {device} ran {it} iterations")
+    check(counts == {"array": 1, "float": blocks, "int": 0, "bool": 0, "device_get": 0},
+          f"sync_audit of jacobi_solve on {device}: {counts}, documented {blocks} float reads and 1 array copy")
+    return counts, it, sol
+
+
+def raises(exc, fn):
+    """Whether `fn()` raises `exc`."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def start_trace_child():
+    """Phase 34's trace, in a process of its own: late in a long process
+    that has run large profiler sessions, torch.profiler loses some or all of
+    a short trace's kernel records (scripts/profiler_window_probe.py). The
+    script starts it before phase 33, so that its start (imports, the card,
+    the profiler; ~20 s) overlaps that phase."""
+    return subprocess.Popen([sys.executable, "-c", TRACE_CHILD], cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_profiler_root(stt, trace_proc):
+    """Phase 34: the timer against CUDA events, the audit of `jacobi_solve`,
+    the configuration's refusals, the package's imports without matplotlib
+    and the dependency table, on the card; then the trace of an annotated
+    range that `trace_proc` (`start_trace_child`) took. Returns the audit's
+    counts and the solved field."""
+    import importlib
+    import importlib.util
+    import pkgutil
+
+    t_phase = time.perf_counter()
+    tv = timer_vs_reference("cuda")
+    print("phase 34: timer(block=True) vs CUDA events, 1,000 jacobi_block sweeps at 2048² (ms): "
+          + ", ".join(f"{t!r} vs {r!r}" for t, r in tv)
+          + f"; median ratio {sorted(t / r for t, r in tv)[2]!r} (bar {TIMER_EVENTS_BAR})")
+    counts, it, sol = audited_jacobi_solve("cuda")
+    print(f"phase 34: sync_audit of jacobi_solve at {AUDIT_SIDE}², {it} sweeps in blocks of "
+          f"{AUDIT_CHECK_EVERY}: {counts}")
+
+    check(raises(stt.MeshError, lambda: stt.config.mesh), "config.mesh did not raise MeshError")
+    check(raises(stt.ConfigurationError, lambda: setattr(stt.config, "enable_x64", True)),
+          "config.enable_x64 = True did not raise ConfigurationError")
+    check(stt.config.dtype is torch.float32, "config.dtype")
+
+    present = importlib.util.find_spec("matplotlib") is not None
+    names = [m.name for m in pkgutil.walk_packages(stt.__path__, "spateo_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    check(not any(k.split(".")[0] in ("matplotlib", "mpl_toolkits") for k in sys.modules),
+          "importing the package loaded matplotlib")
+    ad = stt.AnnData(X=np.ones((4, 2), np.float32))
+    ad.obsm["spatial"] = np.arange(8.0).reshape(4, 2)
+    saved = {}
+    if present:  # this machine has matplotlib: hide it, so that the call meets the machine the port is for
+        saved = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "matplotlib"}
+        sys.modules["matplotlib"] = None
+    missing = None
+    try:
+        stt.pl.scatters(ad, basis="spatial", color="0")
+    except ModuleNotFoundError as e:
+        missing = e.name
+    finally:
+        if present:
+            del sys.modules["matplotlib"]
+            sys.modules.update(saved)
+    check(missing == "matplotlib", f"pl.scatters without matplotlib raised for {missing!r}")
+    deps = importlib.import_module("spateo_tpu_torch.get_version").get_all_dependencies_version(display=False)
+    got = str(deps.loc["version", "torch"])
+    check(got.split("+")[0] == torch.__version__.split("+")[0], f"dependency table: torch {got}, running "
+                                                                 f"{torch.__version__}")
+    print(f"phase 34: config.mesh raises MeshError, enable_x64=True raises ConfigurationError; {len(names)} "
+          f"modules imported, matplotlib {'present but hidden' if present else 'absent'}, pl.scatters raised "
+          f"ModuleNotFoundError({missing!r}); dependency table: " + ", ".join(
+              f"{k} {v}" for k, v in deps.loc["version"].items()))
+    t_wait = time.perf_counter()
+    out, err = trace_proc.communicate(timeout=300)
+    t_wait = time.perf_counter() - t_wait
+    check(trace_proc.returncode == 0, f"the trace process failed: {err[-2000:]}")
+    tr = json.loads(out.strip().splitlines()[-1])
+    check(tr["ranges"] > 0, "the trace does not name the annotated range")
+    check(tr["kernels"] == tr["launched"], f"the trace holds {tr['kernels']} jacobi_kernel events for "
+                                           f"{tr['launched']} launches (events by category {tr['categories']})")
+    print(f"phase 34: trace of 100 sweeps at 1024² in a fresh process: {tr['events']} events, the range "
+          f"{tr['ranges']} time(s), {tr['kernels']} jacobi_kernel events for {tr['launched']} launches, "
+          f"{tr['kernel_us']!r} us of kernel time; the process's seconds {tr['seconds']}, waited for here "
+          f"{t_wait!r} s")
+    print(f"phase 34: {time.perf_counter() - t_phase!r} s")
+    return counts, sol
+
+
+def phase_profiler_cpu(card_counts, card_sol):
+    """Phase 35: the timer and the audit on the CPU; the audit's counts
+    equal the card's (phase 34's), and the two solved fields agree."""
+    t_phase = time.perf_counter()
+    tv = timer_vs_reference("cpu")
+    print("phase 35: timer(block=True) vs the host clock, 100 jacobi_block sweeps at 512² on the CPU (ms): "
+          + ", ".join(f"{t!r} vs {r!r}" for t, r in tv))
+    counts, it, sol = audited_jacobi_solve("cpu")
+    check(counts == card_counts, f"sync_audit of jacobi_solve: CPU {counts}, card {card_counts}")
+    diff = float(np.abs(sol - card_sol).max())
+    check(diff <= 1e-4, f"jacobi_solve card vs CPU: {diff} > 1e-4")
+    print(f"phase 35: sync_audit of jacobi_solve on the CPU {counts}, equal to the card's; fields card vs CPU "
+          f"max abs diff {diff!r} (bar 1e-4); phase 35 {time.perf_counter() - t_phase!r} s")
+
+
 def main(argv=None):
     import argparse
 
@@ -4979,6 +5214,8 @@ def main(argv=None):
         phases.add(3)  # the labeling chain of phase 9 runs on phase 3's mask
     if phases is not None and phases & {18, 19}:
         phases |= {18, 19}  # phase 19 compares phase 18's samples
+    if phases is not None and phases & {34, 35}:
+        phases |= {34, 35}  # phase 35 compares phase 34's audit
 
     def want(n):
         return phases is None or n in phases
@@ -5149,10 +5386,24 @@ def main(argv=None):
     if want(32):
         phase_tsne_widgets_io(stt, section, surface)
     mark("32")
-    if want(33):
-        phase_tsne_widgets_cuda_vs_cpu(stt)
+    trace_proc = start_trace_child() if want(34) else None
+    try:
+        if want(33):
+            phase_tsne_widgets_cuda_vs_cpu(stt)
 
-    mark("33")
+        mark("33")
+        # -- phases 34-35: the profiler, the configuration and the package root --------------------------------------
+        if want(34):
+            audit = phase_profiler_root(stt, trace_proc)
+    finally:
+        if trace_proc is not None and trace_proc.poll() is None:
+            trace_proc.kill()
+            trace_proc.wait()
+    mark("34")
+    if want(35):
+        phase_profiler_cpu(*audit)
+
+    mark("35")
     groups = {}
     for k, v in phase_seconds.items():  # as earlier runs grouped them: a slice's main path and its checks
         n = int(k)

@@ -18,8 +18,12 @@ defaults to ``"cuda"``. It never imports JAX.
     stt.tl.MuSIC(adata=adata, mod_type="lr", custom_ligands=[...], custom_receptors=[...]).fit()
     stt.tl.perform_dimensionality_reduction(adata, reduction_method="tsne")
     inside, outside = stt.tdr.overlap_pc_pick(cloud, surface)
+    stt.pl.space(adata, color="cluster", save_show_or_return="return")   # matplotlib, host
+    with stt.profiler.timer("fit"):                                      # waits for the card
+        ...
 """
 
+from ._lazy_loader import LazyAttribute, LazyLoader
 from . import alignment as align
 from . import digitization as dd
 from . import io
@@ -29,7 +33,7 @@ from . import sample_data
 from . import segmentation as cs
 from . import svg, tdr
 from . import tools as tl
-from .configuration import SKM
+from .configuration import SKM, config
 from .core.anndata import AnnData, concat, read_h5ad
 from .data_io import (
     read,
@@ -42,5 +46,20 @@ from .data_io import (
     read_umi_tools,
     read_zarr,
 )
-from .errors import ConfigurationError, SegmentationError, SpateoError
+from .errors import (
+    AlignmentError,
+    ConfigurationError,
+    DigitizationError,
+    MeshError,
+    PreprocessingError,
+    SegmentationError,
+    SpateoError,
+)
+from .get_version import get_version
 from .logging import logger_manager
+
+__version__ = get_version(__file__)
+
+# bound lazily, as in the JAX package
+profiler = LazyLoader("profiler", globals(), "spateo_tpu_torch.profiler")
+ops = LazyLoader("ops", globals(), "spateo_tpu_torch.ops")

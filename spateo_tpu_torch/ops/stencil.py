@@ -11,7 +11,9 @@ overshoot `max_itr` by up to one block. On the card the kernel's last launch
 of a block computes the change's sums itself (f64, fixed order) and a small
 kernel writes `err` on the device; on the CPU `_rel_change` computes it.
 Each block ends with one read of `err` by the host: a solve makes
-``it / check_every`` reads.
+``it / check_every`` reads, and one more copies the result back
+(`profiler.sync_audit` counts them: ``it / check_every`` under "float", one
+under "array").
 `graph_heat_solve` is the same loop over a neighbour graph in plain
 PyTorch (XLA only in the JAX package).
 """
@@ -68,7 +70,7 @@ def jacobi_solve(
     upd[frozen] = 0
     n = int(check_every)
     f, it, err = _heat_loop(lambda x: jacobi_block(x, upd, n, weight=mk), f0, max_err, int(max_itr), n)
-    return (f * mk).cpu().numpy(), int(it), float(err)
+    return (f * mk).numpy(force=True), int(it), float(err)
 
 
 def _adjacency_slots(n: int, adj_rows: np.ndarray, adj_cols: np.ndarray):

@@ -1,10 +1,14 @@
-"""Categorical palettes (counterpart of the palette constants of
-`spateo_tpu.plotting.colorlabel`; reference plotting/static/colorlabel.py:
-94-326), as data: matplotlib's tab10 and tab20 are written out as hex, so
-that importing the palettes needs no matplotlib. `color_label` and the rest
-of `plotting/` are ROADMAP Queue 1 item 15."""
+"""Categorical palettes and the cell-contour colour-label plot (counterpart
+of `spateo_tpu.plotting.colorlabel`; reference plotting/static/colorlabel.py:
+12-326). The palettes are data: matplotlib's tab10 and tab20 are written out
+as hex, so that importing them needs no matplotlib. `color_label` lives in
+`geo` and `map2color` in `utils`, re-exported here under the reference module
+name."""
 
 from __future__ import annotations
+
+from .geo import color_label  # noqa: F401
+from .utils import map2color  # noqa: F401
 
 DEFAULT_COLORS = ("red", "blue", "yellow", "magenta", "green", "indigo", "darkorange", "cyan", "pink", "yellowgreen")
 

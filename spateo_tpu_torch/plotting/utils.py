@@ -4,8 +4,7 @@ resolution, hex conversion, the save/show/return protocol, colour
 normalisation, dendrograms. Host code, copied; matplotlib is imported inside
 the functions that use it (`_pyplot` picks the Agg backend where no display
 is set), since the GPU machine has none, and `DEFAULT_PALETTE` is written
-out as data. `plot_polygon` draws through `plotting.bbs`, which is ROADMAP
-Queue 1 item 15.
+out as data.
 """
 
 from __future__ import annotations
@@ -665,3 +664,10 @@ class Loess:
         _, smooth, _ = loess_1d(self.xx, self.yy, frac=frac, degree=degree)
         idx = int(np.argmin(np.abs(self.xx - x)))
         return smooth[idx]
+
+
+def plot_polygon(polygon, margin: float = 1, fc: str = "#999999", ec: str = "#000000", fill: bool = True, ax=None, **kwargs):
+    """Draw a polygon (parity: utils.py:1351 — delegates to pl.polygon)."""
+    from .bbs import polygon as _poly
+
+    return _poly(polygon, margin=margin, fc=fc, ec=ec, fill=fill, ax=ax, save_show_or_return="return", **kwargs)

@@ -12,9 +12,9 @@ neighbour space, built once per design and kept on the device across
 the [n, k] results), the `permutation_test` refits (`mpi_fit`) and the
 spatial weights of `_load_or_compute_weights` (`_compute_all_wi`). The rest
 is the JAX package's host code (pandas, scipy sparse, the effect
-potentials); matplotlib is imported only inside the plot methods, and
-`add_interaction_effect_to_adata(visualize=True)` needs `plotting.space`,
-which is not ported (ROADMAP Queue 1 item 15).
+potentials); matplotlib is imported only inside the plot methods
+(`add_interaction_effect_to_adata(visualize=True)` draws through the port's
+`plotting.space`).
 """
 
 from __future__ import annotations
@@ -533,10 +533,14 @@ class MuSIC_Interpreter(MuSIC):
                 self.adata.obs[f"{t}_{i}_effect"] = eff
                 self.adata.obs[f"{i}_effect_on_{t}"] = eff  # legacy alias
                 if visualize:
-                    raise NotImplementedError(
-                        "add_interaction_effect_to_adata(visualize=True) draws with `plotting.space`, which is not "
-                        "ported to PyTorch yet (ROADMAP Queue 1 item 15); the effects are in .obs."
-                    )
+                    from ...plotting.space import space as _space
+
+                    # reference clamps the color scale at the 99.7th
+                    # percentile before rendering (:75 in the method body)
+                    p997 = float(np.percentile(eff, 99.7))
+                    plot_col = f"{t}_{i}_effect_plot"
+                    self.adata.obs[plot_col] = np.minimum(eff, p997)
+                    _space(self.adata, color=[plot_col], space=self.coords_key, save_show_or_return="return")
         return self.adata
 
     def compute_and_visualize_diagnostics(

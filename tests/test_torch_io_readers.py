@@ -273,14 +273,12 @@ def _init_names(pkg):
 
 def test_io_pp_and_root_export_what_jax_exports():
     """`stt.io` and `stt.pp` export every public name of `st.io` and `st.pp`;
-    the root lacks only the names of ROADMAP items 13 (`parallel`) and 16
-    (the configuration, the lazy loader and the subpackage it binds lazily,
-    `ops`, the version, the profiler and four error classes)."""
+    the root lacks only the name of ROADMAP item 13 (`parallel`)."""
     for a, b in ((st.io, stt.io), (st.pp, stt.pp)):
         assert _init_names(a) <= _init_names(b) | {n for n in dir(b) if not n.startswith("_")}
-    left_out = {"parallel", "ops", "config", "LazyAttribute", "LazyLoader", "get_version", "profiler",
-                "AlignmentError", "DigitizationError", "MeshError", "PreprocessingError"}
-    assert _init_names(st) - _init_names(stt) == left_out
+    assert _init_names(st) - _init_names(stt) == {"parallel"}
     for name in ("read", "read_csv", "read_excel", "read_h5ad", "read_hdf", "read_loom", "read_mtx", "read_text",
-                 "read_umi_tools", "read_zarr", "sample_data", "pl"):
+                 "read_umi_tools", "read_zarr", "sample_data", "pl", "ops", "config", "LazyAttribute", "LazyLoader",
+                 "get_version", "profiler", "AlignmentError", "DigitizationError", "MeshError",
+                 "PreprocessingError"):
         assert hasattr(stt, name), name

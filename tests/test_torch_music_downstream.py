@@ -271,15 +271,31 @@ def test_effect_potential_loads_or_computes_the_weights(fitted):
 
 def test_effect_matrix_vector_field_and_pathway_match_jax(fitted):
     """`TestMuSICDownstreamBreadth.test_effects_and_direction` through both
-    packages, plus the pathway potential."""
+    packages, plus the pathway potential; `visualize=True` writes the same
+    obs columns (the 99.7th-percentile clamp in `_plot`) and draws an equal
+    figure (pixels and artists, `tests/_figure_parity.py`)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from _figure_parity import assert_same_figure
+
     _, _, senders = fitted
     with tempfile.TemporaryDirectory() as tmp:
         ji, ti = _interpreters(fitted, tmp)
         for i in (ji, ti):
             i.add_interaction_effect_to_adata("TGT1", IA)
         np.testing.assert_array_equal(ti.adata.obs[f"{IA}_effect_on_TGT1"], ji.adata.obs[f"{IA}_effect_on_TGT1"])
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ti.add_interaction_effect_to_adata("TGT1", IA, visualize=True)
+        figs = []
+        for i in (ji, ti):
+            i.add_interaction_effect_to_adata("TGT1", IA, visualize=True)
+            figs.append(plt.gcf())
+        assert list(ti.adata.obs.columns) == list(ji.adata.obs.columns)
+        for c in ji.adata.obs.columns:
+            np.testing.assert_array_equal(np.asarray(ti.adata.obs[c]), np.asarray(ji.adata.obs[c]))
+        assert figs[0] is not figs[1]
+        assert_same_figure(*figs)
+        plt.close("all")
         pd.testing.assert_frame_equal(ti.cell_type_specific_interactions(lower_threshold=0.0),
                                       ji.cell_type_specific_interactions(lower_threshold=0.0))
         Pj, nsj, nrj = ji.get_effect_potential_matrix("TGT1", IA)

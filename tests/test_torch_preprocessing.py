@@ -370,18 +370,32 @@ def test_no_module_imports_sklearn_jax_or_the_jax_package():
 
 
 def test_no_module_imports_matplotlib_on_import():
-    """Importing every module of `spateo_tpu_torch` in a fresh interpreter,
-    and `in_concave_hull`, load no matplotlib (the GPU machine has none; plot
-    functions import it inside themselves)."""
+    """Importing every module of `spateo_tpu_torch` in a fresh interpreter
+    (`plotting` and its submodules, `profiler`, `configuration` and
+    `colormaps` among them), `in_concave_hull`, the configuration, the
+    profiler's timer and audit and the palettes load no matplotlib (the GPU
+    machine has none; plot functions and the figure settings import it
+    inside themselves)."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import numpy as np\n"
         "import spateo_tpu_torch\n"
+        "walked = set()\n"
         "for m in pkgutil.walk_packages(spateo_tpu_torch.__path__, 'spateo_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    walked.add(m.name)\n"
         "spateo_tpu_torch.io.in_concave_hull(np.zeros((2, 2)), np.eye(3)[:, :2])\n"
+        "stt = spateo_tpu_torch\n"
+        "with stt.profiler.timer('t', log=False), stt.profiler.sync_audit(log=False):\n"
+        "    float(stt.config.dtype is not None) + len(stt.colormaps.cyc_20)\n"
+        "need = {'spateo_tpu_torch.' + n for n in ('plotting.scatters', 'plotting.space', 'plotting.dotplot',\n"
+        "        'plotting.interactive.agg', 'plotting.static', 'plotting.three_d_plot.three_dims_plots',\n"
+        "        'plotting.three_d_plot.pairwise_align_plots', 'profiler', 'configuration', 'colormaps',\n"
+        "        'get_version', 'utils', 'warnings', '_lazy_loader')}\n"
+        "print('UNWALKED', sorted(need - walked))\n"
         "print('MPL', sorted(k for k in sys.modules if k.split('.')[0] in ('matplotlib', 'mpl_toolkits')))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "UNWALKED []" in proc.stdout, proc.stdout[-2000:]
     assert "MPL []" in proc.stdout, proc.stdout[-2000:]

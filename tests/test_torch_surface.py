@@ -47,10 +47,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 #: Public names of JAX modules that the port's counterpart lacks on purpose,
 #: each with where it stands; renamed counterparts map to their new name.
 LEFT_OUT = {
-    "configuration.py": {"SpateoConfig", "config_spateo_rcParams", "reset_rcParams", "set_figure_params",
-                         "set_pub_style", "set_pub_style_mpltex", "shiftedColorMap", "spateo_theme"},  # item 16
     "ops/stencil.py": {"jacobi_solve_sharded"},  # item 13
-    "plotting/utils.py": {"plot_polygon"},  # item 15: draws through plotting.bbs
     "segmentation/starro.py": {"encode_tile", "upload_tile", "starro_em_bp_sharded"},  # items 9, 13
     # the port returns plain dicts filled by one batched copy
     "ops/vfc.py": {"LazyHostDict"},
@@ -58,25 +55,8 @@ LEFT_OUT = {
 RENAMED = {"ops/vfc.py": {"vector_field_function_jax": "vector_field_function_torch"}}
 #: Names that a JAX package's ``__init__.py`` binds and its port's does not,
 #: each with where it stands.
-ITEM_15_PLOTS_3D = {"acceleration", "backbone", "curl", "curvature", "deformation", "divergence", "jacobian",
-                    "merge_animations", "multi_models", "pairwise_iteration", "pairwise_iteration_panel",
-                    "pairwise_mapping", "pi_heatmap", "three_d_animate", "three_d_multi_plot", "torsion"}
 LEFT_OUT_EXPORTS = {
-    "__init__.py": {"parallel",  # item 13
-                    "ops", "config", "LazyAttribute", "LazyLoader", "get_version", "profiler", "AlignmentError",
-                    "DigitizationError", "MeshError", "PreprocessingError"},  # item 16
-    # item 15: the 2-D and 3-D plots
-    "plotting/__init__.py": ITEM_15_PLOTS_3D | {
-        "CCDotplot", "Dotplot", "PlotNetwork", "box_qc_regions", "cellbin_select", "color_label", "contours",
-        "delaunay", "dendrogram", "dotplot", "geo", "glm_fit", "glm_heatmap", "imshow", "interactive", "ligrec",
-        "lisa", "lisa_quantiles", "map2color", "multi_slices", "optimization_animation", "overlay_slices_2d",
-        "plot_cell_signaling", "plot_connections", "plot_deformation_grid", "plot_network", "plot_vectors",
-        "polarity", "polygon", "qc_regions", "save_fig", "save_return_show_fig_utils", "scatters",
-        "select_polygon", "slices_2d", "space", "space_polygons", "spatial_domains", "static"},
-    # item 15: the plots built on the renderer
-    "plotting/three_d_plot/__init__.py": ITEM_15_PLOTS_3D | {
-        "feature", "plot_expression_3D", "plot_multiple_genes_3D", "quick_plot_3D_celltypes", "three_d_plot",
-        "visualize_3D_increasing_direction_gradient", "wrap_to_plotter"},
+    "__init__.py": {"parallel"},  # item 13
 }
 
 

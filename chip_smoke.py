@@ -9,7 +9,8 @@ engines, spatial clustering, UMAP and the two-group CCI test, the
 external models (CAST, STAGATE, merfishVI), and the host tools (DEGs, GLM,
 LISA, bivariate Moran, smoothing) with PCA's randomized solver, sampling,
 the Moran masks and the bridge helpers, t-SNE, the widgets and the readers,
-and the profiler, configuration and package root.
+the profiler, configuration and package root, and the sharded main path
+over `torch.distributed`.
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
@@ -349,8 +350,10 @@ final ``ok`` line:
    path.
 33. Card against CPU at 1,000 cells (`tsne_widgets_cuda_vs_cpu`, bars
    `TSNE_CVC_BAR`): t-SNE's P, one Barnes-Hut gradient, 10 iterations from
-   the PCA init and the full run's 15-NN preservation; `points_inside_mesh`
-   on 2,000 points against the E9.5 ellipsoid's hull: masks equal.
+   the PCA init and the full run's 15-NN preservation (the CPU's full run in
+   a process of its own, `TSNE_CPU_CHILD`, beside the card's);
+   `points_inside_mesh` on 2,000 points against the E9.5 ellipsoid's hull:
+   masks equal.
 
 34. The profiler, the configuration and the package root on the card:
    `profiler.timer(block=True)` around 1,000 `jacobi_block` sweeps at 2048²
@@ -363,7 +366,8 @@ final ``ok`` line:
    process (`TRACE_CHILD`, started before phase 33 so that its start
    overlaps that phase), whose Chrome trace names the range and holds one
    `jacobi_kernel` event per launch;
-   `config.mesh` raises `MeshError`, `enable_x64=True` raises
+   `config.mesh` of a shape that does not cover the one rank raises
+   `MeshError` (the mesh itself runs in phase 36), `enable_x64=True` raises
    `ConfigurationError`; every module of the package imports, with no
    matplotlib loaded, and `pl.scatters` raises `ModuleNotFoundError`
    naming matplotlib; `get_all_dependencies_version` lists torch at its
@@ -372,9 +376,29 @@ final ``ok`` line:
    against the host clock): the audit counts equal the card's, and the
    solved fields agree within 1e-4 (the kernel and its plain version do the
    same float32 operations in the same order).
+36. The sharded main path (`phase_sharded`): Starro on a 2048² tile
+   (`starro_em_bp_sharded`, BP's messages f32, 50 iterations), Morpho on the
+   20,000-cell pair (`morpho_align(mesh=)`, 200 iterations), SparseVFC on
+   100,000 points at M 100 (5 iterations, then to convergence) and Jacobi on
+   phase 9's 2048² stripes (`jacobi_solve_sharded`, 20,000 sweeps), each
+   rank a process of this script (`--phase36-rank`), warmed up at a small
+   size first. (a) One NCCL rank in a fresh process, its mesh
+   `config.mesh` with no launcher: held against the unsharded port on the
+   card with the settings the sharded path fixes (`SHARD_BARS`: scores
+   within 1e-5 and masks equal, coordinates within 1e-4, the 5-iteration
+   field within 5e-3, the Jacobi field within 1e-5 at the same iteration
+   count; the converged field's cosine to the rotation above 0.99). (b)
+   Four gloo ranks sharing the card (`initialize_distributed(backend=
+   "gloo")` over a file store): the same calls held against (a) with the
+   same bars, and every rank's results the same bits (sha256). Each rank
+   sets the launch counters to 0 just before the stages and reads them just
+   after: `bp_step`, `estep_colnorm`, `estep_rowred`, `inlier_fit` and
+   `jacobi_block` each launched on every rank. Prints each rank's stage
+   seconds and its seconds and calls in collectives (the card synchronised
+   around each collective).
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
-and 8 (the environment, the build, and the kernels' checks against their
+and 8 (`--phases 36` the sharded path alone) (the environment, the build, and the kernels' checks against their
 plain versions that the kernels line reports); the launches of a main path
 not run are 0 there. With no arguments every phase runs.
 
@@ -4983,39 +5007,77 @@ def phase_tsne_widgets_io(stt, section=None, surface=None):
     print(f"phase 32: {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 33's full t-SNE on the CPU, in a process of its own: reads X.npy
+#: from the directory it is given, writes Y.npy there, prints its seconds.
+TSNE_CPU_CHILD = """
+import json, sys, time
+import numpy as np
+import torch
+from spateo_tpu_torch.tools import _tsne as T
+X = np.load(sys.argv[1] + "/X.npy")
+t0 = time.perf_counter()
+Y = T.TSNE(device="cpu").fit_transform(X)
+np.save(sys.argv[1] + "/Y.npy", Y)
+print(json.dumps({"seconds": time.perf_counter() - t0, "threads": torch.get_num_threads()}))
+"""
+
+
 def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
     """Phase 33's comparisons of `card` against the CPU: {check: (value,
-    bar)}."""
+    bar)}. The CPU's full t-SNE runs in a process of its own
+    (`TSNE_CPU_CHILD`), started as soon as the section is made, beside the
+    other checks and the card's full run: the two full runs are the phase's
+    largest items, and the card's is bound by one host thread's dispatch."""
+    import shutil
+    import tempfile
+
     from spateo_tpu_torch.tdr.widgets import ops as wo
     from spateo_tpu_torch.tools import _tsne as T
     from spateo_tpu_torch.tools.dimensionality_reduction import knn_preservation
 
     ad = cluster_section(stt, n, 500, device="cpu")
     X = np.asarray(ad.obsm["X_pca"])[:, :30]
-    devs = (card, "cpu")
-    P = {d: T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device=d), 30.0) for d in devs}
-    check(torch.equal(P[card].rows.cpu(), P["cpu"].rows) and torch.equal(P[card].cols.cpu(), P["cpu"].cols),
-          "t-SNE P: the kNN graphs differ")
-    out = {"P": (rel_err(P[card].values.cpu().numpy(), P["cpu"].values.numpy()), TSNE_CVC_BAR["P"])}
-    Y = torch.as_tensor((np.random.default_rng(1).normal(size=(n, 2)) * 5).astype(np.float32))
-    g = {d: T.kl_divergence_bh(Y.to(d), P[d], P[d].values.to(torch.float32), 1, 0.5)[1].cpu().numpy() for d in devs}
-    out["gradient"] = (rel_err(g[card], g["cpu"]), TSNE_CVC_BAR["gradient"])
-    Y0 = T.TSNE(device="cpu").initial_embedding(X)
-    it = {}
-    for d in devs:
-        vals = (P[d].values * 12.0).to(torch.float32)
-        it[d] = T.gradient_descent(lambda y, ce, d=d, vals=vals: T.kl_divergence_bh(y, P[d], vals, 1, 0.5, ce),
-                                   Y0.to(d), 0, 10, n_iter_check=T.N_ITER_CHECK, momentum=0.5,
-                                   learning_rate=max(n / 48, 50))[0].cpu().numpy()
-    out["10 iterations"] = (rel_err(it[card], it["cpu"]), TSNE_CVC_BAR["10 iterations"])
-    pres, seconds = {}, {}
-    for d in devs:
+    tmp = tempfile.mkdtemp()
+    child = None
+    try:
+        np.save(os.path.join(tmp, "X.npy"), X)
+        child = subprocess.Popen([sys.executable, "-c", TSNE_CPU_CHILD, tmp], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        devs = (card, "cpu")
+        P = {d: T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device=d), 30.0) for d in devs}
+        check(torch.equal(P[card].rows.cpu(), P["cpu"].rows) and torch.equal(P[card].cols.cpu(), P["cpu"].cols),
+              "t-SNE P: the kNN graphs differ")
+        out = {"P": (rel_err(P[card].values.cpu().numpy(), P["cpu"].values.numpy()), TSNE_CVC_BAR["P"])}
+        Y = torch.as_tensor((np.random.default_rng(1).normal(size=(n, 2)) * 5).astype(np.float32))
+        g = {d: T.kl_divergence_bh(Y.to(d), P[d], P[d].values.to(torch.float32), 1, 0.5)[1].cpu().numpy()
+             for d in devs}
+        out["gradient"] = (rel_err(g[card], g["cpu"]), TSNE_CVC_BAR["gradient"])
+        Y0 = T.TSNE(device="cpu").initial_embedding(X)
+        it = {}
+        for d in devs:
+            vals = (P[d].values * 12.0).to(torch.float32)
+            it[d] = T.gradient_descent(lambda y, ce, d=d, vals=vals: T.kl_divergence_bh(y, P[d], vals, 1, 0.5, ce),
+                                       Y0.to(d), 0, 10, n_iter_check=T.N_ITER_CHECK, momentum=0.5,
+                                       learning_rate=max(n / 48, 50))[0].cpu().numpy()
+        out["10 iterations"] = (rel_err(it[card], it["cpu"]), TSNE_CVC_BAR["10 iterations"])
+        emb, seconds = {}, {}
         t0 = time.perf_counter()
-        pres[d] = knn_preservation(X, T.TSNE(device=d).fit_transform(X), 15, device=card)
-        seconds[d] = time.perf_counter() - t0
+        emb[card] = T.TSNE(device=card).fit_transform(X)
+        seconds[card] = time.perf_counter() - t0
+        child_out, child_err = child.communicate(timeout=600)
+        check(child.returncode == 0, f"the CPU's t-SNE process failed: {child_err[-2000:]}")
+        cpu_run = json.loads(child_out.strip().splitlines()[-1])
+        seconds["cpu"], emb["cpu"] = cpu_run["seconds"], np.load(os.path.join(tmp, "Y.npy"))
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    pres = {d: knn_preservation(X, emb[d], 15, device=card) for d in devs}
     out["preservation"] = (abs(pres[card] - pres["cpu"]), TSNE_CVC_BAR["preservation"])
-    print(f"phase 33: the full t-SNE runs at {n:,} cells: card {seconds[card]!r} s (15-NN preservation "
-          f"{pres[card]!r}), CPU {seconds['cpu']!r} s ({pres['cpu']!r}, {torch.get_num_threads()} threads)")
+    print(f"phase 33: the full t-SNE runs at {n:,} cells, side by side: card {seconds[card]!r} s (15-NN "
+          f"preservation {pres[card]!r}), CPU {seconds['cpu']!r} s in a process of its own ({pres['cpu']!r}, "
+          f"{cpu_run['threads']} threads)")
     mesh = e95_stack(n_sections=2, n_cells=10)[0]
     q = np.random.default_rng(2).uniform(-1.2, 1.2, (PIM_CVC_POINTS, 3)) * np.asarray(E95_AXES)
     m = {d: wo.points_inside_mesh(q, mesh, device=d) for d in devs}
@@ -5031,6 +5093,250 @@ def phase_tsne_widgets_cuda_vs_cpu(stt):
         f"{k} {v!r} (bar {b})" for k, (v, b) in out.items()) + f"; phase 33 {time.perf_counter() - t_phase!r} s")
     for k, (v, bar) in out.items():
         check(v <= bar, f"{k}: card vs CPU {v} (bar {bar})")
+
+
+# -- phase 36: the sharded main path over torch.distributed ---------------------------------------------------
+
+#: Ranks of phase 36b, all on the one card, and the seconds a group of ranks
+#: may take before the phase fails.
+SHARD_RANKS, SHARD_TIMEOUT = 4, 600
+#: The stages' bars against the unsharded port (phase 36a) and against 36a
+#: (phase 36b): Starro scores, Morpho coordinates, SparseVFC's field after 5
+#: iterations, the Jacobi field (the tests' bars); the converged field's
+#: cosine to the rotation's.
+SHARD_BARS = {"starro scores": 1e-5, "starro mask pixels": 0, "morpho": 1e-4, "vfc5": 5e-3, "jacobi": 1e-5,
+              "vfc cosine": 0.99}
+
+
+def shard_inputs(small=False):
+    """Phase 36's inputs: a `bench.make_raster` tile (2048² or 256²), a
+    `bench._make_slice_pair` pair (20,000 cells or 2,000), `vfc_fields`'
+    rotation (100,000 points or 2,000) and phase 9's atlas stripes (2048² or
+    256²)."""
+    import bench
+
+    side, cells, points = (256, 2_000, 2_000) if small else (TILE, 20_000, 100_000)
+    X = bench.make_raster(side, side, seed=0)
+    pair = bench._make_slice_pair(cells, seed=1)
+    Xv, Vv = vfc_fields(points, 1)
+    field = np.zeros((side, side), np.float32)
+    border = np.zeros((side, side), bool)
+    field[:, :4], field[:, -4:] = 1.0, 100.0
+    border[:, :4] = border[:, -4:] = True
+    return dict(X=X, pair=pair, X_vfc=Xv[0], V_vfc=Vv[0], jacobi=(field, border, np.ones((side, side), np.float32)))
+
+
+def shard_stages(stt, inp, mesh, iters=200, jacobi_itr=20_000, bp_iters=50):
+    """The four stages of the main path through their sharded entry points on
+    `mesh`, each timed (host clock, the card synchronised) with the seconds
+    and calls of its collectives (`parallel._collectives.STATS`). Returns
+    ({result: array}, {stage: seconds}, {stage: collective seconds},
+    {stage: collective calls})."""
+    import bench
+    from spateo_tpu_torch.ops.stencil import jacobi_solve_sharded
+    from spateo_tpu_torch.ops.vfc import SparseVFC
+    from spateo_tpu_torch.parallel import _collectives as C
+    from spateo_tpu_torch.segmentation.starro import starro_em_bp_sharded
+
+    out, secs, coll, calls = {}, {}, {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        c0, n0, t0 = C.STATS["seconds"], C.STATS["calls"], time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name], coll[name], calls[name] = time.perf_counter() - t0, C.STATS["seconds"] - c0, C.STATS["calls"] - n0
+        return r
+
+    out["starro scores"], out["starro mask"] = stage(
+        "starro", lambda: starro_em_bp_sharded(inp["X"], mesh=mesh, k=5, seed=0, bp_max_iter=bp_iters))
+    pts, ptsA, Xe = inp["pair"]
+    models, _ = stage("morpho", lambda: stt.align.morpho_align(
+        [bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)], spatial_key="spatial", key_added="align",
+        max_iter=iters, verbose=False, mesh=mesh))
+    out["morpho rigid"], out["morpho nonrigid"] = models[1].obsm["align"], models[1].obsm["align_nonrigid"]
+    out["vfc5"] = stage("vfc5", lambda: SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, MaxIter=5, mesh=mesh))["V"]
+    r = stage("vfc", lambda: SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, mesh=mesh))
+    out["vfc"], out["vfc iterations"] = r["V"], np.asarray(r["iteration"])
+    f, it, err = stage("jacobi", lambda: jacobi_solve_sharded(*inp["jacobi"], max_err=1e-6, max_itr=jacobi_itr,
+                                                               check_every=2000, mesh=mesh))
+    out["jacobi"], out["jacobi iterations"] = f, np.asarray(it)
+    return out, secs, coll, calls
+
+
+def shard_unsharded(stt, inp):
+    """Phase 36a's yardstick: the unsharded port on the card with the
+    settings the sharded path fixes (BP's messages in f32, its delta every
+    iteration; the same draws)."""
+    import bench
+    from spateo_tpu_torch.ops.stencil import jacobi_solve
+    from spateo_tpu_torch.ops.vfc import SparseVFC
+    from spateo_tpu_torch.segmentation import starro as ts
+
+    X = inp["X"]
+    ((scores, mask),) = ts._starro_em_bp_fused(
+        [ts._upload(X, "cuda")], 5, 7, ts._n_samples(X.size, 0.001), 2000, 1e-6, ts._offsets(3, False), BP_P, BP_Q,
+        1e-6, 50, use_cuda_bp=True, bp_msg_dtype="float32", seed=0, bp_check_every=1)
+    pts, ptsA, Xe = inp["pair"]
+    models, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)],
+                                       spatial_key="spatial", key_added="align", max_iter=200, verbose=False)
+    f, it, _ = jacobi_solve(*inp["jacobi"], max_err=1e-6, max_itr=20_000, check_every=2000)
+    return {"starro scores": scores.cpu().numpy(), "starro mask": mask.cpu().numpy(),
+            "morpho rigid": models[1].obsm["align"], "morpho nonrigid": models[1].obsm["align_nonrigid"],
+            "vfc5": SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, MaxIter=5)["V"], "jacobi": f,
+            "jacobi iterations": np.asarray(it)}
+
+
+def shard_errors(out, ref, inp):
+    """Each stage's distance from `ref` and the converged field's cosine to
+    the rotation, as {bar name: value}."""
+    X = inp["X_vfc"]
+    truth = np.cross(np.broadcast_to([0.0, 0.0, 1.0], X.shape), X)
+    V = out["vfc"]
+    cos = np.sum(V * truth, 1) / (np.linalg.norm(V, axis=1) * np.linalg.norm(truth, axis=1) + 1e-12)
+    err = lambda k: float(np.abs(np.asarray(out[k], np.float64) - np.asarray(ref[k], np.float64)).max())
+    return {
+        "starro scores": err("starro scores"),
+        "starro mask pixels": int((out["starro mask"] != ref["starro mask"]).sum()),
+        "morpho": max(err("morpho rigid"), err("morpho nonrigid")),
+        "vfc5": err("vfc5"),
+        "jacobi": err("jacobi") if int(out["jacobi iterations"]) == int(ref["jacobi iterations"]) else float("inf"),
+        "vfc cosine": float(cos.mean()),
+    }
+
+
+def phase36_rank(rank, world, backend, store, out_dir):
+    """One rank of phase 36: joins the group (36a, one NCCL rank: the mesh
+    of `config.mesh` starts its own group; 36b: `initialize_distributed` with
+    `backend` over a file store), warms the stages up at a small size, runs
+    them at full width with the launch counters set to 0 just before and
+    read just after, checks them against the unsharded port (36a) or 36a's
+    results, and prints one JSON line."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    import spateo_tpu_torch as stt
+    from spateo_tpu_torch.ops import bp_cuda, estep_cuda, inlier_cuda, jacobi_cuda
+    from spateo_tpu_torch.parallel import _collectives as C
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    a_file = os.path.join(out_dir, "a.npz")
+    while world > 1 and not os.path.exists(a_file):  # 36b's ranks start beside 36a and wait for its results
+        time.sleep(0.2)
+    t_start = time.perf_counter()
+    if world == 1:
+        stt.config.mesh_device = "cuda"
+        mesh = stt.config.mesh
+    else:
+        stt.parallel.initialize_distributed(f"file://{store}", world, rank, backend=backend, device="cuda")
+        mesh = stt.parallel.create_mesh(device="cuda")
+    check(dist.get_backend() == backend and dist.get_world_size() == world,
+          f"rank {rank}: backend {dist.get_backend()} of {dist.get_world_size()} ranks")
+    shard_stages(stt, shard_inputs(small=True), mesh, iters=5, jacobi_itr=0, bp_iters=5)  # warm-up: first-call costs
+    inp = shard_inputs()
+    counters = ((bp_cuda.bp_step, "bp_step"), (estep_cuda.colnorm, "estep_colnorm"),
+                (estep_cuda.rowred, "estep_rowred"), (inlier_cuda.inlier_fit, "inlier_fit"),
+                (jacobi_cuda.jacobi_block, "jacobi_block"))
+    for fn, _ in counters:
+        fn.launches = 0
+    C.reset_stats(timed=True)
+    out, secs, coll, calls = shard_stages(stt, inp, mesh)
+    launches = {name: fn.launches for fn, name in counters}
+    C.reset_stats()
+    if world == 1:
+        ref = shard_unsharded(stt, inp)
+        np.savez(os.path.join(out_dir, "a.tmp.npz"), **out)
+        os.replace(os.path.join(out_dir, "a.tmp.npz"), a_file)
+    else:
+        with np.load(a_file) as f:
+            ref = dict(f)
+    errs = shard_errors(out, ref, inp)
+    digest = hashlib.sha256(b"".join(np.ascontiguousarray(out[k]).tobytes() for k in sorted(out))).hexdigest()
+    print(json.dumps(dict(rank=rank, world=world, backend=backend, seconds=secs, collective_seconds=coll,
+                          collective_calls=calls, launches=launches, errors=errs, digest=digest,
+                          vfc_iterations=int(out["vfc iterations"]), jacobi_iterations=int(out["jacobi iterations"]),
+                          rank_seconds=time.perf_counter() - t_start)), flush=True)
+    dist.destroy_process_group()
+
+
+def start_shard_group(world, backend, tmp):
+    """Phase 36's ranks as processes of this script, each with its own files
+    for output. Returns (processes, files)."""
+    here = os.path.abspath(__file__)
+    logs = [(open(os.path.join(tmp, f"{world}.{r}.out"), "w+"), open(os.path.join(tmp, f"{world}.{r}.err"), "w+"))
+            for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, here, "--phase36-rank", str(r), str(world), backend,
+                               os.path.join(tmp, f"store{world}"), tmp], cwd=os.path.dirname(here),
+                              stdout=o, stderr=e) for r, (o, e) in enumerate(logs)]
+    return procs, logs
+
+
+def stop_shard_group(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def wait_shard_group(procs, logs, what):
+    """Each rank's JSON line; fails if a rank fails or the group outlives
+    SHARD_TIMEOUT."""
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        stop_shard_group(procs)
+    out = []
+    for r, (p, (o, e)) in enumerate(zip(procs, logs)):
+        o.seek(0), e.seek(0)
+        text, err = o.read(), e.read()
+        check(p.returncode == 0, f"phase {what} rank {r} exited {p.returncode}: {(text + err)[-3000:]}")
+        out.append(json.loads(text.strip().splitlines()[-1]))
+    return out
+
+
+def phase_sharded():
+    """Phase 36: the sharded main path (Starro on a 2048² tile, Morpho on a
+    20,000-cell pair for 200 iterations, SparseVFC on 100,000 points at M
+    100, Jacobi on 2048² stripes), (a) on one NCCL rank in a fresh process,
+    held against the unsharded port on the card, and (b) on four gloo ranks
+    sharing the card, held against (a), every rank with the same bits and
+    each kernel launched on every rank. Returns the launches of (a) and of
+    (b) summed over its ranks, by kernel."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        group_b = start_shard_group(SHARD_RANKS, "gloo", tmp)  # imports beside 36a, then waits for its results
+        try:
+            (a,) = wait_shard_group(*start_shard_group(1, "nccl", tmp), "36a")
+            b = wait_shard_group(*group_b, "36b")
+        finally:
+            stop_shard_group(group_b[0])
+    for r in [a] + b:
+        what = f"phase 36{'a' if r['world'] == 1 else 'b'} rank {r['rank']}"
+        for k, v in r["errors"].items():
+            ok = v >= SHARD_BARS[k] if k == "vfc cosine" else v <= SHARD_BARS[k]
+            check(ok, f"{what}: {k} {v} (bar {SHARD_BARS[k]})")
+        check(all(v > 0 for v in r["launches"].values()), f"{what}: a kernel was not launched: {r['launches']}")
+        print(f"{what} ({r['backend']}, {r['world']} rank(s)): stage seconds "
+              + ", ".join(f"{k} {v!r}" for k, v in r["seconds"].items())
+              + "; in collectives " + ", ".join(f"{k} {v!r} ({r['collective_calls'][k]} calls)"
+                                                for k, v in r["collective_seconds"].items())
+              + f"; launches {r['launches']}; against {'the unsharded port' if r['world'] == 1 else '36a'} "
+              + ", ".join(f"{k} {v!r}" for k, v in r["errors"].items())
+              + f"; SparseVFC {r['vfc_iterations']} iterations, Jacobi {r['jacobi_iterations']}; the rank's "
+                f"process {r['rank_seconds']!r} s")
+    check(len({r["digest"] for r in b}) == 1, "phase 36b: the ranks' results differ in their bits")
+    total_b = {k: sum(r["launches"][k] for r in b) for k in a["launches"]}
+    print(f"phase 36: every one of {SHARD_RANKS} gloo ranks returned the same bits (sha256 {b[0]['digest'][:16]}); "
+          f"phase 36 {time.perf_counter() - t_phase!r} s")
+    return a["launches"], total_b
 
 
 # -- phases 34-35: the profiler, the configuration and the package root ----------------------------------------
@@ -5135,7 +5441,9 @@ def phase_profiler_root(stt, trace_proc):
     print(f"phase 34: sync_audit of jacobi_solve at {AUDIT_SIDE}², {it} sweeps in blocks of "
           f"{AUDIT_CHECK_EVERY}: {counts}")
 
-    check(raises(stt.MeshError, lambda: stt.config.mesh), "config.mesh did not raise MeshError")
+    stt.config.mesh_shape = (2,)  # two ranks where there is one: refused before any group starts
+    check(raises(stt.MeshError, lambda: stt.config.mesh), "config.mesh over (2,) did not raise MeshError")
+    stt.config.mesh_shape = None
     check(raises(stt.ConfigurationError, lambda: setattr(stt.config, "enable_x64", True)),
           "config.enable_x64 = True did not raise ConfigurationError")
     check(stt.config.dtype is torch.float32, "config.dtype")
@@ -5166,7 +5474,8 @@ def phase_profiler_root(stt, trace_proc):
     got = str(deps.loc["version", "torch"])
     check(got.split("+")[0] == torch.__version__.split("+")[0], f"dependency table: torch {got}, running "
                                                                  f"{torch.__version__}")
-    print(f"phase 34: config.mesh raises MeshError, enable_x64=True raises ConfigurationError; {len(names)} "
+    print(f"phase 34: config.mesh of shape (2,) over one rank raises MeshError, enable_x64=True raises "
+          f"ConfigurationError; {len(names)} "
           f"modules imported, matplotlib {'present but hidden' if present else 'absent'}, pl.scatters raised "
           f"ModuleNotFoundError({missing!r}); dependency table: " + ", ".join(
               f"{k} {v}" for k, v in deps.loc["version"].items()))
@@ -5203,6 +5512,12 @@ def phase_profiler_cpu(card_counts, card_sol):
 
 def main(argv=None):
     import argparse
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--phase36-rank"]:  # one rank of phase 36, started by phase_sharded
+        rank, world, backend, store, out_dir = argv[1:6]
+        phase36_rank(int(rank), int(world), backend, store, out_dir)
+        return
 
     parser = argparse.ArgumentParser(description="Drive the port on one NVIDIA GPU and check it.")
     parser.add_argument("--phases", default=None,
@@ -5404,6 +5719,11 @@ def main(argv=None):
         phase_profiler_cpu(*audit)
 
     mark("35")
+    # -- phase 36: the sharded main path over torch.distributed ---------------------------------------------------
+    no_shard = dict(bp_step=0, estep_colnorm=0, estep_rowred=0, inlier_fit=0, jacobi_block=0)
+    shard_a, shard_b = phase_sharded() if want(36) else (no_shard, no_shard)
+
+    mark("36")
     groups = {}
     for k, v in phase_seconds.items():  # as earlier runs grouped them: a slice's main path and its checks
         n = int(k)
@@ -5413,6 +5733,10 @@ def main(argv=None):
     print("chip_smoke: seconds by phase " + json.dumps({k: round(v, 1) for k, v in phase_seconds.items()}))
     print("chip_smoke: seconds by phase group " + json.dumps({k: round(v, 1) for k, v in groups.items()}))
     print(f"chip_smoke: every chosen phase passed in {time.perf_counter() - t_start!r} s")
+    def shard_paths(name):
+        return {"phase 36a (sharded, 1 NCCL rank)": shard_a[name],
+                f"phase 36b (sharded, {SHARD_RANKS} gloo ranks on the card, summed)": shard_b[name]}
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -5420,10 +5744,10 @@ def main(argv=None):
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/bp_step.cu",
             "replaces": "spateo_tpu/ops/bp_pallas.py:63",
-            "launches": launches + staged_launches,
+            "launches": launches + staged_launches + shard_a["bp_step"] + shard_b["bp_step"],
             "delta_launches": delta_launches + staged_deltas,
             "launches_by_path": {"phase 3 (fused EM+BP)": launches, "phase 16 (staged EM+BP with bins)":
-                                 staged_launches},
+                                 staged_launches, **shard_paths("bp_step")},
             **kstats,
         },
         {
@@ -5431,7 +5755,8 @@ def main(argv=None):
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/estep.cu",
             "replaces": "spateo_tpu/ops/estep_pallas.py:107",
-            "launches": est_launches["colnorm"],
+            "launches": est_launches["colnorm"] + shard_a["estep_colnorm"] + shard_b["estep_colnorm"],
+            "launches_by_path": {"phase 6 (morpho_align)": est_launches["colnorm"], **shard_paths("estep_colnorm")},
             **estats["colnorm"],
         },
         {
@@ -5439,7 +5764,8 @@ def main(argv=None):
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/estep.cu",
             "replaces": "spateo_tpu/ops/estep_pallas.py:149",
-            "launches": est_launches["rowred"],
+            "launches": est_launches["rowred"] + shard_a["estep_rowred"] + shard_b["estep_rowred"],
+            "launches_by_path": {"phase 6 (morpho_align)": est_launches["rowred"], **shard_paths("estep_rowred")},
             **estats["rowred"],
         },
         {
@@ -5447,7 +5773,8 @@ def main(argv=None):
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/inlier.cu",
             "replaces": "spateo_tpu/ops/inlier_pallas.py:38",
-            "launches": est_launches["inlier"],
+            "launches": est_launches["inlier"] + shard_a["inlier_fit"] + shard_b["inlier_fit"],
+            "launches_by_path": {"phase 6 (morpho_align)": est_launches["inlier"], **shard_paths("inlier_fit")},
             **istats,
         },
         {
@@ -5455,7 +5782,8 @@ def main(argv=None):
             "route": "cuda",
             "source": "spateo_tpu_torch/csrc/jacobi.cu",
             "replaces": "spateo_tpu/ops/stencil.py:20",
-            "launches": jacobi_launches,
+            "launches": jacobi_launches + shard_a["jacobi_block"] + shard_b["jacobi_block"],
+            "launches_by_path": {"phase 9 (jacobi_solve, digitize)": jacobi_launches, **shard_paths("jacobi_block")},
             "reduce_launches": reduce_launches,
             **jstats,
         },

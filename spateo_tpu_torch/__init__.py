@@ -62,4 +62,5 @@ __version__ = get_version(__file__)
 
 # bound lazily, as in the JAX package
 profiler = LazyLoader("profiler", globals(), "spateo_tpu_torch.profiler")
+parallel = LazyLoader("parallel", globals(), "spateo_tpu_torch.parallel")
 ops = LazyLoader("ops", globals(), "spateo_tpu_torch.ops")

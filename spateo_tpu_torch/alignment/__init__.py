@@ -6,8 +6,9 @@ saved-field transforms (`BA_transform`, `BA_transform_and_assignment`,
 `get_P_chunk`, `paste_transform`), the deformation grids, the mapping,
 rigid, TPS and label-prior utilities and downsampling, ported from
 `spateo_tpu.alignment`; the deprecated-API shims are in
-`methods.deprecated_morpho`. Not ported yet: `mesh=` (ROADMAP Queue 1
-item 13)."""
+`methods.deprecated_morpho`. `morpho_align(mesh=)` and
+`Morpho_pairwise(mesh=)` split the moving slice's rows over the ranks of a
+`torch.distributed` mesh."""
 
 from .deformation import grid_deformation
 from .methods import (

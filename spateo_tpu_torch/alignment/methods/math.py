@@ -415,6 +415,7 @@ def estep_reduced(
     eps: float = 1e-8,
     sparse_top_k: int = 0,
     use_kernel: bool = True,
+    shard=None,
 ):
     """Flash-style E-step: every consumer of the [NA, B] assignment matrix is
     a reduction, so P is never kept. Returns (K_NA, K_NB, Sp, K_NA_spatial,
@@ -430,9 +431,17 @@ def estep_reduced(
 
     `sparse_top_k > 0` is the reference's sparse calculation mode: P is cut
     to the top-k entries of each COLUMN before the M-step reductions; the
-    normalisers and sigma2 statistics come from the dense P."""
+    normalisers and sigma2 statistics come from the dense P.
+
+    With `shard` (`parallel._collectives.RowShard`), the [NA]-row inputs are
+    one rank's rows of the moving slice: the per-column sums over the rows
+    are added over the ranks before the normalisers use them, and K_NB, Sp,
+    sigma2_related and M1 after; the per-row outputs are this rank's. The
+    sparse top-k needs whole columns and is not sharded."""
     NA, D = XAHat.shape
     B = coordsB_batch.shape[0]
+    if shard is not None and sparse_top_k:
+        raise NotImplementedError("estep_reduced: the sparse calculation mode's column top-k is not sharded")
 
     if (
         use_kernel
@@ -449,11 +458,12 @@ def estep_reduced(
             XAHat, coordsA, coordsB_batch,
             exp_a_rows[0], exp_b_batch[0], exp_A_feats[0], exp_B_batch[0],
             model_mul_vec, sigma2, gamma, samples_s, sigma2_variance,
-            probability_parameters[0], eps=eps,
+            probability_parameters[0], eps=eps, shard=shard,
         )
 
     k_sparse = min(int(sparse_top_k), NA) if sparse_top_k and sparse_top_k > 0 else 0
-    outlier_s = samples_s * NA
+    outlier_s = samples_s * (NA if shard is None else shard.n)
+    colsum = (lambda *c: shard.sum(torch.stack(c))[0]) if shard is not None else (lambda *c: torch.stack(c))
     spatial_outlier = torch.pow(2 * math.pi * sigma2, Dim / 2) * (1 - gamma) / (gamma * outlier_s)
 
     if n_chunks <= 1:
@@ -470,16 +480,16 @@ def estep_reduced(
         prob_s_m = prob_s * mm
         full_m = full * mm
 
-        c1_raw = prob_v.sum(0)
+        c1_raw, c1m, c2, c3 = colsum(prob_v.sum(0), prob_v_m.sum(0), prob_s_m.sum(0), full_m.sum(0))
         spatial_inlier = 1 - spatial_outlier / (spatial_outlier + c1_raw)
-        P1 = prob_v_m / (spatial_outlier + prob_v_m.sum(0))[None, :]
-        P2 = spatial_inlier[None, :] * prob_s_m / (prob_s_m.sum(0) + eps)[None, :]
-        P3 = spatial_inlier[None, :] * full_m / (full_m.sum(0) + eps)[None, :]
+        P1 = prob_v_m / (spatial_outlier + c1m)[None, :]
+        P2 = spatial_inlier[None, :] * prob_s_m / (c2 + eps)[None, :]
+        P3 = spatial_inlier[None, :] * full_m / (c3 + eps)[None, :]
         if k_sparse and k_sparse < NA:
             kth = torch.topk(full_m, k_sparse, dim=0).values[-1]  # [B]: the k-th largest per column
             P3 = torch.where(full_m >= kth[None, :], P3, 0.0)
         PXB = P3 @ coordsB_batch
-        return dict(
+        out = dict(
             K_NA=P3.sum(1),
             K_NA_spatial=P1.sum(1),
             K_NA_sigma2=P2.sum(1),
@@ -489,6 +499,7 @@ def estep_reduced(
             PXB=PXB,
             M1=coordsA.T @ PXB,
         )
+        return _sum_columns(out, shard)
 
     # ---- chunked path: iterate over COLUMNS of the [NA, B] block. The
     # normalisers are per-column sums over the whole NA axis, so a column
@@ -529,10 +540,11 @@ def estep_reduced(
             e_d = exp_a_rows[l][:, None] + b_p[l][idx][None, :] + exp_A_feats[l] @ B_p[l][idx].T
             full = full * calc_probability(e_d, probability_type[l], probability_parameters[l])
         prob_s_m, full_m, prob_v_m = prob_s * mm_col, full * mm_col, prob_v * mm_col
-        spatial_inlier = 1 - spatial_outlier / (spatial_outlier + prob_v.sum(0))
-        P1 = prob_v_m / (spatial_outlier + prob_v_m.sum(0))[None, :]
-        P2 = spatial_inlier[None, :] * prob_s_m / (prob_s_m.sum(0) + eps)[None, :]
-        P3 = spatial_inlier[None, :] * full_m / (full_m.sum(0) + eps)[None, :]
+        c1_raw, c1m, c2, c3 = colsum(prob_v.sum(0), prob_v_m.sum(0), prob_s_m.sum(0), full_m.sum(0))
+        spatial_inlier = 1 - spatial_outlier / (spatial_outlier + c1_raw)
+        P1 = prob_v_m / (spatial_outlier + c1m)[None, :]
+        P2 = spatial_inlier[None, :] * prob_s_m / (c2 + eps)[None, :]
+        P3 = spatial_inlier[None, :] * full_m / (c3 + eps)[None, :]
         if k_sparse and k_sparse < NA:
             kth = torch.topk(full_m, k_sparse, dim=0).values[-1]
             P3 = torch.where(full_m >= kth[None, :], P3, 0.0)
@@ -545,7 +557,7 @@ def estep_reduced(
         pxb = P3 @ cb
         PXB = PXB + pxb
         M1 = M1 + coordsA.T @ pxb
-    return dict(
+    return _sum_columns(dict(
         K_NA=K_NA,
         K_NA_spatial=K_NA_sp,
         K_NA_sigma2=K_NA_s2,
@@ -554,4 +566,14 @@ def estep_reduced(
         sigma2_related=sig_rel,
         PXB=PXB,
         M1=M1,
-    )
+    ), shard)
+
+
+def _sum_columns(out: dict, shard) -> dict:
+    """The E-step's sums over the moving slice's rows (K_NB, Sp,
+    sigma2_related, M1) added over the ranks of `shard`, in one collective."""
+    if shard is None:
+        return out
+    keys = ("K_NB", "Sp", "sigma2_related", "M1")
+    out.update(zip(keys, shard.sum(*(out[k] for k in keys))))
+    return out

@@ -222,11 +222,22 @@ def _morpho_em(
     svi_mode: bool = True,
     sparse_top_k: int = 0,
     use_kernel_estep: bool = True,
+    shard=None,
 ):
     """The Morpho EM, `max_iter` iterations on the inputs' device. Returns
     (state dict, optimal_R, optimal_t, optimal_RnA) as the JAX package's
-    `_morpho_em` does; the state is taken after the last iteration."""
+    `_morpho_em` does; the state is taken after the last iteration.
+
+    With `shard` (`parallel._collectives.RowShard` over the moving slice's
+    NA rows), coordsA, the exp_a_rows and exp_A_feats and U hold this rank's
+    rows: the E-step sweeps them (`estep_reduced(shard=)`), and every sum
+    over NA of the M-step is a partial sum added over the ranks in rank
+    order (three collectives an iteration besides the E-step's), so the
+    small solves (the inducing-point system, the rotation, sigma2) are the
+    same on every rank. The row-aligned state comes back whole."""
     NA, D = coordsA.shape
+    NA_total = NA if shard is None else shard.n
+    psum = shard.sum if shard is not None else (lambda *t: t)
     K = U.shape[1]
     B = batch_size
     NBp = batch_perm.shape[0]
@@ -311,35 +322,45 @@ def _morpho_em(
             n_chunks=estep_chunks,
             sparse_top_k=sparse_top_k,
             use_kernel=use_kernel_estep,
+            shard=shard,
         )
         K_NA_spatial = red["K_NA_spatial"]
         K_NA_sigma2 = red["K_NA_sigma2"]
         Sp = red["Sp"]
         K_NA = red["K_NA"]
         K_NB = red["K_NB"]
-        Sp_spatial = step * K_NA_spatial.sum() + keep * s["Sp_spatial"]
+        # the sums over NA this iteration needs before its solves, in one
+        # collective when sharded
+        nonrigid_flag = s["nonrigid_flag"] or it > nonrigid_start_iter
+        sums = [K_NA_spatial.sum(), K_NA_sigma2.sum(), K_NA @ coordsA]
+        if nonrigid_flag:
+            PXB_term_new = red["PXB"] - s["RnA"] * K_NA[:, None]
+            PXB_term = step * PXB_term_new + keep * s["PXB_term"]
+            sums += [U.T @ (U * K_NA[:, None]), U.T @ PXB_term]
+        sums = psum(*sums)
+        sum_spatial, sum_sigma2, cA_KNA = sums[:3]
+        Sp_spatial = step * sum_spatial + keep * s["Sp_spatial"]
         Sp_total = step * Sp + keep * s["Sp"]
-        Sp_sigma2 = step * K_NA_sigma2.sum() + keep * s["Sp_sigma2"]
+        Sp_sigma2 = step * sum_sigma2 + keep * s["Sp_sigma2"]
         sigma2_related = red["sigma2_related"] / (Dim * Sp_sigma2)
 
         # ---- gamma / alpha (variational) ----
         gamma = torch.exp(torch.special.digamma(gamma_a + Sp_spatial) - digamma_B)
         gamma = torch.clamp(gamma, 0.01, 0.99)
         alpha_new = torch.exp(
-            torch.special.digamma(kappa + K_NA_spatial) - torch.special.digamma(kappa * NA + Sp_spatial)
+            torch.special.digamma(kappa + K_NA_spatial) - torch.special.digamma(kappa * NA_total + Sp_spatial)
         )
         alpha = step * alpha_new + keep * s["alpha"]
 
         # ---- non-rigid M-step (from iteration nonrigid_start_iter + 1 on) ----
-        nonrigid_flag = s["nonrigid_flag"] or it > nonrigid_start_iter
         Coff, VnA, SigmaDiag = s["Coff"], s["VnA"], s["SigmaDiag"]
-        SigmaInv, PXB_term, V_AI = s["SigmaInv"], s["PXB_term"], s["V_AI"]
-        if nonrigid_flag:
-            SigmaInv_new = sigma2 * lambdaVF * GammaSparse + U.T @ (U * K_NA[:, None])
-            PXB_term_new = red["PXB"] - s["RnA"] * K_NA[:, None]
+        SigmaInv, V_AI = s["SigmaInv"], s["V_AI"]
+        if not nonrigid_flag:
+            PXB_term = s["PXB_term"]
+        else:
+            SigmaInv_new = sigma2 * lambdaVF * GammaSparse + sums[3]
             SigmaInv = step * SigmaInv_new + keep * s["SigmaInv"]
-            PXB_term = step * PXB_term_new + keep * s["PXB_term"]
-            UPXB_term = U.T @ PXB_term
+            UPXB_term = sums[4]
             if nonrigid_guidance:
                 g_coef = sigma2 * guidance_weight * Sp_total / NI
                 SigmaInv = SigmaInv + g_coef * (U_I.T @ U_I)
@@ -357,8 +378,9 @@ def _morpho_em(
                 V_AI = U_I @ Coff
 
         # ---- rigid M-step ----
-        PXA = (K_NA @ coordsA)[None, :]
-        PVA = (K_NA @ VnA)[None, :]
+        PVA_s, sigma2_diag = psum(K_NA @ VnA, K_NA_sigma2 @ SigmaDiag)
+        PXA = cA_KNA[None, :]
+        PVA = PVA_s[None, :]
         PXB = (K_NB @ coordsB_batch)[None, :]
         mu_XB, mu_XA, mu_Vn = PXB, PXA, PVA
         mu_X_deno = Sp_total
@@ -383,7 +405,6 @@ def _morpho_em(
         VnA_hat = VnA - mu_Vn
         # XA_hat^T P XB_hat expanded through the E-step reductions
         # (M1 = coordsA^T P coordsB_batch)
-        cA_KNA = K_NA @ coordsA
         cB_KNB = K_NB @ coordsB_batch
         cross = (
             red["M1"]
@@ -391,7 +412,8 @@ def _morpho_em(
             - torch.outer(mu_XA[0], cB_KNB)
             + Sp * torch.outer(mu_XA[0], mu_XB[0])
         )
-        A_mat = -(XA_hat.T @ (VnA_hat * K_NA[:, None]) - cross).T
+        (XV,) = psum(XA_hat.T @ (VnA_hat * K_NA[:, None]))
+        A_mat = -(XV - cross).T
         if nn_init:
             inlier_A_hat = inlier_A - mu_XA
             inlier_B_hat = inlier_B - mu_XB
@@ -425,7 +447,7 @@ def _morpho_em(
         XAHat = VnA + RnA
 
         # ---- sigma2 ----
-        sigma2_new = torch.clamp_min(sigma2_related + (K_NA_sigma2 @ SigmaDiag) / Sp_sigma2, 1e-3)
+        sigma2_new = torch.clamp_min(sigma2_related + sigma2_diag / Sp_sigma2, 1e-3)
         if it < 100:
             sigma2_new = torch.clamp_min(sigma2_new, 1e-2)
         sigma2_variance = torch.clamp_max(s["sigma2_variance"] * sigma2_variance_decrease, sigma2_variance_end)
@@ -467,17 +489,24 @@ def _morpho_em(
     # the stored reductions:
     # (P XnBBar)^T XnABar = M1^T - (K_NB cB) muA^T - muB (K_NA cA)^T + Sp muB muA^T
     coordsB_last = coordsB[s["batch_idx"]]
-    mu_XnA = (s["K_NA"] @ coordsA) / s["Sp"]
+    (cA_KNA,) = psum(s["K_NA"] @ coordsA)
+    mu_XnA = cA_KNA / s["Sp"]
     mu_XnB = (s["K_NB"] @ coordsB_last) / s["Sp"]
     A_opt = (
         s["M1"].T
         - torch.outer(s["K_NB"] @ coordsB_last, mu_XnA)
-        - torch.outer(mu_XnB, s["K_NA"] @ coordsA)
+        - torch.outer(mu_XnB, cA_KNA)
         + s["Sp_raw"] * torch.outer(mu_XnB, mu_XnA)
     )
     optimal_R = procrustes_rotation(A_opt)
     optimal_t = mu_XnB - mu_XnA @ optimal_R.T
     optimal_RnA = coordsA @ optimal_R.T + optimal_t
+    if shard is not None:
+        # the row-aligned state of every rank, whole on every rank
+        for k in ("alpha", "VnA", "RnA", "XAHat", "SigmaDiag", "PXB_term", "K_NA"):
+            s[k] = shard.gather_rows(s[k])
+        s["traces"] = shard.gather_rows(s["traces"].transpose(0, 1)).transpose(0, 1)
+        optimal_RnA = shard.gather_rows(optimal_RnA)
     return s, optimal_R, optimal_t, optimal_RnA
 
 
@@ -485,7 +514,16 @@ class Morpho_pairwise:
     """Pairwise spatial-transcriptomics alignment (parity surface:
     reference morpho_class.py:54). Runs on `device` (default "cuda");
     `dtype` is accepted for signature parity and the solver computes in
-    float32. `mesh=` (multi-device) is not ported yet."""
+    float32.
+
+    ``mesh``: a `torch.distributed.device_mesh.DeviceMesh`. Every rank
+    builds the solver with the same slices; the moving slice's NA rows
+    (Morton-ordered) split over the mesh's first axis inside the EM
+    (`_morpho_em(shard=)`), each rank sweeping its rows with the E-step
+    kernels, while the coarse rigid init, the kernel and the small solves
+    run replicated on every rank. Every rank ends with the same whole
+    result. The mesh sets the device: a `device` of another type raises.
+    The sparse calculation mode is not sharded."""
 
     def __init__(
         self,
@@ -549,9 +587,12 @@ class Morpho_pairwise:
         mesh=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "Morpho_pairwise(mesh=...) is not ported to PyTorch yet (ROADMAP Queue 1 item 13, multi-device)."
-            )
+            from ...parallel._collectives import check_device, mesh_device
+
+            check_device(mesh, device)
+            if sparse_calculation_mode:
+                raise NotImplementedError("Morpho_pairwise: the sparse calculation mode is not sharded over a mesh")
+            device = mesh_device(mesh)
         self.device = torch.device(device)
         self.sparse_calculation_mode = bool(sparse_calculation_mode)
         self.sparse_top_k = int(sparse_top_k)
@@ -621,7 +662,7 @@ class Morpho_pairwise:
         self.return_mapping = return_mapping
         self.update_R = update_R
         self.seed = seed
-        self.mesh = None
+        self.mesh = mesh
         self.rng = np.random.default_rng(seed)
 
         self._align_preprocess()
@@ -915,15 +956,22 @@ class Morpho_pairwise:
         )
 
         f32 = lambda x: as_tensor(x, dev).to(torch.float32)
+        # on a mesh the EM takes this rank's rows of the [NA]-row inputs
+        shard, rows = None, (lambda x: x)
+        if self.mesh is not None:
+            from ...parallel._collectives import RowShard
+
+            shard = RowShard(self.mesh, self.NA)
+            rows = shard.take
         _phase_mark(self, "preem_done")
         s, optimal_R, optimal_t, optimal_RnA = _morpho_em(
-            cA,
+            rows(cA),
             cB,
-            exp_a_rows,
+            tuple(rows(a) for a in exp_a_rows),
             exp_b_cols,
-            exp_A_feats,
+            tuple(rows(A) for A in exp_A_feats),
             exp_B_feats,
-            f32(U),
+            rows(f32(U)),
             f32(self.GammaSparse),
             as_tensor(perm, dev),
             as_tensor(self._morton_rank_B, dev),
@@ -947,7 +995,7 @@ class Morpho_pairwise:
             nn_init=self.nn_init,
             guidance_effect=guidance_effect,
             guidance_weight=float(self.guidance_weight),
-            estep_chunks=_estep_chunks(self.NA, batch_size, device=dev),
+            estep_chunks=_estep_chunks(self.NA if shard is None else shard.rows_local, batch_size, device=dev),
             gamma_a=self.gamma_a,
             gamma_b=self.gamma_b,
             kappa=self.kappa,
@@ -959,6 +1007,7 @@ class Morpho_pairwise:
             # the hand-written E-step kernels on a CUDA device wherever they
             # apply (math.estep_reduced checks the scope); no size gate
             use_kernel_estep=bool(self.use_pallas_estep),
+            shard=shard,
         )
         _phase_mark(self, "em_dispatched")
         # only the host-facing leaves come back; alpha, SigmaDiag, batch_idx,

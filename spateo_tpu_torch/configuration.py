@@ -6,9 +6,12 @@ Counterpart of `spateo_tpu.configuration`:
 - ``SpateoConfig`` / ``config``: the logging level; `n_threads`, whose
   setter sets OpenCV's threads as the JAX package's does (the constructor
   only stores it, so that importing the package loads no OpenCV);
-  `precision`, whose `dtype` is a torch dtype; `mesh_shape` and
-  `mesh_axis_names`, which are stored. `mesh` raises `MeshError`: the multi-device paths are ROADMAP
-  Queue 1 item 13. `enable_x64=True` raises `ConfigurationError`: the port
+  `precision`, whose `dtype` is a torch dtype; `mesh`, the
+  `torch.distributed` device mesh that `mesh_shape` and `mesh_axis_names`
+  describe over the default process group's ranks, on `mesh_device`
+  ("cuda" by default, or "cpu"), built on first use and kept until one of
+  the three or the process group changes (`parallel.create_mesh`; with no
+  group, a one-rank mesh). `enable_x64=True` raises `ConfigurationError`: the port
   narrows host float64 to float32 where it enters the device, as the JAX
   package does with x64 off, and has no global x64 mode to switch on.
 - ``SKM``: the same key vocabulary (``__type``, ``AGG``/``UMI``, layer
@@ -36,7 +39,7 @@ import numpy as np
 from scipy import sparse
 
 from .core.anndata import AnnData
-from .errors import ConfigurationError, MeshError
+from .errors import ConfigurationError
 from .logging import logger_manager as lm
 
 # Global tolerance values (parity: reference configuration.py:22-24)
@@ -63,6 +66,9 @@ class SpateoConfig:
         self.__n_threads = n_threads
         self._mesh_shape = mesh_shape
         self._mesh_axis_names = mesh_axis_names
+        self._mesh_device = "cuda"
+        self._mesh = None
+        self._mesh_key = None
         self.precision = precision
         self.enable_x64 = enable_x64
 
@@ -125,6 +131,7 @@ class SpateoConfig:
     @mesh_shape.setter
     def mesh_shape(self, shape: Optional[Tuple[int, ...]]):
         self._mesh_shape = tuple(shape) if shape is not None else None
+        self._mesh = None
 
     @property
     def mesh_axis_names(self) -> Tuple[str, ...]:
@@ -133,13 +140,36 @@ class SpateoConfig:
     @mesh_axis_names.setter
     def mesh_axis_names(self, names: Tuple[str, ...]):
         self._mesh_axis_names = tuple(names)
+        self._mesh = None
+
+    @property
+    def mesh_device(self) -> str:
+        """Where the ranks of `mesh` compute: "cuda" (one card a rank) or
+        "cpu"."""
+        return self._mesh_device
+
+    @mesh_device.setter
+    def mesh_device(self, device: str):
+        self._mesh_device = str(device)
+        self._mesh = None
 
     @property
     def mesh(self):
-        """Raises: the device mesh belongs to the multi-device paths, which
-        are not ported yet."""
-        raise MeshError("config.mesh is not ported to PyTorch yet (ROADMAP Queue 1 item 13, multi-device)")
+        """The global `DeviceMesh` the sharded paths use when given none.
 
+        Defaults to every rank of the default process group on a single
+        'data' axis; set `mesh_shape = (dp, mp)` for 2D meshes. Kept until
+        the shape, the axis names, `mesh_device` or the process group
+        change. A shape that does not cover the ranks raises `MeshError`."""
+        import torch.distributed as dist
+
+        key = lambda: dist.group.WORLD if dist.is_initialized() else None
+        if self._mesh is None or self._mesh_key is not key():
+            from .parallel.mesh import create_mesh
+
+            self._mesh = create_mesh(self._mesh_shape, self._mesh_axis_names, device=self._mesh_device)
+            self._mesh_key = key()
+        return self._mesh
 
 config = SpateoConfig()
 

@@ -5,6 +5,8 @@ potentials are the NB conditionals; the edge potential is Potts
 [[p, q], [q, p]]. The standard 4-neighbourhood on a CUDA tensor runs the
 hand-written fused iteration (`ops.bp_cuda`); any other neighbourhood, and
 any CPU tensor, runs `_bp_kernel`, the generic version in plain PyTorch.
+`_bp_kernel_sharded` runs either iteration on one rank's rows of a raster
+split over the ranks of a `torch.distributed` mesh.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .bp_cuda import OFFSETS4, bp_kernel
+from .bp_cuda import OFFSETS4, bp_kernel, bp_step
 from .image import circle
 
 
@@ -48,6 +50,29 @@ def _shift2d(arr: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
     return out
 
 
+def _bp_iter(phi: torch.Tensor, M: torch.Tensor, offsets, psi: torch.Tensor) -> torch.Tensor:
+    """One synchronous iteration for any neighbourhood: M [D, H, W, 2], where
+    M[d] is the incoming message INTO each pixel from its neighbour at
+    -offsets[d], 0.5 where that neighbour is outside the raster."""
+    rev = tuple(offsets.index((-dy, -dx)) for (dy, dx) in offsets)
+    prod = phi * torch.prod(M, dim=0)  # [H,W,2]
+    new_msgs = []
+    for d, (dy, dx) in enumerate(offsets):
+        # message from pixel i to neighbour j = i + (dy, dx), excluding
+        # j's own previous message into i (direction rev[d])
+        excl = prod / torch.clamp_min(M[rev[d]], 1e-30)
+        out = excl @ psi
+        out = out / torch.clamp_min(torch.sum(out, dim=-1, keepdim=True), 1e-30)
+        new_msgs.append(_shift2d(out, dy, dx, 0.5))
+    return torch.stack(new_msgs)
+
+
+def _bp_belief(phi: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    belief = phi * torch.prod(M, dim=0)
+    belief = belief / torch.clamp_min(torch.sum(belief, dim=-1, keepdim=True), 1e-30)
+    return belief[..., 1]
+
+
 def _bp_kernel(
     phi: torch.Tensor,  # [H, W, 2] node potentials (normalised)
     offsets: Tuple[Tuple[int, int], ...],
@@ -59,34 +84,72 @@ def _bp_kernel(
     """Loopy-BP marginals for any neighbourhood, with the L2 delta checked
     after every iteration."""
     H, W, _ = phi.shape
-    D = len(offsets)
-    rev = tuple(offsets.index((-dy, -dx)) for (dy, dx) in offsets)
     psi = torch.tensor([[p, q], [q, p]], dtype=torch.float32, device=phi.device)
-
-    # M[d] = incoming message INTO each pixel from its neighbour at -offsets[d]
-    M = torch.full((D, H, W, 2), 0.5, dtype=torch.float32, device=phi.device)
-
-    def one_iter(M):
-        prod = phi * torch.prod(M, dim=0)  # [H,W,2]
-        new_msgs = []
-        for d, (dy, dx) in enumerate(offsets):
-            # message from pixel i to neighbour j = i + (dy, dx), excluding
-            # j's own previous message into i (direction rev[d])
-            excl = prod / torch.clamp_min(M[rev[d]], 1e-30)
-            out = excl @ psi
-            out = out / torch.clamp_min(torch.sum(out, dim=-1, keepdim=True), 1e-30)
-            new_msgs.append(_shift2d(out, dy, dx, 0.5))
-        return torch.stack(new_msgs)
-
+    M = torch.full((len(offsets), H, W, 2), 0.5, dtype=torch.float32, device=phi.device)
     i, delta = 0, float("inf")
     while i < max_iter and delta >= precision:
-        M_new = one_iter(M)
+        M_new = _bp_iter(phi, M, offsets, psi)
         delta = float(torch.sqrt(torch.sum((M_new - M) ** 2)))
         M = M_new
         i += 1
-    belief = phi * torch.prod(M, dim=0)
-    belief = belief / torch.clamp_min(torch.sum(belief, dim=-1, keepdim=True), 1e-30)
-    return belief[..., 1]
+    return _bp_belief(phi, M)
+
+
+def bp_halo(offsets) -> int:
+    """Rows a sharded BP needs from each side: the neighbourhood's reach."""
+    return max(abs(int(dy)) for dy, _ in offsets)
+
+
+def _bp_kernel_sharded(
+    phi_ext: torch.Tensor,  # [rows, W, 2]: this rank's rows with bp_halo(offsets) halo rows
+    top: int,  # phi_ext[top:top + sh.rows_local] are this rank's rows
+    sh,  # parallel._collectives.RowShard over the raster's rows
+    offsets: Tuple[Tuple[int, int], ...],
+    p: float,
+    q: float,
+    precision: float,
+    max_iter: int,
+    stats: Optional[dict] = None,
+) -> torch.Tensor:
+    """Loopy-BP marginals of this rank's rows, the raster's rows split over
+    the ranks of `sh`. Each iteration exchanges the halo rows of the
+    messages, runs one iteration on the widened rows and keeps this rank's:
+    for the 4-neighbourhood `bp_step` (the CUDA kernel on a CUDA tensor, its
+    plain version on a CPU tensor, f32 messages), else `_bp_iter`. The delta
+    is taken after every iteration: the squared change of this rank's rows
+    summed in float64 (both states of a message), added over the ranks in
+    rank order and square-rooted, the same bits on every rank, so every rank
+    stops at the same iteration (the fused loop's sqrt(2) is the second
+    state). `stats` receives ``n_iter``."""
+    n_own, W = sh.rows_local, phi_ext.shape[1]
+    own = slice(top, top + n_own)
+    depth = bp_halo(offsets)
+    fused = set(map(tuple, offsets)) == set(OFFSETS4)
+    dev = phi_ext.device
+    if fused:
+        phi_pl = torch.movedim(phi_ext, -1, 0).to(torch.float32).contiguous()  # [2, rows, W]
+        M = torch.full((4, n_own, W), 0.5, dtype=torch.float32, device=dev)
+    else:
+        psi = torch.tensor([[p, q], [q, p]], dtype=torch.float32, device=dev)
+        M = torch.full((len(offsets), n_own, W, 2), 0.5, dtype=torch.float32, device=dev)
+    i, delta = 0, float("inf")
+    while i < max_iter and delta >= precision:
+        ext, t = sh.halo(M.transpose(0, 1), depth)  # rows first
+        ext = ext.transpose(0, 1).contiguous()
+        M_new = (bp_step(phi_pl, ext, p, q) if fused else _bp_iter(phi_ext, ext, offsets, psi))[:, t : t + n_own]
+        d2 = torch.sum((M_new.to(torch.float64) - M.to(torch.float64)) ** 2)
+        (d2,) = sh.sum(d2 * 2.0 if fused else d2)
+        delta = float(torch.sqrt(d2))
+        M = M_new.contiguous()
+        i += 1
+    if stats is not None:
+        stats["n_iter"] = i
+    if not fused:
+        return _bp_belief(phi_ext[own], M)
+    phi0, phi1 = phi_pl[0, own], phi_pl[1, own]
+    belief0 = phi0 * M[0] * M[1] * M[2] * M[3]
+    belief1 = phi1 * (1.0 - M[0]) * (1.0 - M[1]) * (1.0 - M[2]) * (1.0 - M[3])
+    return belief1 / torch.clamp_min(belief0 + belief1, 1e-30)
 
 
 def _cell_marginals_t(

@@ -315,9 +315,11 @@ def _scalar(x, device) -> torch.Tensor:
 
 
 def prepare(XAHat, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec, sigma2, gamma, samples_s,
-            sigma2_variance, p_param, eps: float = 1e-8):
+            sigma2_variance, p_param, eps: float = 1e-8, NA_total=None):
     """The prologue: the sweeps' inputs (xa, cb, fat, fbt, bt, mm, scal,
-    skip) in the layouts the module docstring gives, on XAHat's device."""
+    skip) in the layouts the module docstring gives, on XAHat's device.
+    `NA_total` is the whole moving slice's row count when XAHat holds one
+    rank's rows (the outlier term's volume counts every row)."""
     NA, D = XAHat.shape
     B = coordsB.shape[0]
     dev = XAHat.device
@@ -329,7 +331,7 @@ def prepare(XAHat, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec, sig
     fbt = torch.cat([B_feats.to(f32).T, torch.ones((1, B), dtype=f32, device=dev)]).contiguous()
     bt = b_cols.to(f32).contiguous()
     mm = model_mul_vec.to(f32).contiguous()
-    outlier_s = samples_s * NA
+    outlier_s = samples_s * (NA if NA_total is None else NA_total)
     spatial_outlier = torch.pow(2 * math.pi * sigma2, D / 2.0) * (1 - gamma) / (gamma * outlier_s)
     scal = torch.zeros(8, dtype=f32, device=dev)
     scal[:4] = torch.stack([sigma2, _scalar(sigma2_variance, dev), spatial_outlier, _scalar(p_param, dev)])
@@ -354,28 +356,52 @@ def finish(colstats, rows, mm, coordsA):
     )
 
 
+def reduce_colstats(colstats: torch.Tensor, scal: torch.Tensor, shard) -> torch.Tensor:
+    """Sweep 1's statistics of a whole moving slice from each rank's
+    [5, B]: rows 0-3 are sums over the rows, added over the ranks of
+    `shard` (`parallel._collectives.RowShard`, rank order); K_NB (row 4) is
+    computed again from them with `colnorm_reference`'s formula."""
+    (c,) = shard.sum(colstats[:4])
+    so, eps = scal[2], scal[4]
+    inlier = 1.0 - so / (so + c[0])
+    return torch.cat([c, (inlier * c[3] / (c[3] + eps))[None]])
+
+
 def _estep(sweep1, sweep2, XAHat, coordsA, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec,
-           sigma2, gamma, samples_s, sigma2_variance, p_param, eps):
+           sigma2, gamma, samples_s, sigma2_variance, p_param, eps, shard=None):
     xa, cb, fat, fbt, bt, mm, scal, skip = prepare(XAHat, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec,
-                                                   sigma2, gamma, samples_s, sigma2_variance, p_param, eps)
+                                                   sigma2, gamma, samples_s, sigma2_variance, p_param, eps,
+                                                   None if shard is None else shard.n)
     colstats = sweep1(xa, cb, fat, fbt, bt, mm, scal, skip)
+    if shard is not None:
+        colstats = reduce_colstats(colstats, scal, shard)
     rows = sweep2(xa, cb, fat, fbt, bt, colstats, scal, skip)
-    return finish(colstats, rows, mm, coordsA)
+    out = finish(colstats, rows, mm, coordsA)
+    if shard is not None:
+        out["sigma2_related"], out["M1"] = shard.sum(out["sigma2_related"], out["M1"])
+    return out
 
 
 def estep_cuda(XAHat, coordsA, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec,
-               sigma2, gamma, samples_s, sigma2_variance, p_param, eps: float = 1e-8):
+               sigma2, gamma, samples_s, sigma2_variance, p_param, eps: float = 1e-8, shard=None):
     """Fused E-step returning the same reduction dict as `estep_reduced`:
     the two kernels on a CUDA device, their plain versions on the CPU.
-    Scope: D = 2, one 'gauss' layer (p_param its probability parameter)."""
+    Scope: D = 2, one 'gauss' layer (p_param its probability parameter).
+
+    With `shard` (`parallel._collectives.RowShard`), XAHat, coordsA, a_rows,
+    A_feats and model_mul_vec hold one rank's rows of the moving slice: the
+    kernels sweep them, sweep 1's sums are added over the ranks between the
+    sweeps (`reduce_colstats`), and so are `sigma2_related` and `M1` after
+    them. K_NB and Sp are then the whole slice's on every rank; the per-row
+    outputs (K_NA, K_NA_spatial, K_NA_sigma2, PXB) are this rank's."""
     if XAHat.shape[1] != 2:
         raise ValueError(f"estep_cuda: needs 2-D coordinates, got {XAHat.shape[1]}")
     return _estep(colnorm, rowred, XAHat, coordsA, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec,
-                  sigma2, gamma, samples_s, sigma2_variance, p_param, eps)
+                  sigma2, gamma, samples_s, sigma2_variance, p_param, eps, shard)
 
 
 def estep_reference(XAHat, coordsA, coordsB, a_rows, b_cols, A_feats, B_feats, model_mul_vec,
-                    sigma2, gamma, samples_s, sigma2_variance, p_param, eps: float = 1e-8):
+                    sigma2, gamma, samples_s, sigma2_variance, p_param, eps: float = 1e-8, shard=None):
     """`estep_cuda` with the two plain sweeps, on the inputs' device."""
     return _estep(colnorm_reference, rowred_reference, XAHat, coordsA, coordsB, a_rows, b_cols, A_feats, B_feats,
-                  model_mul_vec, sigma2, gamma, samples_s, sigma2_variance, p_param, eps)
+                  model_mul_vec, sigma2, gamma, samples_s, sigma2_variance, p_param, eps, shard)

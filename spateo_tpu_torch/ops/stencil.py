@@ -15,7 +15,8 @@ Each block ends with one read of `err` by the host: a solve makes
 (`profiler.sync_audit` counts them: ``it / check_every`` under "float", one
 under "array").
 `graph_heat_solve` is the same loop over a neighbour graph in plain
-PyTorch (XLA only in the JAX package).
+PyTorch (XLA only in the JAX package). `jacobi_solve_sharded` splits the
+raster's rows over the ranks of a `torch.distributed` mesh.
 """
 
 from __future__ import annotations
@@ -125,3 +126,76 @@ def graph_heat_solve(
 
     v, it, err = _heat_loop(block, v0, max_err, int(max_itr), check_every)
     return v.cpu().numpy(), int(it), float(err)
+
+
+def _halo_depth(check_every: int, cap: int = 100) -> int:
+    """Sweeps between two halo exchanges of the sharded solve: the largest
+    divisor of `check_every` up to `cap`, so that every block of
+    `check_every` sweeps ends on an exchange. An exchange costs a collective
+    (milliseconds with gloo); `h` halo rows a side cost 2h rows of sweeps a
+    rank (microseconds at 2048 columns on the card), hence the deep halo."""
+    return max(h for h in range(1, min(cap, check_every) + 1) if check_every % h == 0)
+
+
+def jacobi_solve_sharded(
+    init_field: np.ndarray,
+    border: np.ndarray,
+    mask: np.ndarray,
+    max_err: float = 1e-10,
+    max_itr: int = 100_000,
+    check_every: int = 100,
+    mesh=None,
+    device="cuda",
+):
+    """Multi-device Jacobi solve (counterpart of
+    `spateo_tpu.ops.stencil.jacobi_solve_sharded`, `:229-281`): the raster's
+    rows split over the mesh's first axis (`parallel.create_mesh(device=
+    device)` when `mesh` is None), every rank calling it with the whole
+    raster and getting the whole answer.
+
+    Each rank runs `jacobi_block` (the CUDA kernel on the card) on its rows
+    plus `h` halo rows on each side for `h` sweeps, `h` the largest divisor
+    of `check_every` up to 100, then keeps its own rows and exchanges the
+    halos again. A stale halo row spoils one more row inward each sweep, so
+    after `h` sweeps the own rows are exactly the serial sweeps': the
+    answer equals `jacobi_solve`'s bit for bit on every pixel. The raster's
+    outermost rows and columns stay pinned, as the serial kernel never
+    updates them. After each block the masked relative change is two sums
+    over own rows in float64, added over the ranks in rank order (the same
+    bits on every rank, so every rank stops at the same block). One rank
+    runs `jacobi_solve` itself, as the JAX package does."""
+    import torch
+
+    from ..parallel._collectives import RowShard
+    from ..parallel.mesh import create_mesh
+
+    mesh = mesh if mesh is not None else create_mesh(device=device)
+    f0 = np.asarray(init_field, np.float32)
+    H, W = f0.shape
+    sh = RowShard(mesh, H)
+    if sh.world <= 1:
+        return jacobi_solve(init_field, border, mask, max_err=max_err, max_itr=max_itr, check_every=check_every,
+                            device=sh.device)
+    bd = np.asarray(border) != 0
+    mk = np.asarray(mask, np.float32)
+    # the pixels a sweep moves: the interior window minus the Dirichlet set
+    upd = np.zeros((H, W), np.uint8)
+    upd[1:-1, 1:-1] = 1
+    upd[bd] = 0
+    n = int(check_every)
+    h = _halo_depth(n)
+    idx = sh.halo_index(h)[sh.rank]
+    upd_ext = to_device(np.ascontiguousarray(upd[idx]), sh.device)
+    w = to_device(np.ascontiguousarray(sh.take(mk)), sh.device)
+
+    def block(f_own):
+        f = f_own
+        for _ in range(n // h):
+            ext, top = sh.halo(f, h)
+            f = jacobi_block(ext, upd_ext, h)[top : top + sh.rows_local]
+        sums = torch.stack([(((f - f_own) ** 2) * w).double().sum(), ((f * f) * w).double().sum()])
+        d2, n2 = sh.sum(sums)[0]
+        return f, torch.sqrt(d2 / torch.clamp_min(n2, 1e-30)).to(torch.float32)
+
+    f, it, err = _heat_loop(block, to_device(np.ascontiguousarray(sh.take(f0)), sh.device), max_err, int(max_itr), n)
+    return sh.gather_rows(f * w).numpy(force=True), int(it), float(err)

@@ -20,14 +20,21 @@ import torch
 from .image import _as_tensor, conv2d
 
 
-def _otsu_from_values(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor, nbins: int = 256) -> torch.Tensor:
-    """Otsu threshold over a flat f32 value array (a bin centre, 0-dim)."""
-    dev = values.device
+def _otsu_hist(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """The Otsu histogram of `values` over [vmin, vmax]: [nbins] int64 counts
+    (exact, so counts of several shards add up to the whole's)."""
+    span = torch.clamp_min(vmax - vmin, 1e-30)
+    idx = torch.clamp(((values - vmin) / span * nbins).to(torch.int32), 0, nbins - 1)
+    return torch.bincount(idx, minlength=nbins)
+
+
+def _otsu_from_hist(hist: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """The Otsu threshold (a bin centre, 0-dim) of an `_otsu_hist` histogram."""
+    dev = hist.device
     span = torch.clamp_min(vmax - vmin, 1e-30)
     edges = vmin + span * torch.arange(nbins + 1, dtype=torch.float32, device=dev) / nbins
     centers = (edges[:-1] + edges[1:]) / 2
-    idx = torch.clamp(((values - vmin) / span * nbins).to(torch.int32), 0, nbins - 1)
-    hist = torch.bincount(idx, minlength=nbins).to(torch.float32)
+    hist = hist.to(torch.float32)
 
     w0 = torch.cumsum(hist, 0)
     total = w0[-1]
@@ -39,6 +46,11 @@ def _otsu_from_values(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tens
     var_between = w0 * w1 * (mu0 - mu1) ** 2
     var_between = torch.where((w0 > 0) & (w1 > 0), var_between, torch.full_like(var_between, -torch.inf))
     return centers[torch.argmax(var_between)]
+
+
+def _otsu_from_values(values: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor, nbins: int = 256) -> torch.Tensor:
+    """Otsu threshold over a flat f32 value array (a bin centre, 0-dim)."""
+    return _otsu_from_hist(_otsu_hist(values, vmin, vmax, nbins), vmin, vmax, nbins)
 
 
 def _values(X, device) -> torch.Tensor:

@@ -40,10 +40,15 @@ def con_K(x: torch.Tensor, y: torch.Tensor, beta) -> torch.Tensor:
     return torch.exp(-beta[..., None, None] * torch.clamp_min(d2, 0.0))
 
 
-def _energy(P, resid2, sigma2, C, U, lambda_, D):
-    """Per-field energy: negative log-likelihood proxy + regularisation."""
+def _energy_from_sums(PR, Sp, sigma2, C, U, lambda_, D):
+    """Per-field energy from the sums over rows of P * resid2 and of P:
+    negative log-likelihood proxy + regularisation."""
     reg = (C * torch.bmm(U, C)).sum((1, 2))  # tr(C^T U C)
-    return (P * resid2).sum(-1) / (2 * sigma2) + P.sum(-1) * torch.log(sigma2) * D / 2 + lambda_ / 2 * reg
+    return PR / (2 * sigma2) + Sp * torch.log(sigma2) * D / 2 + lambda_ / 2 * reg
+
+
+def _no_psum(*parts):
+    return parts
 
 
 #: Rows per chunk of the M-step's K^T (P K) and (P K)^T Y products at most.
@@ -73,8 +78,10 @@ def _tmm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return part.view(F, n, M, -1).sum(1)
 
 
-def _em_step(s, K, U, Yk, mask, n_valid, lambda_, a, minP, compute_energy, eye, sigma2_cap):
-    """One EM iteration for every field (`vfc.py:188-232` of the JAX package)."""
+def _em_step(s, K, U, Yk, mask, n_valid, lambda_, a, minP, compute_energy, eye, sigma2_cap, psum=_no_psum):
+    """One EM iteration for every field (`vfc.py:188-232` of the JAX package).
+    `psum` adds sums over rows over the ranks when K and Yk hold one rank's
+    rows (two collectives an iteration)."""
     D = Yk.shape[-1]
     M = K.shape[-1]
     # E-step: inlier posterior (exponent clipped: a diverged V must not
@@ -83,28 +90,27 @@ def _em_step(s, K, U, Yk, mask, n_valid, lambda_, a, minP, compute_energy, eye, 
     gauss = torch.exp(torch.clamp(-resid2 / (2 * s["sigma2"][:, None]), -50.0, 0.0))
     temp = (2 * math.pi * s["sigma2"]) ** (D / 2) * (1 - s["gamma"]) / (s["gamma"] * a)
     P = torch.clamp_min(gauss / (gauss + temp[:, None]), minP) * mask
+    KP = K * P[..., None]
+    KtPK, rhs, Sp, PR = psum(_tmm(K, KP), _tmm(KP, Yk), P.sum(-1), (P * resid2).sum(-1))
     if compute_energy:
-        E = _energy(P, resid2, s["sigma2"], s["C"], U, lambda_, D)
+        E = _energy_from_sums(PR, Sp, s["sigma2"], s["C"], U, lambda_, D)
         tecr = torch.abs((E - s["E"]) / torch.clamp_min(torch.abs(E), 1e-12))
     else:
         E, tecr = s["E"], s["tecr"]
     # M-step: weighted kernel ridge, the ridge floored relative to the data
     # term's trace, the lhs symmetrised (f32 round-off leaves K^T P K
     # asymmetric by more than its smallest eigenvalue)
-    KP = K * P[..., None]
-    KtPK = _tmm(K, KP)
     ridge_floor = 1e-4 * torch.diagonal(KtPK, dim1=1, dim2=2).sum(-1) / M
     ridge = torch.maximum(lambda_ * s["sigma2"], ridge_floor)
     lhs = KtPK + ridge[:, None, None] * U + ridge_floor[:, None, None] * eye
     lhs = 0.5 * (lhs + lhs.transpose(1, 2))
-    rhs = _tmm(KP, Yk)
     # two triangular solves: `cholesky_solve` checks its status on the host
     L, info = torch.linalg.cholesky_ex(lhs)
     C = torch.linalg.solve_triangular(L.transpose(1, 2), torch.linalg.solve_triangular(L, rhs, upper=False),
                                       upper=True)
     V = torch.bmm(K, C)
-    Sp = P.sum(-1)
-    sigma2 = (P * ((Yk - V) ** 2).sum(-1)).sum(-1) / (Sp * D)
+    (num,) = psum((P * ((Yk - V) ** 2).sum(-1)).sum(-1))
+    sigma2 = num / (Sp * D)
     # cap sigma2 at its initialisation scale: growth beyond the raw data
     # variance always signals a diverged fit, never real noise
     sigma2 = torch.minimum(sigma2, sigma2_cap)
@@ -117,11 +123,15 @@ def _stopped(s, max_iter, ecr):
     return ~((s["i"] < max_iter) & (s["tecr"] > ecr) & (s["sigma2"] > 1e-8))
 
 
-def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_energy, y_mult):
+def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_energy, y_mult, psum=_no_psum,
+            n_valid=None):
     """EM over precomputed RBF features for F fields at once: K [F, N, M],
     U [F, M, M], Y [F, N, D], y_scale and y_mult [F]. Inside, K and Y gain
     zero rows of weight 0 up to a multiple of `_row_chunks(N)` (for `_tmm`);
-    V and P come back with N rows.
+    V and P come back with N rows. When K and Y hold one rank's rows,
+    `n_valid` is every rank's row count and `psum` adds sums over rows over
+    the ranks in rank order, so every rank's state, and so its stop test, is
+    the same.
 
     Each field runs while ``i < max_iter and tecr > ecr and sigma2 > 1e-8``,
     tested before each iteration as in the JAX `while_loop`; a stopped
@@ -132,7 +142,7 @@ def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_e
     F, N, M = K.shape
     D = Y.shape[-1]
     dev, dt = K.device, K.dtype
-    n_valid = float(N)
+    n_valid = float(N if n_valid is None else n_valid)
     n = _row_chunks(N)
     pad = -(-N // n) * n - N
     mask = torch.ones(N + pad, dtype=dt, device=dev)
@@ -141,7 +151,8 @@ def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_e
         Y = torch.cat([Y, Y.new_zeros((F, pad, D))], dim=1)
         mask[N:] = 0.0
     Yk = Y * (y_mult / y_scale)[:, None, None]
-    sigma2_0 = (Yk * Yk).sum((1, 2)) / (n_valid * D)
+    (sigma2_0,) = psum((Yk * Yk).sum((1, 2)))
+    sigma2_0 = sigma2_0 / (n_valid * D)
     s = dict(
         C=torch.zeros((F, M, D), dtype=dt, device=dev),
         P=mask.expand(F, N + pad).clone(),
@@ -156,7 +167,8 @@ def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_e
     failed = torch.zeros((F,), dtype=torch.bool, device=dev)
     stopped = _stopped(s, max_iter, ecr)
     for k in range(max_iter):
-        new, info = _em_step(s, K, U, Yk, mask, n_valid, lambda_, a, minP, compute_energy, eye, sigma2_0 * 2.0)
+        new, info = _em_step(s, K, U, Yk, mask, n_valid, lambda_, a, minP, compute_energy, eye, sigma2_0 * 2.0,
+                             psum)
         failed |= (info != 0) & ~stopped
         s = {key: torch.where(stopped.view((F,) + (1,) * (v.dim() - 1)), v, new[key]) for key, v in s.items()}
         stopped = _stopped(s, max_iter, ecr)
@@ -171,7 +183,8 @@ def _run_em(K, U, Y, y_scale, lambda_, gamma0, a, ecr, minP, max_iter, compute_e
         # the loop skipped the per-iteration energy; evaluate it once at the
         # fixed point (tecr has no previous E and reports NaN: not tracked)
         resid2 = ((Yk - s["V"]) ** 2).sum(-1)
-        s["E"] = _energy(s["P"], resid2, s["sigma2"], s["C"], U, lambda_, D)
+        PR, Sp = psum((s["P"] * resid2).sum(-1), s["P"].sum(-1))
+        s["E"] = _energy_from_sums(PR, Sp, s["sigma2"], s["C"], U, lambda_, D)
         s["tecr"] = torch.full((F,), math.nan, dtype=dt, device=dev)
     s["V"], s["P"] = s["V"][:, :N], s["P"][:, :N]
     return s
@@ -181,20 +194,24 @@ _run_em.host_reads = 0
 
 
 def _sparsevfc_em(X, Y, ctrl, beta, gamma0, a, lambda_, ecr, minP, max_iter, y_mult: float = 1.0,
-                  compute_energy: bool = True):
+                  compute_energy: bool = True, psum=_no_psum, n_valid=None):
     """One field's EM on X [N, D], Y [N, D] (raw units, normalised inside to
     unit RMS), with the all-outlier retry: when gamma ends at its floor the
     fit is run again from Y scaled by 0.1 and the retry is kept if its gamma
     is larger (one host read per fit). Returns (state, y_scale, y_mult
-    used)."""
+    used). With `psum` and `n_valid`, X and Y are one rank's rows (see
+    `_run_em`)."""
     N, D = Y.shape
-    y_scale = torch.sqrt((Y * Y).sum() / (N * D)) + 1e-12
+    N = N if n_valid is None else n_valid
+    (yy,) = psum((Y * Y).sum())
+    y_scale = torch.sqrt(yy / (N * D)) + 1e-12
     K = con_K(X[None], ctrl[None], beta)
     U = con_K(ctrl, ctrl, beta)[None]
 
     def run_one(ym):
         ym_t = torch.full((1,), ym, dtype=X.dtype, device=X.device)
-        s = _run_em(K, U, Y[None], y_scale[None], lambda_, gamma0, a, ecr, minP, max_iter, compute_energy, ym_t)
+        s = _run_em(K, U, Y[None], y_scale[None], lambda_, gamma0, a, ecr, minP, max_iter, compute_energy, ym_t,
+                    psum, n_valid)
         return {k: v[0] for k, v in s.items()}
 
     s = run_one(y_mult)
@@ -431,15 +448,29 @@ def SparseVFC(
     """Sparse Vector Field Consensus on `device` (dynamo-compatible signature
     and return; parity: `spateo_tpu.ops.vfc.SparseVFC`).
     `div_cur_free_kernels`, `velocity_based_sampling`, `lstsq_method` and
-    `verbose` are accepted and ignored, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError("SparseVFC(mesh=...) is not ported to PyTorch yet (ROADMAP Queue 1 item 13, "
-                                  "multi-device).")
+    `verbose` are accepted and ignored, as in the JAX package.
+
+    ``mesh``: a `torch.distributed.device_mesh.DeviceMesh` (`:545,623-637`
+    of the JAX package). Every rank calls this with the same points; the
+    control points and the bandwidth are drawn on the host from the whole
+    input, the same on every rank. The rows of X, Y and the [N, M] feature
+    matrix split over the mesh's first axis; K^T P K, K^T P Y and the sums
+    of P, of the energy and of sigma2 are added over the ranks in rank
+    order, and the M x M solve is replicated, so every rank stops at the
+    same iteration and returns the same whole result. The mesh sets the
+    device: a `device` of another type raises."""
     X = np.asarray(X, dtype=np.float32)
     Y = np.asarray(Y, dtype=np.float32)
     valid_ind = np.where(np.isfinite(Y).all(axis=1) & np.isfinite(X).all(axis=1))[0]
     Xv, Yv = X[valid_ind], Y[valid_ind]
     N, D = Xv.shape
+    sh = None
+    if mesh is not None:
+        from ..parallel._collectives import RowShard, check_device
+
+        check_device(mesh, device)
+        sh = RowShard(mesh, N)
+        device = sh.device
     Xj = to_device(Xv, device)
     Yj = to_device(Yv, device)
 
@@ -453,8 +484,13 @@ def SparseVFC(
         beta_t = torch.tensor(beta, dtype=torch.float32, device=Xj.device)
     ctrl_j = to_device(ctrl, device)
 
-    s, y_scale_t, y_mult = _sparsevfc_em(Xj, Yj, ctrl_j, beta_t, gamma, a, lambda_, ecr, minP, MaxIter,
-                                            compute_energy=(ecr > 0))
+    if sh is None:
+        s, y_scale_t, y_mult = _sparsevfc_em(Xj, Yj, ctrl_j, beta_t, gamma, a, lambda_, ecr, minP, MaxIter,
+                                                compute_energy=(ecr > 0))
+    else:
+        s, y_scale_t, y_mult = _sparsevfc_em(sh.take(Xj), sh.take(Yj), ctrl_j, beta_t, gamma, a, lambda_, ecr, minP,
+                                                MaxIter, compute_energy=(ecr > 0), psum=sh.sum, n_valid=N)
+        s["V"], s["P"] = sh.gather_rows(s["V"]), sh.gather_rows(s["P"])
     rescale_t = y_scale_t / y_mult
 
     pull = dict(C=s["C"], V=s["V"], P=s["P"], sigma2=s["sigma2"], i=s["i"], tecr=s["tecr"], E=s["E"],

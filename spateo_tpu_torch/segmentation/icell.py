@@ -7,7 +7,10 @@ Counterpart of `spateo_tpu.segmentation.icell`:
   threshold, knee, Moran or VI options), else the staged path: `_score_pixels`
   (gauss, moran, em, em+gauss, em+bp, vi+gauss, vi+bp, with bins and a
   certain mask), then an Otsu threshold, a given one, or the knee, and close
-  and open. `mesh=` is not ported (ROADMAP Queue 1 item 13).
+  and open. With ``mesh=`` (a `torch.distributed` device mesh) the fused
+  path runs sharded, the raster's rows split over the mesh's ranks
+  (`starro.starro_em_bp_sharded`); the staged path ignores it, as in the
+  JAX package.
 - `mask_cells_from_stain` and `mask_nuclei_from_stain` threshold a stain
   image with multi-Otsu (and a local Gaussian surface) and close and open it.
 
@@ -230,9 +233,16 @@ def score_and_mask_pixels(
 ):
     """Score pixels by how likely a cell occupies them and mask them, on
     `device`; writes the ``{layer}_scores`` and ``{layer}_mask`` layers (or
-    `scores_layer` / `mask_layer`) as host arrays."""
+    `scores_layer` / `mask_layer`) as host arrays.
+
+    ``mesh``: a `torch.distributed.device_mesh.DeviceMesh`; the fused EM+BP
+    path then runs sharded over its ranks, each rank calling this with the
+    same AnnData and writing the same layers. It sets where the ranks run: a
+    `device` of another type raises. The staged path ignores it."""
     if mesh is not None:
-        raise NotImplementedError("mesh: not ported yet; see the multi-device paths, ROADMAP Queue 1 item 13")
+        from ..parallel._collectives import check_device
+
+        check_device(mesh, device)
     X = SKM.select_layer_data(adata, layer, make_dense=True)
     certain_mask = None
     if certain_layer:
@@ -260,9 +270,15 @@ def score_and_mask_pixels(
             for src, dst in keys:
                 if src in kwargs:
                     fused_kwargs[dst] = kwargs[src]
-        scores, mask = starro_em_bp(np.asarray(X), k=k, mk=mk or k + 2, device=device, **fused_kwargs)
-        SKM.set_layer_data(adata, scores_layer, scores.cpu().numpy())
-        SKM.set_layer_data(adata, mask_layer, mask.cpu().numpy())
+        if mesh is not None:
+            from .starro import starro_em_bp_sharded
+
+            scores, mask = starro_em_bp_sharded(np.asarray(X), mesh=mesh, k=k, mk=mk or k + 2, **fused_kwargs)
+        else:
+            scores, mask = starro_em_bp(np.asarray(X), k=k, mk=mk or k + 2, device=device, **fused_kwargs)
+            scores, mask = scores.cpu().numpy(), mask.cpu().numpy()
+        SKM.set_layer_data(adata, scores_layer, scores)
+        SKM.set_layer_data(adata, mask_layer, mask)
         return
 
     scores = _score_pixels(X, k, method, moran_kwargs, em_kwargs, vi_kwargs, bp_kwargs, certain_mask, bins, device)

@@ -23,7 +23,9 @@ Differences from the JAX package, by design:
   tiles' NB mixtures in one batched EM, each tile frozen at its own
   convergence; the fit sums each tile's samples on their own
   (`_nbn_em_batched(rowwise=True)`), so every tile gets exactly what a
-  per-tile call gives. The sharded program is not ported.
+  per-tile call gives.
+- `starro_em_bp_sharded` splits one raster's rows over the ranks of a
+  `torch.distributed` mesh, each rank launching `bp_step` on its rows.
 """
 
 from __future__ import annotations
@@ -109,6 +111,7 @@ def _starro_score_mask(
     bp_max_iter: int,
     use_cuda_bp: bool = False,
     bp_msg_dtype: str = "float32",
+    bp_check_every: int = 10,
 ):
     """Steps 5-7: per-pixel NB conditionals, loopy-BP marginals, Otsu
     threshold and close/open morphology. Returns (scores, mask) on res's
@@ -116,7 +119,8 @@ def _starro_score_mask(
     package.
 
     ``use_cuda_bp`` selects the fused 4-neighbour iteration (`bp_kernel`,
-    delta checked every 10 iterations, messages stored in `bp_msg_dtype`):
+    delta checked every `bp_check_every` iterations, messages stored in
+    `bp_msg_dtype`):
     the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
     Otherwise the generic `_bp_kernel` runs."""
     del w_  # the conditional stack is normalised, so the weights cancel
@@ -124,7 +128,8 @@ def _starro_score_mask(
 
     # 6. loopy-BP marginals
     if use_cuda_bp:
-        scores = bp_kernel(phi, bp_p, bp_q, bp_precision, bp_max_iter, check_every=10, msg_dtype=bp_msg_dtype)
+        scores = bp_kernel(phi, bp_p, bp_q, bp_precision, bp_max_iter, check_every=bp_check_every,
+                           msg_dtype=bp_msg_dtype)
     else:
         scores = _bp_kernel(phi, offsets, bp_p, bp_q, bp_precision, bp_max_iter)
     return scores, _starro_threshold_mask(scores, mk)
@@ -169,6 +174,7 @@ def _starro_em_bp_fused(
     bp_msg_dtype: str = "float32",
     seed: int = 0,
     uniforms=None,
+    bp_check_every: int = 10,
 ):
     """The whole pipeline for tiles `Xs`: steps 1-3 per tile, one NB-mixture
     EM for all of them (step 4), steps 5-7 per tile. The EM sums each tile's
@@ -191,6 +197,7 @@ def _starro_em_bp_fused(
     for j, s in enumerate(steps):
         yield _starro_score_mask(
             s[0], w_[j], r_[j], p_[j], mk, offsets, bp_p, bp_q, bp_precision, bp_max_iter, use_cuda_bp, bp_msg_dtype,
+            bp_check_every,
         )
 
 
@@ -302,3 +309,132 @@ def starro_em_bp_stream(
         chunk.append(X)
     if chunk:
         yield from run(chunk)
+
+
+#: Keyword arguments of `starro_em_bp_sharded` and their defaults (the JAX
+#: package's).
+_SHARDED_DEFAULTS = dict(k=5, mk=None, downsample=0.001, bp_k=3, bp_square=False, seed=None, mask_only=False,
+                         em_max_iter=2000, em_precision=1e-6, bp_p=0.6, bp_q=0.4, bp_precision=1e-6, bp_max_iter=100)
+
+
+def starro_em_bp_sharded(X: np.ndarray, mesh=None, mesh_axis: str = "data", **kwargs):
+    """Multi-device Starro (counterpart of
+    `spateo_tpu.segmentation.starro.starro_em_bp_sharded`, `:756-824`): the
+    raster's rows split over the mesh's `mesh_axis` (`config.mesh` when
+    `mesh` is None). Every rank calls it with the whole raster and gets the
+    whole (scores, mask) as host arrays; `kwargs` are `starro_em_bp`'s.
+
+    Each rank computes its own rows, and one halo row of BP's reach on each
+    side, from the host raster:
+
+    - the density convolution with symmetric padding at the raster's edges
+      and the neighbours' rows at the cuts (exact for counts);
+    - the Otsu initial parameters: the value range by MIN and MAX, the
+      256-bin histogram as exact counts summed over ranks, the sums of the
+      means and variances as float64 partial sums added in rank order;
+    - the Gumbel top-k downsample: each rank draws the whole raster's
+      uniforms from `seed` on its device, as `starro_em_bp` does, and keeps
+      its rows; its top `n_samples` join every rank's, and a second top-k
+      orders them by key, so the NB-mixture EM (replicated, then broadcast
+      from rank 0) sees the samples of the unsharded run in its order;
+    - the conditionals; loopy BP by `ops.bp._bp_kernel_sharded` (a one-row
+      halo exchange of the messages each iteration, f32 messages, the delta
+      every iteration, `bp_step` on the card); the Otsu threshold of the
+      scores as above; close and open with a halo of ``mk // 2`` rows before
+      each erosion and dilation.
+
+    ``mask_only`` is accepted and, as in the JAX package, the mask comes back
+    whole. BP's messages are f32 whatever `bp_msg_dtype` says."""
+    from scipy import sparse as _sp
+
+    from ..configuration import config
+    from ..ops.bp import _bp_kernel_sharded, bp_halo
+    from ..ops.threshold import _otsu_from_hist, _otsu_hist
+    from ..parallel._collectives import RowShard
+
+    kwargs.pop("bp_msg_dtype", None)
+    unknown = set(kwargs) - set(_SHARDED_DEFAULTS)
+    if unknown:
+        raise TypeError(f"starro_em_bp_sharded: unexpected arguments {sorted(unknown)}")
+    o = dict(_SHARDED_DEFAULTS, **kwargs)
+    mesh = mesh if mesh is not None else config.mesh
+    X = np.asarray(X.toarray() if _sp.issparse(X) else X, np.float32)
+    H, W = X.shape
+    sh = RowShard(mesh, H, mesh_axis)
+    dev = sh.device
+    k, mk = int(o["k"]), int(o["mk"] or o["k"] + 2)
+    offsets = _offsets(int(o["bp_k"]), bool(o["bp_square"]))
+    n, n_own = H * W, sh.rows_local * W
+    n_samples = _n_samples(n, float(o["downsample"]))
+
+    # 1. density of this rank's rows and BP's halo rows: the host raster's
+    # rows r = (k - 1) // 2 beyond them, mirrored at the raster's edges
+    r, depth = (k - 1) // 2, bp_halo(offsets)
+    rows = sh.halo_index(depth)[sh.rank]  # this rank's rows and BP's halo, clipped to the raster
+    top = sh.lo - int(rows[0]) if len(rows) else 0
+    src = np.arange(int(rows[0]) - r, int(rows[-1]) + 1 + r) if len(rows) else np.zeros(0, np.int64)
+    src = np.where(src < 0, -src - 1, src)
+    src = np.where(src >= H, 2 * H - 1 - src, src)
+    Xr = to_device(np.ascontiguousarray(X[src]), dev)
+    if r:
+        Xr = torch.cat([Xr[:, :r].flip(-1), Xr, Xr[:, -r:].flip(-1)], dim=-1)
+    res_ext = _conv2d_rowsum(Xr, _binary_row_runs(np.asarray(circle(k), np.float32)), k, k, "VALID")
+    flat = res_ext[top : top + sh.rows_local].reshape(-1)
+
+    # 2. initial NB parameters from an Otsu split
+    inf = torch.tensor(float("inf"), device=dev)
+    vmin = sh.min(flat.min() if n_own else inf)
+    vmax = sh.max(flat.max() if n_own else -inf)
+    (hist,) = sh.sum(_otsu_hist(flat, vmin, vmax, 256))
+    thr = torch.clamp_min(_otsu_from_hist(hist, vmin, vmax, 256), 1.0)
+    m = flat > thr
+    f64 = flat.to(torch.float64)
+    parts = torch.stack([m.sum().to(torch.float64), f64.sum(), torch.where(m, f64, 0.0).sum(), (f64 * f64).sum(),
+                         torch.where(m, f64 * f64, 0.0).sum()])
+    (parts,) = sh.sum(parts)
+    n_fg = parts[0].to(torch.int64)
+    n_bg = n - n_fg
+    sum_all, sum_fg, sq_all, sq_fg = (parts[i].to(torch.float32) for i in (1, 2, 3, 4))
+    w0 = torch.stack([n_bg, n_fg]).to(torch.float32) / n
+    mu_bg = (sum_all - sum_fg) / torch.clamp_min(n_bg, 1)
+    mu_fg = torch.where(n_fg > 0, sum_fg / torch.clamp_min(n_fg, 1), thr * 2.0)
+    var_bg = (sq_all - sq_fg) / torch.clamp_min(n_bg, 1) - mu_bg**2
+    var_fg = torch.where(n_fg > 0, sq_fg / torch.clamp_min(n_fg, 1) - mu_fg**2, thr * 4.0)
+    mu0 = torch.stack([mu_bg, mu_fg])
+    var0 = torch.stack([var_bg, var_fg])
+    var0 = torch.where(var0 <= mu0, mu0 * 1.1, var0)
+
+    # 3. the Gumbel top-k downsample over every rank's pixels
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0 if o["seed"] is None else int(o["seed"]))
+    uniform = torch.clamp_min(torch.rand(n, generator=gen, device=dev) * (1.0 - 1e-12) + 1e-12, 1e-12)
+    keys = torch.log(torch.log1p(flat + 1.0) + 1e-30) - torch.log(-torch.log(uniform[sh.lo * W : sh.hi * W]))
+    top_k = torch.topk(keys, min(n_samples, n_own))
+    cand = torch.full((2, n_samples), -float("inf"), dtype=torch.float32, device=dev)
+    cand[0, : top_k.values.numel()] = top_k.values
+    cand[1, : top_k.values.numel()] = flat[top_k.indices]
+    cand = sh.stack(cand)  # [world, 2, n_samples]
+    pick = torch.topk(cand[:, 0].reshape(-1), n_samples).indices
+    samp = cand[:, 1].reshape(-1)[pick]
+
+    # 4. NB-mixture EM, the same on every rank (broadcast from rank 0)
+    w_, r_, p_ = _nbn_em_batched(samp[None], torch.ones((1, n_samples), dtype=torch.bool, device=dev), w0[None],
+                                 mu0[None], var0[None], max_iter=int(o["em_max_iter"]),
+                                 precision=float(o["em_precision"]), rowwise=True)
+    r_, p_ = sh.broadcast(torch.stack([r_[0], p_[0]]))
+
+    # 5-6. conditionals of the rows BP reads, and BP over the ranks
+    phi = _starro_conditionals(res_ext, r_, p_)
+    scores = _bp_kernel_sharded(phi, top, sh, offsets, float(o["bp_p"]), float(o["bp_q"]),
+                                float(o["bp_precision"]), int(o["bp_max_iter"]))
+
+    # 7. Otsu threshold of the scores, then close and open with halo rows
+    sflat = scores.reshape(-1)
+    smin = sh.min(sflat.min() if n_own else inf)
+    smax = sh.max(sflat.max() if n_own else -inf)
+    (shist,) = sh.sum(_otsu_hist(sflat, smin, smax, 256))
+    mask = scores >= _otsu_from_hist(shist, smin, smax, 256)
+    for op in (dilate, erode, erode, dilate):  # close, then open
+        ext, t = sh.halo(mask, (mk - 1) // 2)
+        mask = op(ext, mk)[t : t + sh.rows_local]
+    return sh.gather_rows(scores).numpy(force=True), sh.gather_rows(mask).numpy(force=True)

@@ -191,6 +191,12 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 # -- configuration ---------------------------------------------------------------------------------------------
 
 
+def jax_device_count():
+    import jax
+
+    return jax.device_count()
+
+
 def test_config_matches_jax_where_it_can_and_refuses_where_it_cannot():
     cfg = TCfg.SpateoConfig(n_threads=2, mesh_shape=(2, 1), precision="bfloat16")
     assert cfg.mesh_shape == (2, 1) and cfg.mesh_axis_names == ("data", "model") and cfg.n_threads == 2
@@ -203,10 +209,24 @@ def test_config_matches_jax_where_it_can_and_refuses_where_it_cannot():
     cfg.logging_level = "warning"
     assert cfg.logging_level == logging.WARNING
     cfg.logging_level = logging.INFO
-    with pytest.raises(stt.MeshError, match="item 13"):
+    # config.mesh: a shape that does not cover the devices raises in both
+    # packages (here one rank, no process group yet); the default mesh puts
+    # every device on 'data' (JAX: all 8 CPU devices; here a one-rank mesh,
+    # whose group is started for it)
+    cfg.mesh_device = "cpu"
+    with pytest.raises(stt.MeshError, match="does not cover 1 devices"):
         cfg.mesh
-    with pytest.raises(stt.MeshError):
-        stt.config.mesh
+    jcfg = JCfg.SpateoConfig(mesh_shape=(4 * jax_device_count(),))
+    with pytest.raises(st.MeshError, match="does not cover"):
+        jcfg.mesh
+    cfg.mesh_shape, cfg.mesh_axis_names = None, ("data", "model")
+    jcfg.mesh_shape = None
+    try:
+        m = cfg.mesh
+        assert m is cfg.mesh and m.device_type == "cpu" and m.mesh_dim_names == ("data", "model")
+        assert tuple(m.shape) == (1, 1) and tuple(jcfg.mesh.shape.values()) == (jax_device_count(), 1)
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(stt.ConfigurationError, match="x64"):
         cfg.enable_x64 = True
     with pytest.raises(stt.ConfigurationError):

@@ -273,10 +273,11 @@ def _init_names(pkg):
 
 def test_io_pp_and_root_export_what_jax_exports():
     """`stt.io` and `stt.pp` export every public name of `st.io` and `st.pp`;
-    the root lacks only the name of ROADMAP item 13 (`parallel`)."""
+    the root lacks none of the JAX package's names (`parallel` since ROADMAP
+    item 13)."""
     for a, b in ((st.io, stt.io), (st.pp, stt.pp)):
         assert _init_names(a) <= _init_names(b) | {n for n in dir(b) if not n.startswith("_")}
-    assert _init_names(st) - _init_names(stt) == {"parallel"}
+    assert _init_names(st) - _init_names(stt) == set()
     for name in ("read", "read_csv", "read_excel", "read_h5ad", "read_hdf", "read_loom", "read_mtx", "read_text",
                  "read_umi_tools", "read_zarr", "sample_data", "pl", "ops", "config", "LazyAttribute", "LazyLoader",
                  "get_version", "profiler", "AlignmentError", "DigitizationError", "MeshError",

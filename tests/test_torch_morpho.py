@@ -357,12 +357,14 @@ def test_estep_chunks_cpu_matches_jax():
 
 
 def test_mesh_is_not_ported():
+    """`mesh=` is ported (ROADMAP item 13; `tests/test_torch_parallel_morpho.py`
+    holds it against JAX): what is not a `DeviceMesh` raises."""
     from bench import _mk_adata
     import spateo_tpu_torch as stt
 
     rng = np.random.default_rng(0)
     a = _mk_adata(stt, rng.uniform(0, 1, (30, 2)).astype(np.float32), rng.poisson(2.0, (30, 4)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmorpho.Morpho_pairwise(a, a, device="cpu", mesh=object())
 
 

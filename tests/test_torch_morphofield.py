@@ -378,13 +378,14 @@ def test_gaussian_process_field_matches_jax(morpho_field):
 
 
 def test_unported_paths_raise():
-    """`mesh=` raises (item 13). The euclidean center NMF, which raised
+    """`mesh=` that is not a `DeviceMesh` raises (the sharded SparseVFC is
+    `tests/test_torch_parallel.py`'s). The euclidean center NMF, which raised
     until item 10b was ported, is now `FrobeniusNMF` (held against
     scikit-learn in `test_torch_paste.py`)."""
     from spateo_tpu_torch.alignment.methods.paste import FrobeniusNMF
 
     assert isinstance(stt.align.methods.center_NMF(5, 0, dissimilarity="euclidean", device="cpu"), FrobeniusNMF)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         stt.tdr.morphofield_sparsevfc(_adata(stt, *[np.random.default_rng(0).uniform(size=(50, 2))] * 2), NX=None,
                                       grid_num=[3, 3], M=10, restart_num=0, mesh=object(), device="cpu")
 

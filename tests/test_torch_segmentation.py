@@ -452,14 +452,15 @@ def test_score_and_mask_pixels_staged_matches_jax(options):
 
 def test_score_and_mask_pixels_fast_path_condition():
     """EM+BP with nothing that leaves the fused program takes it (the same
-    call `starro_em_bp` makes); `mesh=` raises naming its ROADMAP item."""
+    call `starro_em_bp` makes); a `mesh=` that is not a `DeviceMesh` raises
+    (the sharded path is `tests/test_torch_parallel_starro.py`'s)."""
     a = stt.AnnData(X=_tile((64, 96)))
     stt.SKM.init_adata_type(a, stt.SKM.ADATA_AGG_TYPE)
     stt.cs.score_and_mask_pixels(a, "X", 3, "EM+BP", em_kwargs=dict(seed=0), bp_kwargs=dict(max_iter=15), **CPU)
     scores, mask = stt.cs.starro_em_bp(a.X, k=3, seed=0, bp_max_iter=15, **CPU)
     np.testing.assert_array_equal(a.layers["X_scores"], scores.numpy())
     np.testing.assert_array_equal(a.layers["X_mask"], mask.numpy())
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         stt.cs.score_and_mask_pixels(a, "X", 3, "EM", mesh=object(), **CPU)
 
 

@@ -168,7 +168,7 @@ def test_public_score_and_mask_pixels(seed):
 
 
 def test_score_and_mask_pixels_rejects_unported_options():
-    """The UMI type check and `mesh=` (ROADMAP item 13) still raise; the
+    """The UMI type check and a `mesh=` that is not a `DeviceMesh` raise; the
     options that once raised (EM+gauss, a threshold, density bins) now run
     the staged path and match the JAX package: scores within 1e-4, masks
     with IoU >= 0.99 (a mask of ~900 pixels here: a threshold-straddling
@@ -178,7 +178,7 @@ def test_score_and_mask_pixels_rejects_unported_options():
     with pytest.raises(stt.ConfigurationError):
         stt.cs.score_and_mask_pixels(a, "X", k=3, method="EM+BP", device="cpu")
     stt.SKM.init_adata_type(a, stt.SKM.ADATA_AGG_TYPE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         stt.cs.score_and_mask_pixels(a, "X", k=3, method="EM+BP", mesh=object(), device="cpu")
     bins = np.ones(a.shape, np.int32)
     bins[:, 48:] = 2

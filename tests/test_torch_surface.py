@@ -47,17 +47,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 #: Public names of JAX modules that the port's counterpart lacks on purpose,
 #: each with where it stands; renamed counterparts map to their new name.
 LEFT_OUT = {
-    "ops/stencil.py": {"jacobi_solve_sharded"},  # item 13
-    "segmentation/starro.py": {"encode_tile", "upload_tile", "starro_em_bp_sharded"},  # items 9, 13
+    "segmentation/starro.py": {"encode_tile", "upload_tile"},  # item 9
     # the port returns plain dicts filled by one batched copy
     "ops/vfc.py": {"LazyHostDict"},
 }
 RENAMED = {"ops/vfc.py": {"vector_field_function_jax": "vector_field_function_torch"}}
 #: Names that a JAX package's ``__init__.py`` binds and its port's does not,
 #: each with where it stands.
-LEFT_OUT_EXPORTS = {
-    "__init__.py": {"parallel"},  # item 13
-}
+LEFT_OUT_EXPORTS = {}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -277,7 +277,7 @@ def test_float64_input_narrowed_and_mesh_raises():
     X, V = _rotation(200)
     rt = tvfc.SparseVFC(X.astype(np.float64), V.astype(np.float64), M=20, MaxIter=5, seed=0, device="cpu")
     assert rt["V"].dtype == np.float32 and rt["X"].dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tvfc.SparseVFC(X, V, M=20, MaxIter=5, mesh=object(), device="cpu")
 
 

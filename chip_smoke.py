@@ -33,7 +33,10 @@ final ``ok`` line:
    (k=5, BP 50 iterations, bf16 messages), then four tiles through
    `starro_em_bp_stream`; the launch counts of that run prove the kernel and
    the fused delta's reduction ran.
-   A per-stage breakdown of one tile is timed first.
+   A per-stage breakdown of one tile is timed first. Then the upload A/B
+   (`upload_codec_ab`): `upload_tile` (the codec) against the stream's
+   pinned int16 copy on the four rasters and a sparse tile, each equal bit
+   for bit, and each route's ms a 2048² tile.
 4. Starro CUDA vs CPU: one 512x512 density raster and one NB fit scored on
    the card (kernel) and on the CPU (plain); mask IoU >= 0.999.
 5. E-step kernels vs plain versions: `colnorm` and `rowred` (the kernels of
@@ -151,8 +154,8 @@ final ``ok`` line:
    stage, genes/s of the scan, the planted genes' recall in the top 60 by
    z-score (bar from the port's CPU run), the scan alone under the profiler
    (idle share, launches, ops); (c) `cal_wass_dist_bs` over 60 planted +
-   140 null genes, 30 rounds, rank p-values; (d) `cal_gro_wass_bs` between
-   two sections' samples, 20 genes, 5 rounds (seconds to NaN: every solve
+   140 null genes, 15 rounds, rank p-values; (d) `cal_gro_wass_bs` between
+   two sections' samples, 10 genes, 5 rounds (seconds to NaN: every solve
    ends NaN on a zero-count cell), and the same scan on the counts plus 1,
    2 rounds, where every solve runs to its stop (finite, positive, seconds
    a solve, outer iterations); (e) `align.paste_align_ref` on a section and
@@ -162,7 +165,7 @@ final ``ok`` line:
    rotation in both packages: held to within 1 deg of the port's CPU answer
    on the same pair), the first 20 outer iterations under the profiler; (f) `tdr.cell_directions` between the aligned
    references and `align.paste_center_align` on 3 x 1,000 cells at its
-   defaults but 50 FGW outer iterations a solve of 200 (the time limit). No
+   defaults but 20 FGW outer iterations a solve of 200 (the time limit). No
    kernel of `csrc/` is on this path.
 19. SVG and PASTE, card against CPU: the batched scan on 400 cells x 20
    genes (1e-4 relative, the same sweeps; cut from 200 genes, whose CPU
@@ -231,7 +234,7 @@ final ``ok`` line:
    planted pair (senders send more), `CCI_deg_detection_setup` and
    `CCI_deg_detection(fit_all=True)` on the TFs (the tracked TF is the
    significant one of largest coefficient, one set of weights a design),
-   `permutation_test` of TGT1 at 40 permutations (its default 100, cut for the
+   `permutation_test` of TGT1 at 20 permutations (its default 100, cut for the
    time limit; fits/s; by
    `eval_permutation_test` the fit's Pearson correlation with TGT1 beats
    every permutation's, t-test p <= 0.05), `tl.MuSIC_Molecule_Selector.
@@ -349,11 +352,11 @@ final ``ok`` line:
    stain against OpenCV's Otsu threshold. No kernel of `csrc/` is on this
    path.
 33. Card against CPU at 1,000 cells (`tsne_widgets_cuda_vs_cpu`, bars
-   `TSNE_CVC_BAR`): t-SNE's P, one Barnes-Hut gradient, 10 iterations from
-   the PCA init and the full run's 15-NN preservation (the CPU's full run in
-   a process of its own, `TSNE_CPU_CHILD`, beside the card's);
-   `points_inside_mesh` on 2,000 points against the E9.5 ellipsoid's hull:
-   masks equal.
+   `TSNE_CVC_BAR`): t-SNE's P, one Barnes-Hut gradient and 10 iterations
+   from the PCA init (the full runs' 15-NN preservation, the card's run
+   beside the CPU's, is cut for time; `tsne_widgets_cuda_vs_cpu(full=True)`
+   and the card tests keep it); `points_inside_mesh` on 2,000 points
+   against the E9.5 ellipsoid's hull: masks equal.
 
 34. The profiler, the configuration and the package root on the card:
    `profiler.timer(block=True)` around 1,000 `jacobi_block` sweeps at 2048²
@@ -395,7 +398,20 @@ final ``ok`` line:
    after: `bp_step`, `estep_colnorm`, `estep_rowred`, `inlier_fit` and
    `jacobi_block` each launched on every rank. Prints each rank's stage
    seconds and its seconds and calls in collectives (the card synchronised
-   around each collective).
+   around each collective). The other sharded paths follow in the same
+   processes:
+   `iwls_batch_sharded` on phase 14a's first target (8,192 cells, K 12,
+   poisson, 25 IRLS iterations), `cal_wass_dis_batch_sharded` on phase
+   18's scan inputs (391 cells x 4,000 genes, written by this process to an
+   `.npz`), `MERFISHVI.train(mesh=)` on phase 28c's 50,000 x 500 (300
+   epochs) and sparse Morpho (`morpho_align(mesh=,
+   sparse_calculation_mode=True)`, the pair at 100 iterations): (a) against
+   the unsharded port (IRLS betas within 1e-5 of scale, hats 1e-6, losses
+   2e-4 of scale, coordinates 1e-4; the scan at one rank is
+   `cal_wass_dis_batch`), (b) against (a), and its scan against one
+   unchunked batch of the 4,000 genes within 1e-5 of scale (the chunked
+   scan's distance printed, not barred: its chunks stop at other sweeps);
+   `inlier_fit` launched in sparse Morpho on every rank.
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (`--phases 36` the sharded path alone) (the environment, the build, and the kernels' checks against their
@@ -1603,16 +1619,20 @@ def music_bench_data(N=MUSIC_N, K=MUSIC_K, n_targets=MUSIC_TARGETS):
     return coords, X, np.stack(betas), ys
 
 
+def music_weights(coords_d, bw=MUSIC_BW):
+    """The benchmark's [N, N] spatial weights from the coordinates on their
+    device: the untruncated gaussian kernel (bench.py:423-429)."""
+    sq = (coords_d**2).sum(1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (coords_d @ coords_d.T)
+    return torch.exp(-torch.clamp(d2, min=0.0) / (2 * bw**2))
+
+
 def music_fit_all(coords_d, y_d, X_d, bw=MUSIC_BW, n_irls_iter=MUSIC_ITERS):
-    """One target of the benchmark: W from the coordinates on their device
-    (the untruncated gaussian kernel, bench.py:423-429), then the port's
+    """One target of the benchmark: `music_weights`, then the port's
     `_iwls_batch_kernel` over every cell."""
     from spateo_tpu_torch.tools.CCI_effects_modeling.regression_utils import _iwls_batch_kernel
 
-    sq = (coords_d**2).sum(1)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * (coords_d @ coords_d.T)
-    W = torch.exp(-torch.clamp(d2, min=0.0) / (2 * bw**2))
-    return _iwls_batch_kernel(y_d, X_d, W, 0.0, 5.0, "poisson", n_irls_iter)
+    return _iwls_batch_kernel(y_d, X_d, music_weights(coords_d, bw), 0.0, 5.0, "poisson", n_irls_iter)
 
 
 #: Share of the (focal row, coefficient) pairs with |beta_true| >= 0.2 whose
@@ -2187,11 +2207,11 @@ SVG_DOMAIN = (10_000.0, 6_000.0)
 #: The reference defaults of the SVG path: 400 cells after smoothing and
 #: sampling, the geodesic distance over 8 neighbours with these cutoffs.
 SVG_DOWNSAMPLE, SVG_KW = 400, dict(n_neighbors=8, min_dis_cutoff=500, max_dis_cutoff=1000)
-#: Bootstrap rounds of phase 18c, cut from the reference's 100 to keep
-#: phases 18-19 nearer their time (PERF.md section 4).
-SVG_BOOTSTRAP = 30
+#: Bootstrap rounds of phase 18c, cut from the reference's 100 to 30, then
+#: to 15 to keep phases 18-19 nearer their time (PERF.md section 4).
+SVG_BOOTSTRAP = 15
 #: Bootstrap rounds of phase 18d's scan on pseudocounted counts, where
-#: every GW solve runs to its stop (20 genes x 2 rounds).
+#: every GW solve runs to its stop (10 genes x 2 rounds).
 SVG_GW_PSEUDO_BOOTSTRAP = 1
 #: Recall of the planted genes among the top 60 by z-score that phase 18b
 #: must reach: the port's CPU run at the same size (`svg_scan(
@@ -2217,9 +2237,9 @@ PASTE_CPU_ROTATION_ERR, PASTE_ANGLE_BAR = 121.13259961448202, 1.0
 #: minutes to read for all 200.
 PASTE_PROFILED_ITERS = 20
 #: `paste_center_align`'s FGW outer iterations a solve: **cut from its default
-#: 200 to 50** (the script's time limit: its 12 solves, launch-bound, took
-#: ~70 s at 200 on one H100).
-CENTER_FGW_ITERS = 50
+#: 200 to 50, then to 20** (the script's time limit: its 12 solves,
+#: launch-bound, took ~70 s at 200 and 15 s at 50 on one H100).
+CENTER_FGW_ITERS = 20
 
 
 def svg_gene_names(n_genes=SVG_GENES, n_planted=SVG_PLANTED):
@@ -2360,6 +2380,11 @@ def scan_inputs(small):
     return np.asarray(b.obsp["distance"], np.float32), A.astype(np.float32)
 
 
+#: The scan's inputs from phase 18 (the cost matrix "M" and histograms
+#: "A"), which phase 36 reuses.
+SCAN_INPUTS = {}
+
+
 def svg_recall(w0, n_planted=SVG_PLANTED):
     """Share of the planted genes among the top `n_planted` by z-score."""
     top = w0["zscore"].nlargest(n_planted).index
@@ -2431,7 +2456,7 @@ def phase_svg_paste():
     recall = svg_recall(w0)
     check(len(w0) == SVG_GENES and bool(np.isfinite(w0["zscore"]).all()), f"scan table {w0.shape}")
     check(recall >= SVG_RECALL_BAR, f"planted recall {recall} < {SVG_RECALL_BAR}")
-    M, A = scan_inputs(small)
+    M, A = SCAN_INPUTS["M"], SCAN_INPUTS["A"] = scan_inputs(small)
     reads = tsu._sinkhorn_batch_run.host_reads
     _, wall, busy, launches, ops = device_profile(lambda: tsu.cal_wass_dis_batch(M, A, device="cuda"))
     blocks = tsu._sinkhorn_batch_run.host_reads - reads
@@ -2461,7 +2486,7 @@ def phase_svg_paste():
           f"{z_null!r}")
 
     # (d) the between-slice GW scan
-    gw_genes = genes[:10] + genes[-10:]
+    gw_genes = genes[:5] + genes[-5:]  # 5 planted, 5 null (cut from 10 + 10 for time)
     pseudo = between_slice_scan(small, gw_genes)
 
     # (e, f) PASTE through 2,000-cell references, cell directions, the center
@@ -2669,7 +2694,7 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
     # genes run all their outer iterations, to OBJ_BAR.
     (b1, C1), (b2, C2) = (bin_scale_adata_get_distance(x, **SVG_KW) for x in pseudo)
     C1, C2 = C1.astype(np.float32), C2.astype(np.float32)
-    dnb_genes = gw_genes[:2] + gw_genes[-2:]  # 4 of 18d's 20 (the time limit: ~100 CPU solves saved)
+    dnb_genes = gw_genes[:2] + gw_genes[-2:]  # 4 of 18d's 10 (the time limit: ~40 CPU solves saved)
     dnb = {key: gw_scan((c1, c2, b1, b2), dnb_genes, dev, outer=1) for key, dev, c1, c2 in (
         ("card", "cuda", C1, C2), ("cpu", "cpu", C1, C2), ("C1 up", "cpu", np.nextafter(C1, np.float32(np.inf)), C2),
         ("C2 down", "cpu", C1, np.nextafter(C2, np.float32(0))))}
@@ -3178,9 +3203,9 @@ def phase_tdr_cuda_vs_cpu(stt):
 #: `planted_disks`, the stain moved by REFINE_SHIFT pixels (y, x) and
 #: REFINE_ROT_DEG degrees; the Frobenius center NMF of a NMF_CELLS-cell
 #: section of `SVG_GENES` genes, NMF_COMPONENTS components (paste_center_align's).
-#: `permutation_test`'s permutations: **cut from its default 100 to 40** (the
-#: script's time limit; ~0.3 s a refit).
-INTERP_PERMUTATIONS = 40
+#: `permutation_test`'s permutations: **cut from its default 100 to 40, then
+#: to 20** (the script's time limit; ~0.3 s a refit).
+INTERP_PERMUTATIONS = 20
 REFINE_SIZE, REFINE_EPOCHS, REFINE_SHIFT, REFINE_ROT_DEG = 4096, 100, (3.0, -2.0), 0.3
 #: `refine_alignment` trains with the JAX package's Adam lr of 0.1; the
 #: planted check trains the refiners through their own API at this lr.
@@ -3576,6 +3601,48 @@ def phase_starro_main(stt, bp_cuda, em, ts, make_raster):
         f"{delta_launches}"
     )
     return launches, delta_launches, mask
+
+
+def upload_codec_ab(ts, make_raster, reps=5):
+    """Phase 3's upload A/B: the codec (`upload_tile`: `encode_tile` on the
+    host, the streams copied from pinned memory, decoded on the card)
+    against the pinned int16 copy (densified first where the tile is
+    sparse), on the stream's four 2048² rasters and a sparse 2048² tile (2%
+    of its pixels, counts 1-39): each raster equal bit for bit, the
+    stream's own upload (`_upload`) too, and each route's ms a 2048² tile
+    (host clock, the card synchronised; best and median of `reps` after a
+    warm-up)."""
+    import scipy.sparse as sp
+
+    from spateo_tpu_torch.core.bridge import to_device
+
+    rng = np.random.default_rng(5)
+    sparse_tile = sp.random(TILE, TILE, density=0.02, random_state=5, format="csr", dtype=np.float32,
+                            data_rvs=lambda n: rng.integers(1, 40, n).astype(np.float32))
+    tiles = [make_raster(TILE, TILE, seed=s) for s in range(4)] + [sparse_tile]
+    kinds, nbytes = [], []
+    for X in tiles:
+        enc = ts.encode_tile(X)
+        kinds.append(enc[0])
+        nbytes.append(sum(np.asarray(a).nbytes for a in enc[1:-1]))
+        a, b = ts.upload_tile(X, device="cuda"), to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16),
+                                                           "cuda")
+        check(a.shape == b.shape and (a.dtype == torch.int16 or enc[0] == "dense") and torch.equal(a.to(b.dtype), b),
+              f"upload_tile ({enc[0]}) differs from the pinned copy")
+        check(torch.equal(ts._upload(X, "cuda"), b), "the stream's upload differs from the pinned copy")
+    times = {}
+    pinned = lambda X: to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16), "cuda")
+    for route, fn in (("codec", lambda X: ts.upload_tile(X, device="cuda")), ("pinned", pinned)):
+        for X in (tiles[0], tiles[-1]):
+            host_ms(lambda: fn(X))  # warm-up
+            ms = sorted(host_ms(lambda: fn(X))[0] for _ in range(reps))
+            times[route, "dense" if X is tiles[0] else "sparse"] = (ms[0], ms[len(ms) // 2])
+    faster = {t: min(("codec", "pinned"), key=lambda r: times[r, t][0]) for t in ("dense", "sparse")}
+    print(f"phase 3: upload codec, encodings {kinds} ({[n / TILE**2 for n in nbytes]} bytes a pixel against 2 for "
+          f"int16), each raster equal to the pinned copy bit for bit; ms a 2048² tile (best, median of {reps}): "
+          + ", ".join(f"{r} {t} {v!r}" for (r, t), v in times.items())
+          + f"; the faster route: {faster} (the stream sends a sparse COO tile through the codec, the rest through "
+            f"the pinned copy)")
 
 
 def phase_starro_cuda_vs_cpu_512(em, ts, make_raster):
@@ -5022,12 +5089,12 @@ print(json.dumps({"seconds": time.perf_counter() - t0, "threads": torch.get_num_
 """
 
 
-def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
+def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS, full=True):
     """Phase 33's comparisons of `card` against the CPU: {check: (value,
-    bar)}. The CPU's full t-SNE runs in a process of its own
-    (`TSNE_CPU_CHILD`), started as soon as the section is made, beside the
-    other checks and the card's full run: the two full runs are the phase's
-    largest items, and the card's is bound by one host thread's dispatch."""
+    bar)}. With `full`, also the full runs' 15-NN preservation: the CPU's
+    full t-SNE runs in a process of its own (`TSNE_CPU_CHILD`), started as
+    soon as the section is made, beside the other checks and the card's full
+    run (the card's is bound by one host thread's dispatch)."""
     import shutil
     import tempfile
 
@@ -5040,9 +5107,11 @@ def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
     tmp = tempfile.mkdtemp()
     child = None
     try:
-        np.save(os.path.join(tmp, "X.npy"), X)
-        child = subprocess.Popen([sys.executable, "-c", TSNE_CPU_CHILD, tmp], stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        if full:
+            np.save(os.path.join(tmp, "X.npy"), X)
+            child = subprocess.Popen([sys.executable, "-c", TSNE_CPU_CHILD, tmp], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
         devs = (card, "cpu")
         P = {d: T.joint_probabilities_nn(*T.knn_sqdistances(X, 91, device=d), 30.0) for d in devs}
         check(torch.equal(P[card].rows.cpu(), P["cpu"].rows) and torch.equal(P[card].cols.cpu(), P["cpu"].cols),
@@ -5060,24 +5129,26 @@ def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
                                        Y0.to(d), 0, 10, n_iter_check=T.N_ITER_CHECK, momentum=0.5,
                                        learning_rate=max(n / 48, 50))[0].cpu().numpy()
         out["10 iterations"] = (rel_err(it[card], it["cpu"]), TSNE_CVC_BAR["10 iterations"])
-        emb, seconds = {}, {}
-        t0 = time.perf_counter()
-        emb[card] = T.TSNE(device=card).fit_transform(X)
-        seconds[card] = time.perf_counter() - t0
-        child_out, child_err = child.communicate(timeout=600)
-        check(child.returncode == 0, f"the CPU's t-SNE process failed: {child_err[-2000:]}")
-        cpu_run = json.loads(child_out.strip().splitlines()[-1])
-        seconds["cpu"], emb["cpu"] = cpu_run["seconds"], np.load(os.path.join(tmp, "Y.npy"))
+        if full:
+            emb, seconds = {}, {}
+            t0 = time.perf_counter()
+            emb[card] = T.TSNE(device=card).fit_transform(X)
+            seconds[card] = time.perf_counter() - t0
+            child_out, child_err = child.communicate(timeout=600)
+            check(child.returncode == 0, f"the CPU's t-SNE process failed: {child_err[-2000:]}")
+            cpu_run = json.loads(child_out.strip().splitlines()[-1])
+            seconds["cpu"], emb["cpu"] = cpu_run["seconds"], np.load(os.path.join(tmp, "Y.npy"))
     finally:
         if child is not None and child.poll() is None:
             child.kill()
             child.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    pres = {d: knn_preservation(X, emb[d], 15, device=card) for d in devs}
-    out["preservation"] = (abs(pres[card] - pres["cpu"]), TSNE_CVC_BAR["preservation"])
-    print(f"phase 33: the full t-SNE runs at {n:,} cells, side by side: card {seconds[card]!r} s (15-NN "
-          f"preservation {pres[card]!r}), CPU {seconds['cpu']!r} s in a process of its own ({pres['cpu']!r}, "
-          f"{cpu_run['threads']} threads)")
+    if full:
+        pres = {d: knn_preservation(X, emb[d], 15, device=card) for d in devs}
+        out["preservation"] = (abs(pres[card] - pres["cpu"]), TSNE_CVC_BAR["preservation"])
+        print(f"phase 33: the full t-SNE runs at {n:,} cells, side by side: card {seconds[card]!r} s (15-NN "
+              f"preservation {pres[card]!r}), CPU {seconds['cpu']!r} s in a process of its own ({pres['cpu']!r}, "
+              f"{cpu_run['threads']} threads)")
     mesh = e95_stack(n_sections=2, n_cells=10)[0]
     q = np.random.default_rng(2).uniform(-1.2, 1.2, (PIM_CVC_POINTS, 3)) * np.asarray(E95_AXES)
     m = {d: wo.points_inside_mesh(q, mesh, device=d) for d in devs}
@@ -5086,9 +5157,10 @@ def tsne_widgets_cuda_vs_cpu(stt, card="cuda", n=TSNE_CVC_CELLS):
 
 
 def phase_tsne_widgets_cuda_vs_cpu(stt):
-    """Phase 33: t-SNE's steps and `points_inside_mesh`, card against CPU."""
+    """Phase 33: t-SNE's steps and `points_inside_mesh`, card against CPU
+    (the full runs' comparison is cut for time: `full=False`)."""
     t_phase = time.perf_counter()
-    out = tsne_widgets_cuda_vs_cpu(stt)
+    out = tsne_widgets_cuda_vs_cpu(stt, full=False)
     print(f"phase 33: card vs CPU at {TSNE_CVC_CELLS:,} cells: " + "; ".join(
         f"{k} {v!r} (bar {b})" for k, (v, b) in out.items()) + f"; phase 33 {time.perf_counter() - t_phase!r} s")
     for k, (v, bar) in out.items():
@@ -5103,16 +5175,47 @@ SHARD_RANKS, SHARD_TIMEOUT = 4, 600
 #: The stages' bars against the unsharded port (phase 36a) and against 36a
 #: (phase 36b): Starro scores, Morpho coordinates, SparseVFC's field after 5
 #: iterations, the Jacobi field (the tests' bars); the converged field's
-#: cosine to the rotation's.
+#: cosine to the rotation's. The other sharded paths: the IRLS betas (of their
+#: scale) and hats, merfishVI's losses (of their scale), sparse Morpho's
+#: coordinates, and 36b's scan against one unchunked batch of all the genes
+#: on one rank (of its scale; 36a's scan is `cal_wass_dis_batch` itself).
 SHARD_BARS = {"starro scores": 1e-5, "starro mask pixels": 0, "morpho": 1e-4, "vfc5": 5e-3, "jacobi": 1e-5,
-              "vfc cosine": 0.99}
+              "vfc cosine": 0.99, "iwls betas": 1e-5, "iwls hats": 1e-6, "merfishvi losses": 2e-4,
+              "morpho sparse": 1e-4, "scan": 1e-5}
+#: Sparse Morpho's iterations in phase 36 (the dense stage's 200, cut for
+#: time: each iteration's column top-1,024 stacks 32 MB through gloo on four
+#: ranks; the non-rigid step starts after iteration 80).
+SHARD_SPARSE_ITERS = 100
 
 
-def shard_inputs(small=False):
+def shard_counters():
+    """{name in the kernels line: wrapper}, for phase 36's launch counts."""
+    from spateo_tpu_torch.ops import bp_cuda, estep_cuda, inlier_cuda, jacobi_cuda
+
+    return {"bp_step": bp_cuda.bp_step, "estep_colnorm": estep_cuda.colnorm, "estep_rowred": estep_cuda.rowred,
+            "inlier_fit": inlier_cuda.inlier_fit, "jacobi_block": jacobi_cuda.jacobi_block}
+
+
+def scan_npz(path):
+    """Phase 18's scan inputs (`scan_inputs` of the 400-cell sample of
+    `cortex_section(seed=0)`), written to `path` for phase 36's ranks: the
+    ones phase 18 made when it ran, else made here on the card."""
+    if "M" not in SCAN_INPUTS:
+        import spateo_tpu_torch as stt
+
+        small, _ = stt.svg.smoothing_and_sampling(cortex_section(seed=0), downsampling=SVG_DOWNSAMPLE,
+                                                  device="cuda")
+        SCAN_INPUTS["M"], SCAN_INPUTS["A"] = scan_inputs(small)
+    np.savez(path, M=SCAN_INPUTS["M"], A=SCAN_INPUTS["A"])
+
+
+def shard_inputs(small=False, scan_file=None):
     """Phase 36's inputs: a `bench.make_raster` tile (2048² or 256²), a
     `bench._make_slice_pair` pair (20,000 cells or 2,000), `vfc_fields`'
     rotation (100,000 points or 2,000) and phase 9's atlas stripes (2048² or
-    256²)."""
+    256²); phase 14a's first target (8,192 cells or 512, K 12), phase 18's
+    scan inputs from `scan_file` (or 64 genes over 48 random points) and
+    phase 28c's merfishVI section (50,000 x 500 or 1,000 x 50)."""
     import bench
 
     side, cells, points = (256, 2_000, 2_000) if small else (TILE, 20_000, 100_000)
@@ -5123,29 +5226,49 @@ def shard_inputs(small=False):
     border = np.zeros((side, side), bool)
     field[:, :4], field[:, -4:] = 1.0, 100.0
     border[:, :4] = border[:, -4:] = True
-    return dict(X=X, pair=pair, X_vfc=Xv[0], V_vfc=Vv[0], jacobi=(field, border, np.ones((side, side), np.float32)))
+    coords, Xm, _, ys = music_bench_data(N=512 if small else MUSIC_N, n_targets=1)
+    if small:
+        rng = np.random.default_rng(0)
+        pts = rng.uniform(0, 1, (48, 2))
+        scan = (np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1)).astype(np.float32),
+                rng.dirichlet(np.ones(48), 64).astype(np.float32))
+    else:
+        with np.load(scan_file) as f:
+            scan = (f["M"], f["A"])
+    vi = cortex_section(1_000, 50) if small else cortex_section(VI_CELLS, VI_GENES)
+    return dict(X=X, pair=pair, X_vfc=Xv[0], V_vfc=Vv[0], jacobi=(field, border, np.ones((side, side), np.float32)),
+                music=(coords, Xm, ys[0]), scan=scan, vi=vi)
 
 
-def shard_stages(stt, inp, mesh, iters=200, jacobi_itr=20_000, bp_iters=50):
-    """The four stages of the main path through their sharded entry points on
-    `mesh`, each timed (host clock, the card synchronised) with the seconds
-    and calls of its collectives (`parallel._collectives.STATS`). Returns
-    ({result: array}, {stage: seconds}, {stage: collective seconds},
-    {stage: collective calls})."""
+def shard_stages(stt, inp, mesh, iters=200, jacobi_itr=20_000, bp_iters=50, vi_epochs=300,
+                 sparse_iters=SHARD_SPARSE_ITERS):
+    """The four stages of the main path and the other sharded paths' four (`iwls_batch_sharded`,
+    `cal_wass_dis_batch_sharded`, `MERFISHVI.train(mesh=)`, Morpho's sparse
+    calculation mode) through their sharded entry points on `mesh`, each
+    timed (host clock, the card synchronised) with the seconds and calls of
+    its collectives (`parallel._collectives.STATS`) and the kernels it
+    launched. Returns ({result: array}, {stage: seconds}, {stage: collective
+    seconds}, {stage: collective calls}, {stage: {kernel: launches}})."""
     import bench
+    import spateo_tpu_torch.external as ext
     from spateo_tpu_torch.ops.stencil import jacobi_solve_sharded
     from spateo_tpu_torch.ops.vfc import SparseVFC
     from spateo_tpu_torch.parallel import _collectives as C
     from spateo_tpu_torch.segmentation.starro import starro_em_bp_sharded
+    from spateo_tpu_torch.svg.utils import cal_wass_dis_batch_sharded
+    from spateo_tpu_torch.tools.CCI_effects_modeling.regression_utils import iwls_batch_sharded
 
-    out, secs, coll, calls = {}, {}, {}, {}
+    out, secs, coll, calls, kernels = {}, {}, {}, {}, {}
+    counters = shard_counters()
 
     def stage(name, fn):
         torch.cuda.synchronize()
         c0, n0, t0 = C.STATS["seconds"], C.STATS["calls"], time.perf_counter()
+        k0 = {k: f.launches for k, f in counters.items()}
         r = fn()
         torch.cuda.synchronize()
         secs[name], coll[name], calls[name] = time.perf_counter() - t0, C.STATS["seconds"] - c0, C.STATS["calls"] - n0
+        kernels[name] = {k: f.launches - k0[k] for k, f in counters.items() if f.launches > k0[k]}
         return r
 
     out["starro scores"], out["starro mask"] = stage(
@@ -5161,15 +5284,31 @@ def shard_stages(stt, inp, mesh, iters=200, jacobi_itr=20_000, bp_iters=50):
     f, it, err = stage("jacobi", lambda: jacobi_solve_sharded(*inp["jacobi"], max_err=1e-6, max_itr=jacobi_itr,
                                                                check_every=2000, mesh=mesh))
     out["jacobi"], out["jacobi iterations"] = f, np.asarray(it)
-    return out, secs, coll, calls
+    coords, Xm, ym = inp["music"]
+    W = music_weights(torch.from_numpy(coords).cuda())
+    out["iwls betas"], out["iwls hats"] = stage("iwls", lambda: iwls_batch_sharded(
+        ym, Xm, W, mesh=mesh, distr="poisson", n_irls_iter=MUSIC_ITERS))
+    del W
+    out["scan"] = stage("scan", lambda: cal_wass_dis_batch_sharded(*inp["scan"], mesh=mesh))
+    out["merfishvi losses"] = stage("merfishvi", lambda: ext.MERFISHVI(inp["vi"], device="cuda").train(
+        max_epochs=vi_epochs, mesh=mesh))
+    models, _ = stage("morpho sparse", lambda: stt.align.morpho_align(
+        [bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)], spatial_key="spatial", key_added="align",
+        max_iter=sparse_iters, verbose=False, mesh=mesh, sparse_calculation_mode=True))
+    out["morpho sparse rigid"], out["morpho sparse nonrigid"] = models[1].obsm["align"], models[1].obsm["align_nonrigid"]
+    return out, secs, coll, calls, kernels
 
 
 def shard_unsharded(stt, inp):
     """Phase 36a's yardstick: the unsharded port on the card with the
     settings the sharded path fixes (BP's messages in f32, its delta every
-    iteration; the same draws)."""
+    iteration; the same draws); and 36b's for the scan, one unchunked batch
+    of all its genes."""
     import bench
+    import spateo_tpu_torch.external as ext
     from spateo_tpu_torch.ops.stencil import jacobi_solve
+    from spateo_tpu_torch.svg.utils import _sinkhorn_batch_run
+    from spateo_tpu_torch.tools.CCI_effects_modeling.regression_utils import iwls_batch
     from spateo_tpu_torch.ops.vfc import SparseVFC
     from spateo_tpu_torch.segmentation import starro as ts
 
@@ -5181,28 +5320,52 @@ def shard_unsharded(stt, inp):
     models, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)],
                                        spatial_key="spatial", key_added="align", max_iter=200, verbose=False)
     f, it, _ = jacobi_solve(*inp["jacobi"], max_err=1e-6, max_itr=20_000, check_every=2000)
-    return {"starro scores": scores.cpu().numpy(), "starro mask": mask.cpu().numpy(),
-            "morpho rigid": models[1].obsm["align"], "morpho nonrigid": models[1].obsm["align_nonrigid"],
-            "vfc5": SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, MaxIter=5)["V"], "jacobi": f,
-            "jacobi iterations": np.asarray(it)}
+    ref = {"starro scores": scores.cpu().numpy(), "starro mask": mask.cpu().numpy(),
+           "morpho rigid": models[1].obsm["align"], "morpho nonrigid": models[1].obsm["align_nonrigid"],
+           "vfc5": SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, MaxIter=5)["V"], "jacobi": f,
+           "jacobi iterations": np.asarray(it)}
+    coords, Xm, ym = inp["music"]
+    ref["iwls betas"], ref["iwls hats"] = iwls_batch(ym, Xm, music_weights(torch.from_numpy(coords).cuda()),
+                                                     distr="poisson", n_irls_iter=MUSIC_ITERS)
+    M, A = inp["scan"]
+    res, _ = _sinkhorn_batch_run(torch.from_numpy(A).cuda(), torch.full((M.shape[0],), 1.0 / M.shape[0]).cuda(),
+                                 torch.from_numpy(M).cuda(), float(max(M.max() * 5e-3, 1e-6)))
+    ref["scan unchunked"] = res.cpu().numpy()
+    ref["merfishvi losses"] = ext.MERFISHVI(inp["vi"], device="cuda").train(max_epochs=300)
+    models, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)],
+                                       spatial_key="spatial", key_added="align", max_iter=SHARD_SPARSE_ITERS,
+                                       verbose=False, sparse_calculation_mode=True)
+    ref["morpho sparse rigid"], ref["morpho sparse nonrigid"] = models[1].obsm["align"], models[1].obsm["align_nonrigid"]
+    return ref
 
 
-def shard_errors(out, ref, inp):
+def shard_errors(out, ref, inp, world):
     """Each stage's distance from `ref` and the converged field's cosine to
-    the rotation, as {bar name: value}."""
+    the rotation, as {bar name: value}; and, not held to a bar, the scan's
+    distance from the chunked scan (36a: its own against the unchunked
+    batch; 36b: against 36a's)."""
     X = inp["X_vfc"]
     truth = np.cross(np.broadcast_to([0.0, 0.0, 1.0], X.shape), X)
     V = out["vfc"]
     cos = np.sum(V * truth, 1) / (np.linalg.norm(V, axis=1) * np.linalg.norm(truth, axis=1) + 1e-12)
-    err = lambda k: float(np.abs(np.asarray(out[k], np.float64) - np.asarray(ref[k], np.float64)).max())
-    return {
+    err = lambda k, r=None: float(np.abs(np.asarray(out[k], np.float64) - np.asarray(ref[r or k], np.float64)).max())
+    scaled = lambda k, r=None: err(k, r) / max(float(np.abs(np.asarray(ref[r or k], np.float64)).max()), 1e-30)
+    errs = {
         "starro scores": err("starro scores"),
         "starro mask pixels": int((out["starro mask"] != ref["starro mask"]).sum()),
         "morpho": max(err("morpho rigid"), err("morpho nonrigid")),
         "vfc5": err("vfc5"),
         "jacobi": err("jacobi") if int(out["jacobi iterations"]) == int(ref["jacobi iterations"]) else float("inf"),
         "vfc cosine": float(cos.mean()),
+        "iwls betas": scaled("iwls betas"),
+        "iwls hats": err("iwls hats"),
+        "merfishvi losses": scaled("merfishvi losses"),
+        "morpho sparse": max(err("morpho sparse rigid"), err("morpho sparse nonrigid")),
     }
+    if world > 1:
+        errs["scan"] = scaled("scan", "scan unchunked")
+        return errs, {"scan vs 36a's chunked scan": scaled("scan")}
+    return errs, {"chunked scan vs one unchunked batch": scaled("scan", "scan unchunked")}
 
 
 def phase36_rank(rank, world, backend, store, out_dir):
@@ -5217,7 +5380,6 @@ def phase36_rank(rank, world, backend, store, out_dir):
     import torch.distributed as dist
 
     import spateo_tpu_torch as stt
-    from spateo_tpu_torch.ops import bp_cuda, estep_cuda, inlier_cuda, jacobi_cuda
     from spateo_tpu_torch.parallel import _collectives as C
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5234,29 +5396,29 @@ def phase36_rank(rank, world, backend, store, out_dir):
         mesh = stt.parallel.create_mesh(device="cuda")
     check(dist.get_backend() == backend and dist.get_world_size() == world,
           f"rank {rank}: backend {dist.get_backend()} of {dist.get_world_size()} ranks")
-    shard_stages(stt, shard_inputs(small=True), mesh, iters=5, jacobi_itr=0, bp_iters=5)  # warm-up: first-call costs
-    inp = shard_inputs()
-    counters = ((bp_cuda.bp_step, "bp_step"), (estep_cuda.colnorm, "estep_colnorm"),
-                (estep_cuda.rowred, "estep_rowred"), (inlier_cuda.inlier_fit, "inlier_fit"),
-                (jacobi_cuda.jacobi_block, "jacobi_block"))
-    for fn, _ in counters:
+    # warm-up: first-call costs
+    shard_stages(stt, shard_inputs(small=True), mesh, iters=5, jacobi_itr=0, bp_iters=5, vi_epochs=3, sparse_iters=5)
+    inp = shard_inputs(scan_file=os.path.join(out_dir, "scan.npz"))
+    counters = shard_counters()
+    for fn in counters.values():
         fn.launches = 0
     C.reset_stats(timed=True)
-    out, secs, coll, calls = shard_stages(stt, inp, mesh)
-    launches = {name: fn.launches for fn, name in counters}
+    out, secs, coll, calls, by_stage = shard_stages(stt, inp, mesh)
+    launches = {name: fn.launches for name, fn in counters.items()}
     C.reset_stats()
     if world == 1:
         ref = shard_unsharded(stt, inp)
-        np.savez(os.path.join(out_dir, "a.tmp.npz"), **out)
+        np.savez(os.path.join(out_dir, "a.tmp.npz"), **out, **{"scan unchunked": ref["scan unchunked"]})
         os.replace(os.path.join(out_dir, "a.tmp.npz"), a_file)
     else:
         with np.load(a_file) as f:
             ref = dict(f)
-    errs = shard_errors(out, ref, inp)
+    errs, info = shard_errors(out, ref, inp, world)
     digest = hashlib.sha256(b"".join(np.ascontiguousarray(out[k]).tobytes() for k in sorted(out))).hexdigest()
     print(json.dumps(dict(rank=rank, world=world, backend=backend, seconds=secs, collective_seconds=coll,
-                          collective_calls=calls, launches=launches, errors=errs, digest=digest,
-                          vfc_iterations=int(out["vfc iterations"]), jacobi_iterations=int(out["jacobi iterations"]),
+                          collective_calls=calls, launches=launches, launches_by_stage=by_stage, errors=errs,
+                          unbarred=info, digest=digest, vfc_iterations=int(out["vfc iterations"]),
+                          jacobi_iterations=int(out["jacobi iterations"]),
                           rank_seconds=time.perf_counter() - t_start)), flush=True)
     dist.destroy_process_group()
 
@@ -5303,15 +5465,17 @@ def wait_shard_group(procs, logs, what):
 def phase_sharded():
     """Phase 36: the sharded main path (Starro on a 2048² tile, Morpho on a
     20,000-cell pair for 200 iterations, SparseVFC on 100,000 points at M
-    100, Jacobi on 2048² stripes), (a) on one NCCL rank in a fresh process,
-    held against the unsharded port on the card, and (b) on four gloo ranks
-    sharing the card, held against (a), every rank with the same bits and
-    each kernel launched on every rank. Returns the launches of (a) and of
+    100, Jacobi on 2048² stripes) and the other sharded paths (`shard_stages`), (a)
+    on one NCCL rank in a fresh process, held against the unsharded port on
+    the card, and (b) on four gloo ranks sharing the card, held against (a),
+    every rank with the same bits and each kernel launched on every rank
+    (`inlier_fit` in sparse Morpho too). Returns the launches of (a) and of
     (b) summed over its ranks, by kernel."""
     import tempfile
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
+        scan_npz(os.path.join(tmp, "scan.npz"))
         group_b = start_shard_group(SHARD_RANKS, "gloo", tmp)  # imports beside 36a, then waits for its results
         try:
             (a,) = wait_shard_group(*start_shard_group(1, "nccl", tmp), "36a")
@@ -5324,12 +5488,16 @@ def phase_sharded():
             ok = v >= SHARD_BARS[k] if k == "vfc cosine" else v <= SHARD_BARS[k]
             check(ok, f"{what}: {k} {v} (bar {SHARD_BARS[k]})")
         check(all(v > 0 for v in r["launches"].values()), f"{what}: a kernel was not launched: {r['launches']}")
+        check(r["launches_by_stage"]["morpho sparse"].get("inlier_fit", 0) > 0,
+              f"{what}: inlier_fit was not launched in sparse Morpho's coarse init")
         print(f"{what} ({r['backend']}, {r['world']} rank(s)): stage seconds "
               + ", ".join(f"{k} {v!r}" for k, v in r["seconds"].items())
               + "; in collectives " + ", ".join(f"{k} {v!r} ({r['collective_calls'][k]} calls)"
                                                 for k, v in r["collective_seconds"].items())
-              + f"; launches {r['launches']}; against {'the unsharded port' if r['world'] == 1 else '36a'} "
+              + f"; launches {r['launches']}, by stage {r['launches_by_stage']}; against "
+              + f"{'the unsharded port' if r['world'] == 1 else '36a'} "
               + ", ".join(f"{k} {v!r}" for k, v in r["errors"].items())
+              + "; not barred: " + ", ".join(f"{k} {v!r}" for k, v in r["unbarred"].items())
               + f"; SparseVFC {r['vfc_iterations']} iterations, Jacobi {r['jacobi_iterations']}; the rank's "
                 f"process {r['rank_seconds']!r} s")
     check(len({r["digest"] for r in b}) == 1, "phase 36b: the ranks' results differ in their bits")
@@ -5579,6 +5747,7 @@ def main(argv=None):
     launches = delta_launches = 0
     if want(3):
         launches, delta_launches, mask = phase_starro_main(stt, bp_cuda, em, ts, make_raster)
+        upload_codec_ab(ts, make_raster)
     mark("3")
     if want(4):
         phase_starro_cuda_vs_cpu_512(em, ts, make_raster)

@@ -437,11 +437,10 @@ def estep_reduced(
     one rank's rows of the moving slice: the per-column sums over the rows
     are added over the ranks before the normalisers use them, and K_NB, Sp,
     sigma2_related and M1 after; the per-row outputs are this rank's. The
-    sparse top-k needs whole columns and is not sharded."""
+    sparse top-k's threshold is the k-th largest value of each column over
+    every rank's rows (`_column_kth`)."""
     NA, D = XAHat.shape
     B = coordsB_batch.shape[0]
-    if shard is not None and sparse_top_k:
-        raise NotImplementedError("estep_reduced: the sparse calculation mode's column top-k is not sharded")
 
     if (
         use_kernel
@@ -461,8 +460,9 @@ def estep_reduced(
             probability_parameters[0], eps=eps, shard=shard,
         )
 
-    k_sparse = min(int(sparse_top_k), NA) if sparse_top_k and sparse_top_k > 0 else 0
-    outlier_s = samples_s * (NA if shard is None else shard.n)
+    NA_total = NA if shard is None else shard.n
+    k_sparse = min(int(sparse_top_k), NA_total) if sparse_top_k and sparse_top_k > 0 else 0
+    outlier_s = samples_s * NA_total
     colsum = (lambda *c: shard.sum(torch.stack(c))[0]) if shard is not None else (lambda *c: torch.stack(c))
     spatial_outlier = torch.pow(2 * math.pi * sigma2, Dim / 2) * (1 - gamma) / (gamma * outlier_s)
 
@@ -485,9 +485,8 @@ def estep_reduced(
         P1 = prob_v_m / (spatial_outlier + c1m)[None, :]
         P2 = spatial_inlier[None, :] * prob_s_m / (c2 + eps)[None, :]
         P3 = spatial_inlier[None, :] * full_m / (c3 + eps)[None, :]
-        if k_sparse and k_sparse < NA:
-            kth = torch.topk(full_m, k_sparse, dim=0).values[-1]  # [B]: the k-th largest per column
-            P3 = torch.where(full_m >= kth[None, :], P3, 0.0)
+        if k_sparse and k_sparse < NA_total:
+            P3 = torch.where(full_m >= _column_kth(full_m, k_sparse, shard)[None, :], P3, 0.0)
         PXB = P3 @ coordsB_batch
         out = dict(
             K_NA=P3.sum(1),
@@ -545,9 +544,8 @@ def estep_reduced(
         P1 = prob_v_m / (spatial_outlier + c1m)[None, :]
         P2 = spatial_inlier[None, :] * prob_s_m / (c2 + eps)[None, :]
         P3 = spatial_inlier[None, :] * full_m / (c3 + eps)[None, :]
-        if k_sparse and k_sparse < NA:
-            kth = torch.topk(full_m, k_sparse, dim=0).values[-1]
-            P3 = torch.where(full_m >= kth[None, :], P3, 0.0)
+        if k_sparse and k_sparse < NA_total:
+            P3 = torch.where(full_m >= _column_kth(full_m, k_sparse, shard)[None, :], P3, 0.0)
         K_NA = K_NA + P3.sum(1)
         K_NA_sp = K_NA_sp + P1.sum(1)
         K_NA_s2 = K_NA_s2 + P2.sum(1)
@@ -567,6 +565,23 @@ def estep_reduced(
         PXB=PXB,
         M1=M1,
     ), shard)
+
+
+def _column_kth(full_m: torch.Tensor, k: int, shard) -> torch.Tensor:
+    """[B]: the k-th largest value of each column of `full_m` over all its
+    rows, and with `shard` over every rank's rows: each rank's top
+    min(k, rows) values of a column (padded with -inf) meet the other ranks'
+    in one [world, B, k] stack, and a second top-k over those world * k
+    candidates picks the same value on every rank."""
+    if shard is None:
+        return torch.topk(full_m, k, dim=0).values[-1]
+    rows, B = full_m.shape
+    local = torch.full((B, k), float("-inf"), dtype=full_m.dtype, device=full_m.device)
+    kl = min(k, rows)
+    if kl:
+        local[:, :kl] = torch.topk(full_m, kl, dim=0).values.T
+    cand = shard.stack(local).permute(1, 0, 2).reshape(B, -1)  # [B, world * k]
+    return torch.topk(cand, k, dim=1).values[:, -1]
 
 
 def _sum_columns(out: dict, shard) -> dict:

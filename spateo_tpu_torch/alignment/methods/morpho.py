@@ -523,7 +523,8 @@ class Morpho_pairwise:
     kernels, while the coarse rigid init, the kernel and the small solves
     run replicated on every rank. Every rank ends with the same whole
     result. The mesh sets the device: a `device` of another type raises.
-    The sparse calculation mode is not sharded."""
+    In the sparse calculation mode each column's top-k threshold is taken
+    over every rank's rows (`methods.math._column_kth`)."""
 
     def __init__(
         self,
@@ -590,8 +591,6 @@ class Morpho_pairwise:
             from ...parallel._collectives import check_device, mesh_device
 
             check_device(mesh, device)
-            if sparse_calculation_mode:
-                raise NotImplementedError("Morpho_pairwise: the sparse calculation mode is not sharded over a mesh")
             device = mesh_device(mesh)
         self.device = torch.device(device)
         self.sparse_calculation_mode = bool(sparse_calculation_mode)

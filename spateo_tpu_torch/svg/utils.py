@@ -172,8 +172,11 @@ def scale_to(adata: AnnData, to_median: bool = True, N: int = 10000) -> AnnData:
 # ---------------------------------------------------------------------------
 # OT distances
 # ---------------------------------------------------------------------------
-def _sinkhorn_batch_run(A: torch.Tensor, b: torch.Tensor, M: torch.Tensor, eps: float, n_iter: int = 200):
-    """`_sinkhorn_batch_kernel`'s loop: the distances and the sweeps run."""
+def _sinkhorn_batch_run(A: torch.Tensor, b: torch.Tensor, M: torch.Tensor, eps: float, n_iter: int = 200,
+                        reduce_err=None):
+    """`_sinkhorn_batch_kernel`'s loop: the distances and the sweeps run.
+    `reduce_err` maps the block's ``max|g_new - g|`` over A's rows to the
+    stop test's (the max over every rank's rows when A is one rank's)."""
     logA = torch.log(A + 1e-300)
     logb = torch.log(b + 1e-300)
     Mk = -M / eps  # [N, N]
@@ -193,6 +196,8 @@ def _sinkhorn_batch_run(A: torch.Tensor, b: torch.Tensor, M: torch.Tensor, eps: 
             f_new, g_new = sweep(f_new, g_new)
         # one max over the whole padded chunk; NaN propagates, as jnp.max
         err = torch.amax(torch.abs(g_new - g))
+        if reduce_err is not None:
+            err = reduce_err(err)
         f, g = f_new, g_new
         it += 10
     T = torch.exp(Mk[None] + f[:, :, None] / eps + g[:, None, :] / eps)
@@ -220,6 +225,19 @@ def scan_chunk(N: int, G: int, chunk: Optional[int] = None) -> int:
     return ((min(chunk, G) + 7) // 8) * 8
 
 
+def _scan_args(M, A, b, eps):
+    """The scan's M and A in float32, its target b (uniform when empty) and
+    its eps (0.5% of the largest cost, at least 1e-6 when None)."""
+    M = np.asarray(M, dtype=np.float32)
+    A = np.asarray(A, dtype=np.float32)
+    if b is None or len(b) == 0:
+        b = np.ones(M.shape[0], np.float32) / M.shape[0]
+    b = np.asarray(b, np.float32)
+    if eps is None:
+        eps = float(max(M.max() * 5e-3, 1e-6))
+    return M, A, b, eps
+
+
 def cal_wass_dis_batch(
     M: np.ndarray,
     A: np.ndarray,
@@ -231,15 +249,8 @@ def cal_wass_dis_batch(
 ) -> np.ndarray:
     """Wasserstein distances of many histograms to one target (batched
     Sinkhorn on `device`); the last chunk is padded with rows of 1/N."""
-    M = np.asarray(M, dtype=np.float32)
-    A = np.asarray(A, dtype=np.float32)
-    N = M.shape[0]
-    G = A.shape[0]
-    if b is None or len(b) == 0:
-        b = np.ones(N, np.float32) / N
-    b = np.asarray(b, np.float32)
-    if eps is None:
-        eps = float(max(M.max() * 5e-3, 1e-6))
+    M, A, b, eps = _scan_args(M, A, b, eps)
+    N, G = M.shape[0], A.shape[0]
     chunk = scan_chunk(N, G, chunk)
     M_d, b_d = to_device(M, device), to_device(b, device)
     out = np.zeros(G, np.float32)
@@ -254,11 +265,31 @@ def cal_wass_dis_batch(
 
 
 def cal_wass_dis_batch_sharded(M, A, b=None, eps=None, n_iter: int = 200, mesh=None) -> np.ndarray:
-    """The multi-device gene scan of the JAX package: not ported."""
-    raise NotImplementedError(
-        "cal_wass_dis_batch_sharded is not ported to PyTorch yet (ROADMAP Queue 1 item 13, multi-device); "
-        "cal_wass_dis_batch runs the scan on one GPU."
-    )
+    """The gene scan over the ranks of `mesh` (`parallel.create_mesh()` when
+    None): A's [G, N] rows, padded with rows of 1/N to a multiple of every
+    rank of the mesh, split over its first axis; M and b on every rank. Each
+    rank sweeps its rows as one batch, and every block's stop test is the
+    max over all padded rows, NaN included (a stack of each rank's max,
+    reduced by `torch.amax`), as the JAX package's one program over the
+    whole batch tests it. Every rank returns all G distances; one rank is
+    `cal_wass_dis_batch`."""
+    from ..parallel import create_mesh
+    from ..parallel._collectives import RowShard, mesh_device
+
+    mesh = mesh if mesh is not None else create_mesh()
+    n_dev = int(mesh.size())
+    if n_dev <= 1:
+        return cal_wass_dis_batch(M, A, b=b, eps=eps, n_iter=n_iter, device=mesh_device(mesh))
+    M, A, b, eps = _scan_args(M, A, b, eps)
+    N, G = M.shape[0], A.shape[0]
+    Gp = -(-G // n_dev) * n_dev
+    if Gp > G:
+        A = np.concatenate([A, np.full((Gp - G, N), 1.0 / N, np.float32)])
+    shard = RowShard(mesh, Gp)
+    dev = shard.device
+    res, _ = _sinkhorn_batch_run(to_device(shard.take(A), dev), to_device(b, dev), to_device(M, dev), eps, n_iter,
+                                 reduce_err=lambda e: torch.amax(shard.stack(e)))
+    return shard.gather_rows(res).cpu().numpy()[:G]
 
 
 def cal_wass_dis(M, a, b=[], numItermax: int = 1000000, eps: Optional[float] = None, n_iter: int = 200,

@@ -402,18 +402,25 @@ def iwls_batch(
     dev = W_d.device
     y_d = to_device(np.asarray(y, np.float32).ravel(), dev)
     X_d = to_device(np.asarray(X, np.float32), dev)
-    n = W_d.shape[0]
     k = X_d.shape[1]
-    block = _auto_block(n, X_d.shape[0]) if block is None else block
-    out = np.zeros((n, k + 1), np.float32)
-    for s in range(0, n, block):
-        Wb = W_d[s : s + block]
-        e = s + Wb.shape[0]
-        # each block's focal samples are the GLOBAL rows s..e
-        fb = torch.arange(s, e, device=dev)
-        b, h = _iwls_batch_kernel(y_d, X_d, Wb, float(ridge_lambda), float(clip), distr, n_irls_iter, fb)
-        out[s:e] = torch.cat([b, h[:, None]], dim=1).cpu().numpy()
+    out = _iwls_rows(y_d, X_d, W_d, 0, distr, ridge_lambda, clip, n_irls_iter, block).cpu().numpy()
     return out[:, :k].copy(), out[:, k].copy()
+
+
+def _iwls_rows(y_d, X_d, W_d, first: int, distr, ridge_lambda, clip, n_irls_iter, block=None) -> torch.Tensor:
+    """`_iwls_batch_kernel` over the rows of W_d in blocks of `block`, row i's
+    focal sample being X's row ``first + i``: [rows, k + 1] (the betas, then
+    the hat) on W_d's device."""
+    rows = W_d.shape[0]
+    block = _auto_block(max(rows, 1), X_d.shape[0]) if block is None else block
+    out = torch.empty((rows, X_d.shape[1] + 1), dtype=torch.float32, device=W_d.device)
+    for s in range(0, rows, block):
+        e = min(s + block, rows)
+        # each block's focal samples are the GLOBAL rows first + s .. first + e
+        fb = torch.arange(first + s, first + e, device=W_d.device)
+        b, h = _iwls_batch_kernel(y_d, X_d, W_d[s:e], float(ridge_lambda), float(clip), distr, n_irls_iter, fb)
+        out[s:e] = torch.cat([b, h[:, None]], dim=1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -473,11 +480,35 @@ def assess_multicollinearity(X: np.ndarray, thresh: float = 5.0) -> np.ndarray:
 
 
 
-def iwls_batch_sharded(*args, **kwargs):
-    """Multi-device local fits (the query-cell axis of W over several cards):
-    not ported yet, see ROADMAP Queue 1 item 13."""
-    raise NotImplementedError("iwls_batch_sharded is not ported to PyTorch yet (ROADMAP Queue 1 item 13, "
-                              "multi-device); iwls_batch fits every cell on one device")
+def iwls_batch_sharded(
+    y: np.ndarray,
+    X: np.ndarray,
+    W,
+    mesh=None,
+    distr: str = "gaussian",
+    ridge_lambda: float = 0.0,
+    clip: float = 5.0,
+    n_irls_iter: int = 25,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Multi-device local fits: the query rows of W [q, n] split over the
+    mesh's "data" axis (`config.mesh` when `mesh` is None), y and X on every
+    rank. Each rank fits its rows with `_iwls_batch_kernel`, their leverage
+    against their global focal rows, and one gather gives every rank the
+    whole (betas [q, k], hat_diag [q]) as host arrays. The rows are
+    independent, so nothing is padded and no other collective runs."""
+    from ...configuration import config
+    from ...parallel._collectives import RowShard
+
+    mesh = mesh if mesh is not None else config.mesh
+    shard = RowShard(mesh, int(W.shape[0]), "data")
+    dev = shard.device
+    y_d = to_device(np.asarray(y, np.float32).ravel(), dev)
+    X_d = to_device(np.asarray(X, np.float32), dev)
+    W_d = _weights_on(shard.take(W), dev).to(dev)
+    k = X_d.shape[1]
+    local = _iwls_rows(y_d, X_d, W_d, shard.lo, distr, ridge_lambda, clip, n_irls_iter)
+    out = shard.gather_rows(local).cpu().numpy()
+    return out[:, :k].copy(), out[:, k].copy()
 
 # -- reference-named numeric helpers (reference regression_utils.py) --------
 

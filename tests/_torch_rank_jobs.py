@@ -145,21 +145,24 @@ def _slice(pts, X):
 
 def morpho(pts, X, shift, kw):
     """`align.morpho_align(mesh=)` of the slice at `pts` and its copy moved
-    by `shift`: the moving slice's coordinates, its fit and the assignment."""
+    by `shift`: the moving slice's coordinates, its fit and the assignment
+    (dense; in the sparse calculation mode a scipy matrix, densified)."""
     models, pis = stt.align.morpho_align([_slice(pts, X), _slice(pts + shift, X)], verbose=False, mesh=_mesh(),
                                          device="cpu", **kw)
     v = models[1].uns["VecFld_morpho"]
+    P = pis[0]
     return dict(
         align=models[1].obsm["align_spatial"], nonrigid=models[1].obsm["align_spatial_nonrigid"],
         R=v["R"], t=v["t"], optimal_R=v["optimal_R"], Coff=v["Coff"], sigma2=np.float64(v["sigma2"]),
-        gamma=np.float64(v["gamma"]), P=pis[0].numpy(),
+        gamma=np.float64(v["gamma"]), P=P.toarray() if hasattr(P, "toarray") else P.numpy(),
     )
 
 
-def estep(args, route):
+def estep(args, route, sparse_top_k=0):
     """One E-step over this rank's rows of `args`: the kernel route
     (`estep_cuda`, its plain sweeps on the CPU) or `estep_reduced`'s dense
-    or column-chunked route. The whole-slice sums and every rank's per-row
+    or column-chunked route (with `sparse_top_k`, the sparse calculation
+    mode's column top-k). The whole-slice sums and every rank's per-row
     outputs gathered."""
     from spateo_tpu_torch.alignment.methods.math import estep_reduced
     from spateo_tpu_torch.ops import estep_cuda as ec
@@ -177,7 +180,7 @@ def estep(args, route):
         out = estep_reduced(2.0, t["XAHat"], t["coordsA"], t["coordsB"], (t["a_rows"],), (t["b_cols"],),
                             (t["A_feats"],), (t["B_feats"],), scalars[0], t["model_mul_vec"], scalars[1],
                             scalars[2], scalars[3], ["gauss"], [t["p"]], n_chunks=1 if route == "dense" else 3,
-                            shard=sh)
+                            sparse_top_k=sparse_top_k, shard=sh)
     return {k: (sh.gather_rows(v) if k in ("K_NA", "K_NA_spatial", "K_NA_sigma2", "PXB") else v).numpy()
             for k, v in out.items()}
 
@@ -192,6 +195,49 @@ def vfc(X, V, kw):
     r = SparseVFC(X, V, mesh=_mesh(), device="cpu", **kw)
     keys = ("V", "P", "C", "X_ctrl", "VFCIndex", "beta", "gamma", "sigma2", "iteration", "E_traj", "grid_V")
     return {k: np.asarray(r[k]) for k in keys if r[k] is not None}
+
+
+# -- MuSIC's local fits, the SVG scan, merfishVI ----------------------------------------------------------
+
+
+def iwls(y, X, W, distr):
+    """`iwls_batch_sharded` on the "data" axis: (betas, hats)."""
+    from spateo_tpu_torch.tools.CCI_effects_modeling.regression_utils import iwls_batch_sharded
+
+    return iwls_batch_sharded(y, X, W, mesh=_mesh(), distr=distr)
+
+
+def wass(M, A, b=None, eps=None):
+    """`cal_wass_dis_batch_sharded`: the distances and the sweeps run."""
+    from spateo_tpu_torch.svg import utils as su
+
+    r0 = su._sinkhorn_batch_run.host_reads
+    d = su.cal_wass_dis_batch_sharded(M, A, b=b, eps=eps, mesh=_mesh())
+    return d, 10 * (su._sinkhorn_batch_run.host_reads - r0)
+
+
+def merfishvi(X, params, epochs, kw, noise=None, batch_indices=None, coords=None):
+    """`MERFISHVI(...).train(mesh=)` from the weights `params` (a nested
+    dict of arrays), replaying `noise` ([epochs, rows, latent]) and
+    `batch_indices`: the losses, the latent and the trained weights."""
+    import pandas as pd
+
+    from spateo_tpu_torch.core.bridge import merfishvi_params_from_reference
+    from spateo_tpu_torch.external.merfishvi import MERFISHVI
+
+    n, g = X.shape
+    a = stt.AnnData(X=X.copy(), obs=pd.DataFrame(index=[f"c{i}" for i in range(n)]),
+                    var=pd.DataFrame(index=[f"g{j}" for j in range(g)]))
+    if coords is not None:
+        a.obsm["spatial"] = coords
+    m = MERFISHVI(a, n_latent=4, n_hidden=16, device="cpu", **kw)
+    if params is not None:
+        merfishvi_params_from_reference(params, model=m)
+    losses = m.train(max_epochs=epochs, mesh=_mesh(),
+                     noise=None if noise is None else [[torch.from_numpy(e)] for e in noise],
+                     batch_indices=None if batch_indices is None else torch.from_numpy(batch_indices))
+    weights = {k: v.detach().numpy() for k, v in m.params.named_parameters()}
+    return dict(losses=losses, latent=m.get_latent_representation(), weights=weights)
 
 
 def main(argv):

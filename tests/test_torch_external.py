@@ -545,8 +545,10 @@ def test_merfishvi_outputs(vi_adata):
     assert s.shape == (2, vi_adata.n_obs, 25) and (s >= 0).all()
     de = mt.differential_expression("pop", "A", "B", n_samples=5)
     np.testing.assert_allclose(de["bayes_factor"], np.log(de["proba_de"] / (1 - de["proba_de"])), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mt.train(max_epochs=1, mesh=object())
+    enc = TM.MERFISHVI(adata_from_reference(vi_adata), n_latent=4, n_hidden=16, spatial_encoder=True, n_spatial=4,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="spatial_encoder training is single-device"):
+        enc.train(max_epochs=1, mesh=object())
     with pytest.raises(ValueError, match="linear_decoder"):
         mt.get_loadings()
     with pytest.raises(ValueError, match="gene_likelihood"):

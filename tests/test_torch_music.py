@@ -193,11 +193,6 @@ def test_auto_block_is_the_jax_formula():
         assert tru._auto_block(q, n) == jru._auto_block(q, n)
 
 
-def test_iwls_batch_sharded_raises():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tru.iwls_batch_sharded(np.zeros(3), np.zeros((3, 1)), np.zeros((3, 3)))
-
-
 # ---------------------------------------------------------------------------
 # the weights
 # ---------------------------------------------------------------------------

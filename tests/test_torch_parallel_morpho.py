@@ -160,7 +160,5 @@ def test_morpho_pairwise_refuses_a_foreign_mesh_or_device():
         mesh = stt.parallel.create_mesh(device="cpu")
         with pytest.raises(ValueError, match="mesh sets where the ranks run"):
             tmorpho.Morpho_pairwise(a, a, device="cuda", mesh=mesh)
-        with pytest.raises(NotImplementedError, match="sparse calculation mode"):
-            tmorpho.Morpho_pairwise(a, a, device="cpu", mesh=mesh, sparse_calculation_mode=True)
     finally:
         torch.distributed.destroy_process_group()

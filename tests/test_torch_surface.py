@@ -47,7 +47,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 #: Public names of JAX modules that the port's counterpart lacks on purpose,
 #: each with where it stands; renamed counterparts map to their new name.
 LEFT_OUT = {
-    "segmentation/starro.py": {"encode_tile", "upload_tile"},  # item 9
     # the port returns plain dicts filled by one batched copy
     "ops/vfc.py": {"LazyHostDict"},
 }

@@ -377,11 +377,6 @@ def test_host_helpers_match_jax():
     assert tsu.filter_adata_by_pos_ratio(at, 0.5).n_vars == jsu.filter_adata_by_pos_ratio(aj, 0.5).n_vars
 
 
-def test_sharded_scan_raises_citing_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        stt.svg.cal_wass_dis_batch_sharded(np.zeros((4, 4)), np.ones((2, 4)) / 4)
-
-
 def test_svg_and_paste_run_without_jax_or_sklearn():
     """`svg_iden_reg` and `paste_align` on the CPU in a fresh interpreter
     where scikit-learn cannot be imported: neither loads JAX, `spateo_tpu`

@@ -155,7 +155,7 @@ final ``ok`` line:
    z-score (bar from the port's CPU run), the scan alone under the profiler
    (idle share, launches, ops); (c) `cal_wass_dist_bs` over 60 planted +
    140 null genes, 15 rounds, rank p-values; (d) `cal_gro_wass_bs` between
-   two sections' samples, 10 genes, 5 rounds (seconds to NaN: every solve
+   two sections' samples, 4 genes, 5 rounds (seconds to NaN: every solve
    ends NaN on a zero-count cell), and the same scan on the counts plus 1,
    2 rounds, where every solve runs to its stop (finite, positive, seconds
    a solve, outer iterations); (e) `align.paste_align_ref` on a section and
@@ -312,13 +312,16 @@ final ``ok`` line:
    (`host_tools_section`: `cortex_section(20,000, 4,000)` through
    normalize_total + log1p): `tl.pca_fit(n_components=50)`, which
    scikit-learn's "auto" sends to the randomized solver, against the full
-   SVD (top-6 explained variances); `align.methods.sample` by random,
+   SVD (top-6 explained variances), and `tl.pca_fit(n_components=0.9)`,
+   which keeps the fewest components whose explained-variance ratio exceeds
+   0.9 (scikit-learn's rule, on the full solver that "auto" picks for a
+   fraction); `align.methods.sample` by random,
    k-means, LHS and velocity at 2,000 and `TRNET.run()` (each sample's mean
    distance to the cells); `core.layer_to_device` of the counts,
    `segment_sum_device` by band (equal to the host's sums bit for bit) and
    `points_to_raster`; `binary_morani_result` by Otsu and by edge watershed
    on `bench.make_raster(2048, 2048, seed=0)` (IoU with its planted disks);
-   `tl.find_all_cluster_degs` over the bands on **600 of the 4,000 genes**
+   `tl.find_all_cluster_degs` over the bands on **300 of the 4,000 genes**
    (the time limit: a host Mann-Whitney test a gene and band) and
    `find_spatial_cluster_degs` (the planted genes in each band's top 10); on
    the 60 planted and 60 unplanted genes `glm_degs` (recall at q 0.05),
@@ -330,8 +333,10 @@ final ``ok`` line:
    card works) and peak GB; bars `HT_BAR`. No kernel of `csrc/` is on this
    path.
 31. The same entry points that take `device`, card against CPU at 1,000
-   cells (`host_tools_cuda_vs_cpu`, bars `HT_CVC_BAR`): PCA, the spatial-lag
-   model and bivariate Moran's I to 1e-10; the samples, the bridge helpers,
+   cells (`host_tools_cuda_vs_cpu`, bars `HT_CVC_BAR`): PCA (also
+   `pca_fit(n_components=0.9)`: the same `n_components_`, components to
+   1e-10), the spatial-lag model and bivariate Moran's I to 1e-10; the
+   samples, the bridge helpers,
    the Moran masks, LISA's statistics and p-values and the local bivariate
    statistic and p-values equal.
 32. t-SNE, the widgets, the image and IO readers at full width: (a)
@@ -365,10 +370,16 @@ final ``ok`` line:
    `TIMER_EVENTS_BAR`); `profiler.sync_audit` around `ops.stencil.
    jacobi_solve` at 512² (blocks of 100 sweeps to 1,100): one "float" read
    a block and one "array" copy of the result, nothing else;
-   `profiler.trace` of an `annotate`d range of 100 sweeps in a fresh
-   process (`TRACE_CHILD`, started before phase 33 so that its start
-   overlaps that phase), whose Chrome trace names the range and holds one
-   `jacobi_kernel` event per launch;
+   `profiler.trace(create_perfetto_link=True)` of an `annotate`d range of
+   100 sweeps in a fresh process (`TRACE_CHILD`, started before phase 32 so
+   that its imports and the card's start overlap phases 32-33; it then waits
+   for a line from this process, so that the traced sweeps overlap no other
+   phase, and starts the profiler only then): a thread
+   there fetches the printed ui.perfetto.dev link's file from 127.0.0.1
+   (on a port the system picks, so that nothing holding JAX's 9001 meets
+   it; the default's link is held to JAX's text), whose gunzipped events
+   name the range and hold one `jacobi_kernel` event per launch; the logging classes' methods (`logging_methods`: the
+   records each logs);
    `config.mesh` of a shape that does not cover the one rank raises
    `MeshError` (the mesh itself runs in phase 36), `enable_x64=True` raises
    `ConfigurationError`; every module of the package imports, with no
@@ -381,9 +392,9 @@ final ``ok`` line:
    same float32 operations in the same order).
 36. The sharded main path (`phase_sharded`): Starro on a 2048² tile
    (`starro_em_bp_sharded`, BP's messages f32, 50 iterations), Morpho on the
-   20,000-cell pair (`morpho_align(mesh=)`, 200 iterations), SparseVFC on
+   20,000-cell pair (`morpho_align(mesh=)`, `SHARD_MORPHO_ITERS`), SparseVFC on
    100,000 points at M 100 (5 iterations, then to convergence) and Jacobi on
-   phase 9's 2048² stripes (`jacobi_solve_sharded`, 20,000 sweeps), each
+   phase 9's 2048² stripes (`jacobi_solve_sharded`, `SHARD_JACOBI_ITERS`), each
    rank a process of this script (`--phase36-rank`), warmed up at a small
    size first. (a) One NCCL rank in a fresh process, its mesh
    `config.mesh` with no launcher: held against the unsharded port on the
@@ -403,15 +414,18 @@ final ``ok`` line:
    `iwls_batch_sharded` on phase 14a's first target (8,192 cells, K 12,
    poisson, 25 IRLS iterations), `cal_wass_dis_batch_sharded` on phase
    18's scan inputs (391 cells x 4,000 genes, written by this process to an
-   `.npz`), `MERFISHVI.train(mesh=)` on phase 28c's 50,000 x 500 (300
-   epochs) and sparse Morpho (`morpho_align(mesh=,
+   `.npz`), `MERFISHVI.train(mesh=)` on phase 28c's 50,000 x 500
+   (`SHARD_VI_EPOCHS`) and sparse Morpho (`morpho_align(mesh=,
    sparse_calculation_mode=True)`, the pair at 100 iterations): (a) against
    the unsharded port (IRLS betas within 1e-5 of scale, hats 1e-6, losses
    2e-4 of scale, coordinates 1e-4; the scan at one rank is
    `cal_wass_dis_batch`), (b) against (a), and its scan against one
    unchunked batch of the 4,000 genes within 1e-5 of scale (the chunked
    scan's distance printed, not barred: its chunks stop at other sweeps);
-   `inlier_fit` launched in sparse Morpho on every rank.
+   `inlier_fit` launched in sparse Morpho on every rank. (a) also places a
+   float64 array with `core.to_device(x, np.float32, sharding=
+   row_sharding(mesh))` (a DTensor whose full tensor is `x` as float32) and
+   checks that a bare `core.to_device` of float64 gives float32 on the card.
 
 `python3 chip_smoke.py --phases 20,21` runs the chosen phases besides 0-2, 5
 and 8 (`--phases 36` the sharded path alone) (the environment, the build, and the kernels' checks against their
@@ -432,6 +446,7 @@ import os
 import subprocess
 import sys
 import time
+import urllib.parse
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1239,7 +1254,7 @@ def phase_morphofield_main(stt):
     100, 60 iterations, ecr 0, div/curl) through `SparseVFC_batch`, its
     stages, the AnnData wrappers and the Morpho field transforms."""
     import bench
-    from spateo_tpu_torch.core.bridge import to_device
+    from spateo_tpu_torch.core.bridge import _to_device
     from spateo_tpu_torch.ops import vfc
 
     check(torch.get_float32_matmul_precision() == "highest" and not torch.backends.cuda.matmul.allow_tf32,
@@ -1271,7 +1286,7 @@ def phase_morphofield_main(stt):
     # the stages of one sweep, synchronised between stages
     stages = {}
     stages["ctrl_draws"], (ctrl_idx, ctrls, subs) = host_ms(lambda: vfc._batch_ctrl_draws(Xs, M, 4, True))
-    stages["upload"], (Xj, Yj, cj, sj) = host_ms(lambda: tuple(to_device(a, "cuda") for a in (Xs, Vs, ctrls, subs)))
+    stages["upload"], (Xj, Yj, cj, sj) = host_ms(lambda: tuple(_to_device(a, "cuda") for a in (Xs, Vs, ctrls, subs)))
     stages["beta"], betas = host_ms(lambda: vfc._beta_from_h2(vfc._median_positive_sqdist(sj)))
     em = lambda: vfc._sparsevfc_em_batch(Xj, Yj, cj, betas, 0.9, 5.0, 3.0, 0.0, 1e-5, MAXIT, with_morphometrics=False)
     stages["em"], out = host_ms(em)
@@ -2079,8 +2094,8 @@ def phase_starro_tutorial():
     # the stream, per-tile fits against fits of 4 tiles at once
     tiles = [make_raster(TILE, TILE, seed=s) for s in range(4)]
     kw = dict(k=5, seed=0, bp_max_iter=50, mask_only=True)
-    for b in (1, 4):
-        list(stt.cs.starro_em_bp_stream(tiles, em_batch=b, **kw))  # warm-up
+    for b in (1, 4):  # warm-up: one tile per batch shape
+        list(stt.cs.starro_em_bp_stream(tiles[:b], em_batch=b, **kw))
     t1, out1 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=1, **kw)))
     t4, out4 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=4, **kw)))
     same = all(np.array_equal(m1, m4) and torch.equal(s1, s4) for (s1, m1), (s4, m4) in zip(out1, out4))
@@ -2211,7 +2226,7 @@ SVG_DOWNSAMPLE, SVG_KW = 400, dict(n_neighbors=8, min_dis_cutoff=500, max_dis_cu
 #: to 15 to keep phases 18-19 nearer their time (PERF.md section 4).
 SVG_BOOTSTRAP = 15
 #: Bootstrap rounds of phase 18d's scan on pseudocounted counts, where
-#: every GW solve runs to its stop (10 genes x 2 rounds).
+#: every GW solve runs to its stop (4 genes x 2 rounds).
 SVG_GW_PSEUDO_BOOTSTRAP = 1
 #: Recall of the planted genes among the top 60 by z-score that phase 18b
 #: must reach: the port's CPU run at the same size (`svg_scan(
@@ -2246,6 +2261,11 @@ def svg_gene_names(n_genes=SVG_GENES, n_planted=SVG_PLANTED):
     return [f"L{i % SVG_BANDS}_{i}" if i < n_planted else f"g{i}" for i in range(n_genes)]
 
 
+#: `cortex_section`'s sections by their arguments: phases 18, 26, 28 and 30
+#: take the same 20,000-cell section
+_SECTIONS = {}
+
+
 def cortex_section(n_cells=SVG_CELLS, n_genes=SVG_GENES, n_planted=SVG_PLANTED, seed=0, theta_deg=0.0,
                    shift=(0.0, 0.0), unit=1.0, expr_seed=None):
     """The port's AnnData of one synthetic section (sparse float32 X,
@@ -2253,7 +2273,15 @@ def cortex_section(n_cells=SVG_CELLS, n_genes=SVG_GENES, n_planted=SVG_PLANTED, 
     expression from `expr_seed` (default: `seed`), so two sections can share
     positions and differ in counts. The section may be rotated by
     `theta_deg` about the domain's centre and shifted by `shift` (in the
-    output units)."""
+    output units). Made once for each set of arguments; each call returns a
+    copy."""
+    key = (n_cells, n_genes, n_planted, seed, theta_deg, tuple(shift), unit, expr_seed)
+    if key not in _SECTIONS:
+        _SECTIONS[key] = _cortex_section(*key)
+    return _SECTIONS[key].copy()
+
+
+def _cortex_section(n_cells, n_genes, n_planted, seed, theta_deg, shift, unit, expr_seed):
     import pandas as pd
     import scipy.sparse as sp
 
@@ -2486,7 +2514,7 @@ def phase_svg_paste():
           f"{z_null!r}")
 
     # (d) the between-slice GW scan
-    gw_genes = genes[:5] + genes[-5:]  # 5 planted, 5 null (cut from 10 + 10 for time)
+    gw_genes = genes[:2] + genes[-2:]  # 2 planted, 2 null (cut from 10 + 10, then 5 + 5, for time)
     pseudo = between_slice_scan(small, gw_genes)
 
     # (e, f) PASTE through 2,000-cell references, cell directions, the center
@@ -2694,7 +2722,7 @@ def phase_svg_paste_cuda_vs_cpu(small, pseudo, gw_genes):
     # genes run all their outer iterations, to OBJ_BAR.
     (b1, C1), (b2, C2) = (bin_scale_adata_get_distance(x, **SVG_KW) for x in pseudo)
     C1, C2 = C1.astype(np.float32), C2.astype(np.float32)
-    dnb_genes = gw_genes[:2] + gw_genes[-2:]  # 4 of 18d's 10 (the time limit: ~40 CPU solves saved)
+    dnb_genes = gw_genes[:2] + gw_genes[-2:]  # all 4 of 18d's genes
     dnb = {key: gw_scan((c1, c2, b1, b2), dnb_genes, dev, outer=1) for key, dev, c1, c2 in (
         ("card", "cuda", C1, C2), ("cpu", "cpu", C1, C2), ("C1 up", "cpu", np.nextafter(C1, np.float32(np.inf)), C2),
         ("C2 down", "cpu", C1, np.nextafter(C2, np.float32(0))))}
@@ -3614,7 +3642,7 @@ def upload_codec_ab(ts, make_raster, reps=5):
     warm-up)."""
     import scipy.sparse as sp
 
-    from spateo_tpu_torch.core.bridge import to_device
+    from spateo_tpu_torch.core.bridge import _to_device
 
     rng = np.random.default_rng(5)
     sparse_tile = sp.random(TILE, TILE, density=0.02, random_state=5, format="csr", dtype=np.float32,
@@ -3625,13 +3653,13 @@ def upload_codec_ab(ts, make_raster, reps=5):
         enc = ts.encode_tile(X)
         kinds.append(enc[0])
         nbytes.append(sum(np.asarray(a).nbytes for a in enc[1:-1]))
-        a, b = ts.upload_tile(X, device="cuda"), to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16),
+        a, b = ts.upload_tile(X, device="cuda"), _to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16),
                                                            "cuda")
         check(a.shape == b.shape and (a.dtype == torch.int16 or enc[0] == "dense") and torch.equal(a.to(b.dtype), b),
               f"upload_tile ({enc[0]}) differs from the pinned copy")
         check(torch.equal(ts._upload(X, "cuda"), b), "the stream's upload differs from the pinned copy")
     times = {}
-    pinned = lambda X: to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16), "cuda")
+    pinned = lambda X: _to_device(np.asarray(X.toarray() if sp.issparse(X) else X, np.int16), "cuda")
     for route, fn in (("codec", lambda X: ts.upload_tile(X, device="cuda")), ("pinned", pinned)):
         for X in (tiles[0], tiles[-1]):
             host_ms(lambda: fn(X))  # warm-up
@@ -4359,13 +4387,16 @@ def phase_external_cuda_vs_cpu(stt):
 #: Phase 30: `cortex_section(20,000, 4,000)` after normalize_total + log1p.
 #: The cluster DEGs **cut from 4,000 genes to HT_DEG_GENES** (the 60 planted
 #: and the first unplanted; the time limit: one host Mann-Whitney test a gene
-#: and band, 13.8 s at 600 genes on the card's host, PERF.md); the GLM and
+#: and band, 13.8 s at 600 genes on the card's host, PERF.md; then cut to
+#: 300); the GLM and
 #: spatial statistics on HT_STAT_GENES (the 60 planted and 60 unplanted;
 #: `glm_degs` fits two host IWLS a gene); bivariate Moran on HT_BV_PAIRS
 #: planted pairs (and as many unplanted genes) at 999 permutations;
 #: `binary_morani_result` on `bench.make_raster(2048, 2048, seed=0)`.
-HT_CELLS, HT_GENES, HT_DEG_GENES, HT_STAT_GENES, HT_BV_PAIRS = 20_000, 4_000, 600, 120, 20
+HT_CELLS, HT_GENES, HT_DEG_GENES, HT_STAT_GENES, HT_BV_PAIRS = 20_000, 4_000, 300, 120, 20
 HT_SAMPLE, HT_PCA, HT_PERMUTATIONS, HT_RASTER = 2_000, 50, 999, 2048
+#: `pca_fit`'s fraction of the variance in phases 30-31
+HT_PCA_FRACTION = 0.9
 #: Phase 30's bars, from the port's CPU run of the same stages at 5,000 cells
 #: x 1,000 genes and a 512² raster (`scripts/host_tools_bars.py`, PERF.md):
 #: the randomized PCA's explained variances of the 5 band components against
@@ -4428,7 +4459,12 @@ def host_tools_stages(stt, ad, device="cuda", profile=True, raster=HT_RASTER, de
     out["pca"].update(solver=fit._solver(*X.shape, HT_PCA),
                       band_ev_err=float(np.abs(ev[:bands] - ev_full[:bands]).max() / ev_full[0]),
                       noise_ev_err=float(np.abs(ev[bands:] - ev_full[bands:]).max() / ev_full[0]))
-    del X
+    frac = stage("pca_fraction", lambda: pca_fit(X, n_components=HT_PCA_FRACTION, device=device)[0], prof=False)
+    out["pca_fraction"].update(solver=frac._solver(*X.shape, HT_PCA_FRACTION), n_components=int(frac.n_components_),
+                               ratio_kept=float(frac.explained_variance_ratio_.sum()),
+                               ratio_one_less=float(frac.explained_variance_ratio_[:-1].sum()),
+                               finite=bool(np.isfinite(frac.components_).all()))
+    del X, frac
 
     V = np.c_[-(P[:, 1] - P[:, 1].mean()), P[:, 0] - P[:, 0].mean()]  # a rotation field
     cover = {}
@@ -4507,6 +4543,9 @@ def host_tools_checks(st):
     bar = HT_BAR
     check(st["pca"]["solver"] == "randomized" and st["pca"]["band_ev_err"] <= bar["pca_ev"],
           f"PCA: {st['pca']}")
+    fr = st["pca_fraction"]
+    check(fr["solver"] == "full" and fr["finite"] and fr["ratio_one_less"] <= HT_PCA_FRACTION < fr["ratio_kept"],
+          f"PCA of a fraction: {fr}")
     for m in ("random", "velocity"):
         check(st[f"sample_{m}"]["points"] == HT_SAMPLE, f"sample {m}: {st[f'sample_{m}']}")
     check(st["sample_kmeans"]["mean_distance"] < st["sample_random"]["mean_distance"], "sample kmeans: coverage")
@@ -4545,7 +4584,9 @@ def phase_host_tools(stt):
 #: Phase 31's bars, card against CPU at HT_CVC_CELLS cells x 200 genes:
 #: PCA's explained variance and its top 6 components of scale (`PCA_TOL`,
 #: tests/test_torch_surface.py; the noise components of a randomized solve
-#: may turn within their near-degenerate subspace), the GM-lag statistics
+#: may turn within their near-degenerate subspace), `pca_fit` of a fraction
+#: (the full solver): the same number of components, and all of them within
+#: `PCA_TOL` of scale, the GM-lag statistics
 #: and bivariate Moran's I and null moments relative (the CPU tests' bar
 #: against the JAX package, tests/test_torch_host_tools.py); the bridge
 #: helpers, the k-means sample, the Moran masks, LISA's statistics and
@@ -4554,6 +4595,7 @@ def phase_host_tools(stt):
 #: in a fixed order by elementwise operations, the same bits on both).
 HT_CVC_CELLS = 1_000
 HT_CVC_BAR = {"pca explained variance": 1e-10, "pca top components": 1e-10, "arpack components": 1e-10,
+              "pca fraction n_components_": 0.0, "pca fraction components": 1e-10,
               "sample kmeans": 0.0, "bridge": 0.0, "morani otsu pixels": 0.0, "morani edge-watershed pixels": 0.0,
               "lisa I, lag, p-values": 0.0, "lisa quadrants": 0.0, "lisa_geo_df Is": 0.0, "local_moran_i": 0.0,
               "GM_lag_model": 1e-10, "bv I": 1e-10, "bv null": 1e-10, "bv p-values": 0.0,
@@ -4588,6 +4630,10 @@ def host_tools_cuda_vs_cpu(stt, card="cuda", n=HT_CVC_CELLS):
     out["pca top components"] = rel_err(fits[0].components_[:6], fits[1].components_[:6])
     ar = [PCA(10, svd_solver="arpack", random_state=0, device=d).fit(X) for d in sides]
     out["arpack components"] = rel_err(ar[0].components_, ar[1].components_)
+    fr = [pca_fit(X, n_components=HT_PCA_FRACTION, device=d)[0] for d in sides]
+    out["pca fraction n_components_"] = float(fr[0].n_components_ != fr[1].n_components_)
+    out["pca fraction components"] = (rel_err(fr[0].components_, fr[1].components_)
+                                      if not out["pca fraction n_components_"] else float("inf"))
 
     out["sample kmeans"] = differ(*(sampling.sample(P, 100, method="kmeans", device=d) for d in sides))
     dense = [bridge.layer_to_device(ad, "counts", pad_rows_to=8, pad_cols_to=128, device=d)[0] for d in sides]
@@ -4676,16 +4722,21 @@ TSNE_CVC_CELLS, PIM_CVC_POINTS = 1_000, 2_000
 TIMER_EVENTS_BAR = 1.10
 #: `jacobi_solve` under `sync_audit`: a 512² field, blocks of 100 sweeps, 11 blocks
 AUDIT_SIDE, AUDIT_CHECK_EVERY, AUDIT_MAX_ITR = 512, 100, 1000
-#: phase 34's trace: 100 `annotate`d sweeps at 1024² under `profiler.trace`, in a
-#: fresh process; prints one JSON line of what the Chrome trace holds
+#: phase 34's trace: 100 `annotate`d sweeps at 1024² under
+#: `profiler.trace(create_perfetto_link=True)`, in a fresh process that
+#: imports, warms the card up and then waits for a line on stdin; a thread
+#: fetches the link the trace prints (served on a port the system picks);
+#: prints one JSON line of what the served file holds. The profiler is not warmed up: a trace a few minutes after the
+#: process's first one loses kernel records (scripts/trace_wait_probe.py)
 TRACE_CHILD = """
-import json, os, tempfile, time
+import contextlib, gzip, io, json, os, queue, sys, tempfile, threading, time, urllib.request
 t0 = time.perf_counter()
 import torch
 import chip_smoke as cs
-from spateo_tpu_torch import profiler
+import spateo_tpu_torch.profiler as profiler  # the module itself: the package binds a lazy proxy
 from spateo_tpu_torch.ops import jacobi_cuda as jc
 
+profiler._PERFETTO_PORT = 0
 seconds = {"imports": time.perf_counter() - t0}
 f, upd = cs.jacobi_case(1024, 1024, seed=35)
 
@@ -4696,16 +4747,47 @@ def sweeps():
     return out
 
 sweeps()
-seconds["card and first sweeps"] = time.perf_counter() - t0 - seconds["imports"]
+seconds["card, first sweeps"] = time.perf_counter() - t0 - seconds["imports"]
+sys.stdin.readline()
+t1 = time.perf_counter()
+
+
+class Printed(io.TextIOBase):
+    def __init__(self):
+        super().__init__()
+        self.lines = queue.Queue()
+
+    def write(self, text):
+        self.lines.put(text)
+        return len(text)
+
+
+printed, got = Printed(), {}
+
+
+def fetch():
+    while "link" not in got:
+        text = printed.lines.get(timeout=120)
+        if text.startswith("Open URL in browser: "):
+            got["link"] = text.strip()
+    with urllib.request.urlopen(got["link"].split("?url=", 1)[1], timeout=120) as resp:
+        got["cors"], got["body"] = resp.headers["Access-Control-Allow-Origin"], resp.read()
+
+
+fetcher = threading.Thread(target=fetch, daemon=True)
+fetcher.start()
+cwd = os.getcwd()
 with tempfile.TemporaryDirectory() as tmp:
     before = jc.jacobi_block.launches
-    with profiler.trace(tmp):
+    with contextlib.redirect_stdout(printed), profiler.trace(tmp, create_perfetto_link=True):
         sweeps()
     launched = jc.jacobi_block.launches - before
-    seconds["trace"] = time.perf_counter() - t0 - sum(seconds.values())
-    (path,) = [os.path.join(tmp, p) for p in os.listdir(tmp)]
-    with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
+    fetcher.join(timeout=120)
+    with open(os.path.join(tmp, "perfetto_trace.json.gz"), "rb") as fh:
+        same_file = fh.read() == got["body"]
+    files = sorted(os.listdir(tmp))
+seconds["trace, serve, fetch"] = time.perf_counter() - t1
+events = json.loads(gzip.decompress(got["body"]))["traceEvents"]
 kernels = [e for e in events if e.get("cat") == "kernel" and "jacobi_kernel" in str(e.get("name"))]
 categories = {}
 for e in events:
@@ -4713,8 +4795,13 @@ for e in events:
 print(json.dumps({"events": len(events), "launched": launched, "kernels": len(kernels),
                   "ranges": sum(e.get("name") == "chip_smoke.jacobi_range" for e in events),
                   "kernel_us": sum(e.get("dur", 0) for e in kernels), "categories": categories,
+                  "link": got["link"], "cors": got["cors"], "bytes": len(got["body"]), "same_file": same_file,
+                  "files": files, "cwd_kept": os.getcwd() == cwd,
                   "seconds": {k: round(v, 2) for k, v in seconds.items()}}))
 """
+#: the link `profiler.trace(create_perfetto_link=True)` prints on its default
+#: port, as `jax.profiler` prints it
+PERFETTO_LINK = "Open URL in browser: https://ui.perfetto.dev/#!/?url=http://127.0.0.1:9001/perfetto_trace.json.gz"
 TSNE_CVC_BAR = {"P": 1e-6, "gradient": 1e-4, "10 iterations": 1e-3, "preservation": 0.01, "inside masks": 0.0}
 
 
@@ -5182,10 +5269,17 @@ SHARD_RANKS, SHARD_TIMEOUT = 4, 600
 SHARD_BARS = {"starro scores": 1e-5, "starro mask pixels": 0, "morpho": 1e-4, "vfc5": 5e-3, "jacobi": 1e-5,
               "vfc cosine": 0.99, "iwls betas": 1e-5, "iwls hats": 1e-6, "merfishvi losses": 2e-4,
               "morpho sparse": 1e-4, "scan": 1e-5}
-#: Sparse Morpho's iterations in phase 36 (the dense stage's 200, cut for
-#: time: each iteration's column top-1,024 stacks 32 MB through gloo on four
-#: ranks; the non-rigid step starts after iteration 80).
+#: Rows of the float64 array that phase 36a places with `core.to_device(sharding=)`
+SHARD_PLACE_ROWS = 10_000
+#: Sparse Morpho's iterations in phase 36 (cut from 200 for time: each
+#: iteration's column top-1,024 stacks 32 MB through gloo on four ranks;
+#: the non-rigid step starts after iteration 80).
 SHARD_SPARSE_ITERS = 100
+#: Phase 36's depth, in both of its runs (a and b) and in the unsharded
+#: yardstick: Morpho's iterations, merfishVI's epochs and the Jacobi sweeps,
+#: **cut from 200, 300 and 20,000** (the script's time limit: four gloo ranks
+#: sharing the card took 22, 19 and 11 s for them, most of it in collectives)
+SHARD_MORPHO_ITERS, SHARD_VI_EPOCHS, SHARD_JACOBI_ITERS = 100, 100, 6_000
 
 
 def shard_counters():
@@ -5240,8 +5334,8 @@ def shard_inputs(small=False, scan_file=None):
                 music=(coords, Xm, ys[0]), scan=scan, vi=vi)
 
 
-def shard_stages(stt, inp, mesh, iters=200, jacobi_itr=20_000, bp_iters=50, vi_epochs=300,
-                 sparse_iters=SHARD_SPARSE_ITERS):
+def shard_stages(stt, inp, mesh, iters=SHARD_MORPHO_ITERS, jacobi_itr=SHARD_JACOBI_ITERS, bp_iters=50,
+                 vi_epochs=SHARD_VI_EPOCHS, sparse_iters=SHARD_SPARSE_ITERS):
     """The four stages of the main path and the other sharded paths' four (`iwls_batch_sharded`,
     `cal_wass_dis_batch_sharded`, `MERFISHVI.train(mesh=)`, Morpho's sparse
     calculation mode) through their sharded entry points on `mesh`, each
@@ -5318,8 +5412,9 @@ def shard_unsharded(stt, inp):
         1e-6, 50, use_cuda_bp=True, bp_msg_dtype="float32", seed=0, bp_check_every=1)
     pts, ptsA, Xe = inp["pair"]
     models, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)],
-                                       spatial_key="spatial", key_added="align", max_iter=200, verbose=False)
-    f, it, _ = jacobi_solve(*inp["jacobi"], max_err=1e-6, max_itr=20_000, check_every=2000)
+                                       spatial_key="spatial", key_added="align", max_iter=SHARD_MORPHO_ITERS,
+                                       verbose=False)
+    f, it, _ = jacobi_solve(*inp["jacobi"], max_err=1e-6, max_itr=SHARD_JACOBI_ITERS, check_every=2000)
     ref = {"starro scores": scores.cpu().numpy(), "starro mask": mask.cpu().numpy(),
            "morpho rigid": models[1].obsm["align"], "morpho nonrigid": models[1].obsm["align_nonrigid"],
            "vfc5": SparseVFC(inp["X_vfc"], inp["V_vfc"], M=100, MaxIter=5)["V"], "jacobi": f,
@@ -5331,7 +5426,7 @@ def shard_unsharded(stt, inp):
     res, _ = _sinkhorn_batch_run(torch.from_numpy(A).cuda(), torch.full((M.shape[0],), 1.0 / M.shape[0]).cuda(),
                                  torch.from_numpy(M).cuda(), float(max(M.max() * 5e-3, 1e-6)))
     ref["scan unchunked"] = res.cpu().numpy()
-    ref["merfishvi losses"] = ext.MERFISHVI(inp["vi"], device="cuda").train(max_epochs=300)
+    ref["merfishvi losses"] = ext.MERFISHVI(inp["vi"], device="cuda").train(max_epochs=SHARD_VI_EPOCHS)
     models, _ = stt.align.morpho_align([bench._mk_adata(stt, pts, Xe), bench._mk_adata(stt, ptsA, Xe)],
                                        spatial_key="spatial", key_added="align", max_iter=SHARD_SPARSE_ITERS,
                                        verbose=False, sparse_calculation_mode=True)
@@ -5366,6 +5461,36 @@ def shard_errors(out, ref, inp, world):
         errs["scan"] = scaled("scan", "scan unchunked")
         return errs, {"scan vs 36a's chunked scan": scaled("scan")}
     return errs, {"chunked scan vs one unchunked batch": scaled("scan", "scan unchunked")}
+
+
+def to_device_on_mesh(stt, mesh):
+    """`core.to_device` with the JAX package's signature on the card:
+    `to_device(x, np.float32, sharding=row_sharding(mesh))` of a float64
+    array over `config.mesh` (here `mesh`) and with a (mesh, placements)
+    pair, each a DTensor whose full tensor equals ``x.astype(np.float32)``;
+    a bare `to_device` of float64 gives float32 on the card, as with x64 off
+    in the JAX package. Fails where one does not."""
+    from torch.distributed.tensor import DTensor
+
+    x = np.random.default_rng(36).normal(size=(SHARD_PLACE_ROWS, 16))
+    want = torch.from_numpy(x.astype(np.float32))
+    check(stt.config.mesh is mesh, "phase 36a: the mesh is not config.mesh")
+    placed = {"row_sharding over config.mesh": stt.core.to_device(x, np.float32,
+                                                                  sharding=stt.parallel.row_sharding(mesh)),
+              "(mesh, replicated)": stt.core.to_device(x, np.float32,
+                                                       sharding=(mesh, stt.parallel.replicated(mesh)))}
+    out = {}
+    for k, t in placed.items():
+        check(isinstance(t, DTensor) and t.device.type == "cuda" and t.dtype == torch.float32,
+              f"phase 36a: to_device {k} gave {type(t).__name__} {t.dtype} on {t.device}")
+        full = t.full_tensor().cpu()
+        check(torch.equal(full, want), f"phase 36a: to_device {k}: its full tensor differs from x as float32")
+        out[k] = f"{type(t).__name__} {tuple(t.shape)} {t.dtype} {t.placements}"
+    bare = stt.core.to_device(x)
+    check(bare.dtype == torch.float32 and bare.device.type == "cuda" and torch.equal(bare.cpu(), want),
+          f"phase 36a: a bare to_device of float64 gave {bare.dtype} on {bare.device}")
+    out["bare"] = f"{bare.dtype} on {bare.device}"
+    return out
 
 
 def phase36_rank(rank, world, backend, store, out_dir):
@@ -5406,6 +5531,7 @@ def phase36_rank(rank, world, backend, store, out_dir):
     out, secs, coll, calls, by_stage = shard_stages(stt, inp, mesh)
     launches = {name: fn.launches for name, fn in counters.items()}
     C.reset_stats()
+    placed = to_device_on_mesh(stt, mesh) if world == 1 else {}
     if world == 1:
         ref = shard_unsharded(stt, inp)
         np.savez(os.path.join(out_dir, "a.tmp.npz"), **out, **{"scan unchunked": ref["scan unchunked"]})
@@ -5418,7 +5544,7 @@ def phase36_rank(rank, world, backend, store, out_dir):
     print(json.dumps(dict(rank=rank, world=world, backend=backend, seconds=secs, collective_seconds=coll,
                           collective_calls=calls, launches=launches, launches_by_stage=by_stage, errors=errs,
                           unbarred=info, digest=digest, vfc_iterations=int(out["vfc iterations"]),
-                          jacobi_iterations=int(out["jacobi iterations"]),
+                          jacobi_iterations=int(out["jacobi iterations"]), to_device=placed,
                           rank_seconds=time.perf_counter() - t_start)), flush=True)
     dist.destroy_process_group()
 
@@ -5464,7 +5590,7 @@ def wait_shard_group(procs, logs, what):
 
 def phase_sharded():
     """Phase 36: the sharded main path (Starro on a 2048² tile, Morpho on a
-    20,000-cell pair for 200 iterations, SparseVFC on 100,000 points at M
+    20,000-cell pair for `SHARD_MORPHO_ITERS`, SparseVFC on 100,000 points at M
     100, Jacobi on 2048² stripes) and the other sharded paths (`shard_stages`), (a)
     on one NCCL rank in a fresh process, held against the unsharded port on
     the card, and (b) on four gloo ranks sharing the card, held against (a),
@@ -5500,6 +5626,8 @@ def phase_sharded():
               + "; not barred: " + ", ".join(f"{k} {v!r}" for k, v in r["unbarred"].items())
               + f"; SparseVFC {r['vfc_iterations']} iterations, Jacobi {r['jacobi_iterations']}; the rank's "
                 f"process {r['rank_seconds']!r} s")
+    print(f"phase 36a: core.to_device of a float64 [{SHARD_PLACE_ROWS:,}, 16] array: " + "; ".join(
+        f"{k}: {v}" for k, v in a["to_device"].items()) + " (each full tensor equal to x as float32)")
     check(len({r["digest"] for r in b}) == 1, "phase 36b: the ranks' results differ in their bits")
     total_b = {k: sum(r["launches"][k] for r in b) for k in a["launches"]}
     print(f"phase 36: every one of {SHARD_RANKS} gloo ranks returned the same bits (sha256 {b[0]['digest'][:16]}); "
@@ -5583,11 +5711,52 @@ def raises(exc, fn):
 def start_trace_child():
     """Phase 34's trace, in a process of its own: late in a long process
     that has run large profiler sessions, torch.profiler loses some or all of
-    a short trace's kernel records (scripts/profiler_window_probe.py). The
-    script starts it before phase 33, so that its start (imports, the card,
-    the profiler; ~20 s) overlaps that phase."""
+    a short trace's kernel records (scripts/profiler_window_probe.py), and
+    so does a trace minutes after the process's first one
+    (scripts/trace_wait_probe.py). The script starts it before phase 32, so
+    that its imports and the card's start (~20 s) overlap phases 32-33; it
+    then waits for the line that phase 34 writes to its stdin, and its
+    first trace starts the profiler (~10 s)."""
     return subprocess.Popen([sys.executable, "-c", TRACE_CHILD], cwd=os.path.dirname(os.path.abspath(__file__)),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def logging_methods():
+    """The logging classes' methods (`Logger`, `LoggerManager`) on a
+    manager of its own at DEBUG: [(level name, message)] of what they log,
+    and the items `main_tqdm` yields."""
+    import logging
+
+    from spateo_tpu_torch import logging as lg
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append((record.levelname, record.getMessage()))
+
+    name = "chip_smoke.logging"
+    for logger in (name, f"{name}.sub", f"{name}.gen", f"{name}-temp-timer-logger"):
+        logging.getLogger(logger).addHandler(Keep())
+    lm = lg.LoggerManager(name)
+    lm.main_set_level(lm.DEBUG)
+    lm.main_error("error")
+    lm.main_critical("critical")
+    try:
+        raise ValueError("boom")
+    except ValueError:
+        lm.main_exception("exception")
+    items = list(lm.main_tqdm(range(40), desc="tqdm"))
+    for attr in ("var", "obs", "obsm", "uns"):
+        getattr(lm, f"main_info_insert_adata_{attr}")(attr)
+    lm.gen_logger(f"{name}.gen").warning("gen_logger")
+    lm.temp_timer_logger.info("temp_timer_logger")
+    main = lm.get_main_logger()
+    main.namespaced("sub").error(f"namespaced at level {main.level}")
+    main.report_progress(count=1, total=4, progress_name="progress")
+    main.log_time()
+    main.finish_progress("progress", "ms")
+    return records, items
 
 
 def phase_profiler_root(stt, trace_proc):
@@ -5647,18 +5816,37 @@ def phase_profiler_root(stt, trace_proc):
           f"modules imported, matplotlib {'present but hidden' if present else 'absent'}, pl.scatters raised "
           f"ModuleNotFoundError({missing!r}); dependency table: " + ", ".join(
               f"{k} {v}" for k, v in deps.loc["version"].items()))
+    records, items = logging_methods()
+    levels = [lv for lv, _ in records]
+    want = (["ERROR", "CRITICAL", "ERROR"] + ["INFO"] * 20 + ["DEBUG"] * 4
+            + ["WARNING", "INFO", "ERROR", "INFO", "INFO"])
+    check(items == list(range(40)) and levels == want, f"the logging methods logged {records}")
+    check(records[-1][1].startswith("progress finished [") and records[-1][1].endswith("ms]")
+          and records[-2][1] == "\r|-----> progress [25.0%]" and records[-3][1] == "namespaced at level 10",
+          f"the logging methods logged {records[-3:]}")
+    print(f"phase 34: the logging classes' methods logged {len(records)} records ({records[0]}, ..., "
+          f"{records[-1]}); main_tqdm yielded {len(items)} items")
     t_wait = time.perf_counter()
-    out, err = trace_proc.communicate(timeout=300)
+    out, err = trace_proc.communicate(input="trace\n", timeout=300)
     t_wait = time.perf_counter() - t_wait
     check(trace_proc.returncode == 0, f"the trace process failed: {err[-2000:]}")
     tr = json.loads(out.strip().splitlines()[-1])
+    from spateo_tpu_torch import profiler
+
+    url = urllib.parse.urlsplit(tr["link"].split("?url=", 1)[-1])
+    check(profiler._perfetto_link(profiler._PERFETTO_PORT) == PERFETTO_LINK
+          and (url.scheme, url.hostname, url.path) == ("http", "127.0.0.1", "/perfetto_trace.json.gz")
+          and url.port not in (None, profiler._PERFETTO_PORT) and tr["link"] == profiler._perfetto_link(url.port)
+          and tr["cors"] == "*" and tr["same_file"] and tr["cwd_kept"],
+          f"the Perfetto link: {({k: tr[k] for k in ('link', 'cors', 'same_file', 'cwd_kept', 'files')})}")
     check(tr["ranges"] > 0, "the trace does not name the annotated range")
     check(tr["kernels"] == tr["launched"], f"the trace holds {tr['kernels']} jacobi_kernel events for "
                                            f"{tr['launched']} launches (events by category {tr['categories']})")
-    print(f"phase 34: trace of 100 sweeps at 1024² in a fresh process: {tr['events']} events, the range "
-          f"{tr['ranges']} time(s), {tr['kernels']} jacobi_kernel events for {tr['launched']} launches, "
-          f"{tr['kernel_us']!r} us of kernel time; the process's seconds {tr['seconds']}, waited for here "
-          f"{t_wait!r} s")
+    print(f"phase 34: trace(create_perfetto_link=True) of 100 sweeps at 1024² in a fresh process: printed "
+          f"{tr['link']!r}, served {tr['bytes']:,} bytes (Access-Control-Allow-Origin {tr['cors']!r}), fetched "
+          f"from 127.0.0.1 by a thread; its {tr['events']} events name the range {tr['ranges']} time(s) and hold "
+          f"{tr['kernels']} jacobi_kernel events for {tr['launched']} launches, {tr['kernel_us']!r} us of kernel "
+          f"time; the process's seconds {tr['seconds']}, waited for here {t_wait!r} s")
     print(f"phase 34: {time.perf_counter() - t_phase!r} s")
     return counts, sol
 
@@ -5867,11 +6055,11 @@ def main(argv=None):
 
     mark("31")
     # -- phases 32-33: t-SNE, the widgets, the image and IO readers ------------------------------------------------
-    if want(32):
-        phase_tsne_widgets_io(stt, section, surface)
-    mark("32")
     trace_proc = start_trace_child() if want(34) else None
     try:
+        if want(32):
+            phase_tsne_widgets_io(stt, section, surface)
+        mark("32")
         if want(33):
             phase_tsne_widgets_cuda_vs_cpu(stt)
 

@@ -22,7 +22,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import cuda_ms, device_profile, vfc_fields  # noqa: E402
-from spateo_tpu_torch.core.bridge import to_device  # noqa: E402
+from spateo_tpu_torch.core.bridge import _to_device  # noqa: E402
 from spateo_tpu_torch.ops import vfc  # noqa: E402
 
 N, M, MAXIT, F = 100_000, 100, 60, 4
@@ -38,7 +38,7 @@ def main():
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     Xs, Vs = vfc_fields(N, F)
     _, ctrls, subs = vfc._batch_ctrl_draws(Xs, M, 1, True)
-    Xj, Yj, cj, sj = (to_device(a, "cuda") for a in (Xs, Vs, ctrls, subs))
+    Xj, Yj, cj, sj = (_to_device(a, "cuda") for a in (Xs, Vs, ctrls, subs))
     betas = vfc._beta_from_h2(vfc._median_positive_sqdist(sj))
 
     def em(dtype=torch.float32):

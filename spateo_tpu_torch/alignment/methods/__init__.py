@@ -32,7 +32,7 @@ def calc_exp_dissimilarity(X_A, X_B, dissimilarity: str = "kl", device="cuda"):
     """Expression dissimilarity matrix on `device`, returned to the host
     (parity: reference methods/deprecated_utils.py `calc_exp_dissimilarity`,
     used by paste)."""
-    from ...core.bridge import to_device
+    from ...core.bridge import _to_device
 
-    [D] = calc_distance(to_device(X_A, device), to_device(X_B, device), metric=dissimilarity)
+    [D] = calc_distance(_to_device(X_A, device), _to_device(X_B, device), metric=dissimilarity)
     return D.cpu().numpy()

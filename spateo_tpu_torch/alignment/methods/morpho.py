@@ -28,7 +28,7 @@ import torch
 from scipy import sparse as sp
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...errors import AlignmentError
 from ...logging import logger_manager as lm
 from .math import (
@@ -760,7 +760,7 @@ class Morpho_pairwise:
         """Label codes keep their integer type; everything else travels as
         float32 through pinned memory."""
         arr = np.asarray(arr)
-        return to_device(arr, self.device, None if arr.dtype.kind in "iu" else torch.float32)
+        return _to_device(arr, self.device, None if arr.dtype.kind in "iu" else torch.float32)
 
     def _construct_kernel(self, inducing_variables_num: int):
         unique_coords, unique_idx = np.unique(self.coordsA, return_index=True, axis=0)
@@ -860,7 +860,7 @@ class Morpho_pairwise:
         # 0, masked out); the same rows here keep the fit's statistics equal
         n1, n2 = X_A.shape[0], X_B.shape[0]
         dev = self.device
-        up = lambda x: to_device(pad_rows_bucket(x.astype(np.float32), 256), dev)
+        up = lambda x: _to_device(pad_rows_bucket(x.astype(np.float32), 256), dev)
         top_K = min(top_K, n1 - 1, n2 - 1)
         train_x, train_y, inlier_P, R, t, flipped = _coarse_match_fit(
             up(X_A), up(X_B), up(coordsA), up(coordsB), n1, n2,

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 from ...ops.ot import fgw, fgw_exact
 from .math import calc_distance, euc_dist
@@ -63,13 +63,13 @@ def paste_pairwise_align(
     subproblems on the host (small pairs, validation). Returns the plan
     (host array) and the objective."""
     X_A, X_B, common = _pairwise_prep(sampleA, sampleB, genes, layer)
-    coordsA = to_device(np.asarray(sampleA.obsm[spatial_key], dtype=np.float32), device)
-    coordsB = to_device(np.asarray(sampleB.obsm[spatial_key], dtype=np.float32), device)
+    coordsA = _to_device(np.asarray(sampleA.obsm[spatial_key], dtype=np.float32), device)
+    coordsB = _to_device(np.asarray(sampleB.obsm[spatial_key], dtype=np.float32), device)
     # a point's distance to itself is exactly 0, as in the JAX package's jitted
     # expansion; eagerly, |x|^2 + |x|^2 - 2 x.x leaves a rounding residual
     D_A = euc_dist(coordsA, coordsA, squared=False).fill_diagonal_(0.0)
     D_B = euc_dist(coordsB, coordsB, squared=False).fill_diagonal_(0.0)
-    [M] = calc_distance(to_device(X_A, device), to_device(X_B, device), metric=dissimilarity)
+    [M] = calc_distance(_to_device(X_A, device), _to_device(X_B, device), metric=dissimilarity)
 
     a = np.ones(sampleA.n_obs) / sampleA.n_obs if a_distribution is None else np.asarray(a_distribution)
     b = np.ones(sampleB.n_obs) / sampleB.n_obs if b_distribution is None else np.asarray(b_distribution)
@@ -179,7 +179,7 @@ class _RandomInitNMF:
         rng = np.random.RandomState(self.random_state)
         H = np.abs(avg * rng.standard_normal(size=(k, X.shape[1])))
         W = np.abs(avg * rng.standard_normal(size=(X.shape[0], k)))
-        W, H, self.n_iter_ = self._solve(*(to_device(x, self.device) for x in (X, W, H)), self.max_iter, self.tol)
+        W, H, self.n_iter_ = self._solve(*(_to_device(x, self.device) for x in (X, W, H)), self.max_iter, self.tol)
         self.components_ = H.cpu().numpy()
         return W.cpu().numpy()
 

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from .methods.math import calc_distance, con_K, euc_dist, get_P_core
 from .methods.morpho import filter_common_genes, get_rep
 
@@ -65,7 +65,7 @@ def BA_transform(
     if vecfld["normalize_c"]:
         XA = (XA - normalize_mean_quary) / normalize_scale
 
-    T = lambda a: to_device(np.asarray(a, dtype=np.float32), device)
+    T = lambda a: _to_device(np.asarray(a, dtype=np.float32), device)
     out = _ba_transform_kernel(
         T(XA), T(vecfld["inducing_variables"]), T(vecfld["Coff"]), T(vecfld["R"]), T(vecfld["t"]),
         T(vecfld["optimal_R"]), T(vecfld["optimal_t"]), T(vecfld["init_R"]), T(vecfld["init_t"]),
@@ -122,7 +122,7 @@ def get_P_chunk(
         )
     if probability_parameter is None:
         probability_parameter = float(sigma2)
-    T = lambda a: to_device(np.asarray(a, dtype=np.float32), device)
+    T = lambda a: _to_device(np.asarray(a, dtype=np.float32), device)
     model_mul = T((alpha * np.exp(-Sigma / sigma2))[:, None])
     XnAHat_d = T(XnAHat)
     X_A_d = T(X_A)

@@ -1,8 +1,12 @@
 """Host <-> card: numpy to device tensors, and state carried over from the
 JAX package.
 
-`to_device` uploads through pinned host memory with ``non_blocking=True``, so
-the copy is asynchronous on the current stream. `adata_from_reference` builds
+`to_device(x, dtype=None, sharding=None, device="cuda")` is the JAX
+package's public call: 64-bit dtypes narrow to 32 bits (x64 off there), and
+`sharding=` places the array on a mesh. The port's own paths call
+`_to_device(x, device, dtype)`, which keeps wide dtypes (its float64 paths
+need them) and uploads through pinned host memory with ``non_blocking=True``,
+so the copy is asynchronous on the current stream. `adata_from_reference` builds
 the port's `AnnData` from an `AnnData` of `spateo_tpu` by reading its numpy
 fields, `morpho_inputs_from_reference` carries a `spateo_tpu` Morpho solve's
 EM inputs over, and `vfc_from_reference` and `vecfld_from_reference` carry a
@@ -19,7 +23,7 @@ duck-typed, so that this module never imports the JAX package.
 `points_to_raster` are the JAX package's device helpers: a CSR layer or a
 list of point reads goes up as its nonzeros and is scattered into a padded
 dense tensor on the card (`index_put_(accumulate=True)`, or `index_add_`
-for a segment sum). Host float64 and int64 narrow to float32 and int32, as
+for a segment sum). Host 64-bit data narrows to 32 bits (`_X64_OFF`), as
 in the JAX package with x64 off, and an index out of range is dropped, as
 XLA's scatter drops it. Sums of whole numbers below 2^24 are exact in any
 order, so those agree with the JAX package bit for bit.
@@ -36,7 +40,64 @@ from scipy import sparse
 from .anndata import AnnData, _deepcopy_uns
 
 
-def to_device(x, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+#: what a 64-bit dtype becomes in the JAX package with x64 off
+_X64_OFF = {np.dtype(np.float64): np.dtype(np.float32), np.dtype(np.int64): np.dtype(np.int32),
+            np.dtype(np.uint64): np.dtype(np.uint32), np.dtype(np.complex128): np.dtype(np.complex64)}
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or a numpy dtype (or anything `np.dtype` takes) as one."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
+#: `_X64_OFF` between torch dtypes
+_X64_OFF_TORCH = {_torch_dtype(wide): _torch_dtype(narrow) for wide, narrow in _X64_OFF.items()}
+
+
+def to_device(x, dtype=None, sharding=None, device="cuda") -> torch.Tensor:
+    """`x` as a tensor on `device`, cast to `dtype` (numpy's or torch's)
+    first, then narrowed as the JAX package narrows with x64 off: float64 to
+    float32, int64 to int32, uint64 to uint32, complex128 to complex64, also
+    when a wide dtype is asked for.
+
+    `sharding` is a list of placements (`parallel.row_sharding(mesh)`,
+    `pairwise_sharding`, `replicated`) over `config.mesh`, or a
+    ``(mesh, placements)`` pair; then every rank passes the same full `x`
+    and gets a `DTensor` on the mesh's device (`device` is not used). A
+    mesh that is not a `DeviceMesh`, or placements of another length than
+    its axes, raise `MeshError`."""
+    t = x
+    if not isinstance(t, torch.Tensor):
+        a = np.asarray(x)  # a 0-d array stays 0-d, as in the JAX package
+        t = torch.from_numpy(a if a.flags.c_contiguous and a.flags.writeable else a.copy())
+    if dtype is not None:
+        t = t.to(_torch_dtype(dtype))
+    t = t.to(_X64_OFF_TORCH.get(t.dtype, t.dtype))
+    if sharding is None:
+        return _to_device(t, device)
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Placement, distribute_tensor
+
+    from ..errors import MeshError
+    from ..parallel._collectives import mesh_device
+
+    if isinstance(sharding, tuple) and len(sharding) == 2 and not isinstance(sharding[0], Placement):
+        mesh, placements = sharding
+    else:
+        from ..configuration import config
+
+        mesh, placements = config.mesh, sharding
+    if not isinstance(mesh, DeviceMesh):
+        raise MeshError(f"to_device(sharding=...) needs a DeviceMesh, got {type(mesh).__name__}")
+    placements = list(placements)
+    if len(placements) != mesh.ndim:
+        raise MeshError(f"{len(placements)} placements for a mesh of {mesh.ndim} axes")
+    return distribute_tensor(t.to(mesh_device(mesh)), mesh, placements)
+
+
+def _to_device(x, device="cuda", dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Move a host array (or tensor) to `device`, optionally cast to `dtype`.
 
     A host array bound for the card goes through pinned memory and an
@@ -63,11 +124,7 @@ def _pad_to_multiple(n: int, m: int) -> int:
 def _narrow(a: np.ndarray) -> np.ndarray:
     """64-bit host data as 32-bit, as JAX takes it with x64 off."""
     a = np.asarray(a)
-    if a.dtype == np.float64:
-        return a.astype(np.float32)
-    if a.dtype == np.int64:
-        return a.astype(np.int32)
-    return a
+    return a.astype(_X64_OFF[a.dtype]) if a.dtype in _X64_OFF else a
 
 
 def _scatter_add(size: int, flat: np.ndarray, vals: np.ndarray, dtype, device) -> torch.Tensor:
@@ -79,7 +136,7 @@ def _scatter_add(size: int, flat: np.ndarray, vals: np.ndarray, dtype, device) -
     if not keep.all():
         flat, vals = flat[keep], vals[keep]
     out = torch.zeros(size, dtype=dtype, device=device)
-    return out.index_put_((to_device(flat, device),), to_device(vals, device, dtype), accumulate=True)
+    return out.index_put_((_to_device(flat, device),), _to_device(vals, device, dtype), accumulate=True)
 
 
 def csr_to_dense_device(
@@ -119,15 +176,15 @@ def layer_to_device(
     Rp = _pad_to_multiple(max(R, 1), pad_rows_to)
     Cp = _pad_to_multiple(max(C, 1), pad_cols_to)
     out = torch.zeros((Rp, Cp), dtype=dtype, device=device)
-    out[:R, :C] = to_device(_narrow(X), device, dtype)
+    out[:R, :C] = _to_device(_narrow(X), device, dtype)
     return out, (R, C)
 
 
 def segment_sum_device(values, segment_ids, num_segments: int, device="cuda") -> torch.Tensor:
     """The sums of `values` over `segment_ids` on `device`, [num_segments,
     ...] (ids outside [0, num_segments) dropped)."""
-    values = values if isinstance(values, torch.Tensor) else to_device(_narrow(values), device)
-    ids = segment_ids if isinstance(segment_ids, torch.Tensor) else to_device(np.asarray(segment_ids), device)
+    values = values if isinstance(values, torch.Tensor) else _to_device(_narrow(values), device)
+    ids = segment_ids if isinstance(segment_ids, torch.Tensor) else _to_device(np.asarray(segment_ids), device)
     ids = ids.to(device=values.device, dtype=torch.int64)
     keep = (ids >= 0) & (ids < num_segments)
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=values.dtype, device=values.device)
@@ -299,7 +356,7 @@ def nlpca_from_reference(params, device="cuda"):
     solver = NLPCA(device=device).init_params(num_dim, nodes)
     with torch.no_grad():
         for k in NLPCA_KEYS:
-            getattr(solver, k).copy_(to_device(w[k], device))
+            getattr(solver, k).copy_(_to_device(w[k], device))
     return solver
 
 
@@ -314,8 +371,8 @@ def siren_from_reference(params, w0: float = 5.0, device="cuda"):
     model = SIREN([Ws[0].shape[0]] + [W.shape[1] for W in Ws], w0=w0, device=device)
     with torch.no_grad():
         for i, (W, b) in enumerate(zip(Ws, bs)):
-            model.W[i].copy_(to_device(W, device))
-            model.b[i].copy_(to_device(b, device))
+            model.W[i].copy_(_to_device(W, device))
+            model.b[i].copy_(_to_device(b, device))
     return model
 
 
@@ -341,14 +398,14 @@ def gc_dec_from_reference(model, device="cuda"):
     out = simple_GC_DEC(model.nfeat, model.nhid, alpha=model.alpha, device=device)
     W = model.params["W"] if getattr(model, "params", None) is not None else model.gc.weight
     with torch.no_grad():
-        out.gc.weight.copy_(to_device(np.array(W, dtype=np.float32), device))
+        out.gc.weight.copy_(_to_device(np.array(W, dtype=np.float32), device))
     if getattr(model, "mu", None) is not None:
-        out.mu = torch.nn.Parameter(to_device(np.array(model.mu, dtype=np.float32), device))
+        out.mu = torch.nn.Parameter(_to_device(np.array(model.mu, dtype=np.float32), device))
     return out
 
 
 def _f32(a, device) -> torch.Tensor:
-    return to_device(np.array(a, dtype=np.float32), device)
+    return _to_device(np.array(a, dtype=np.float32), device)
 
 
 def _copy_into(params: torch.nn.Module, tree) -> None:

@@ -35,7 +35,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..errors import SegmentationError
 
 _DONE_CHECK_EVERY = 16
@@ -67,7 +67,7 @@ def nb_logpmf(x, r, p):
 
 def nbn_pmf(n, p, X, device="cuda") -> np.ndarray:
     """NB pmf, a host array."""
-    return _conditional(to_device(np.asarray(X, np.float32), device), n, p).cpu().numpy()
+    return _conditional(_to_device(np.asarray(X, np.float32), device), n, p).cpu().numpy()
 
 
 def _row_sums(x: torch.Tensor, rowwise: bool = False) -> torch.Tensor:
@@ -241,7 +241,7 @@ def run_em(
         w0[i], mu0[i], var0[i] = p["w"], p["mu"], p["var"]
     w, r, theta = (
         t.cpu().numpy()
-        for t in _nbn_em_batched(*(to_device(a, device) for a in (Xb, maskb, w0, mu0, var0)), max_iter=max_iter,
+        for t in _nbn_em_batched(*(_to_device(a, device) for a in (Xb, maskb, w0, mu0, var0)), max_iter=max_iter,
                                  precision=precision)
     )
     results = {label: (tuple(w[i]), tuple(r[i]), tuple(theta[i])) for i, label in enumerate(labels)}
@@ -252,9 +252,9 @@ def _tensors(X, bins, device):
     """(X as f32 and bins as tensors, whether X came from the host): a host
     array goes to `device`, a tensor stays where it is."""
     host = not isinstance(X, torch.Tensor)
-    X = to_device(np.asarray(X, np.float32), device) if host else X.to(torch.float32)
+    X = _to_device(np.asarray(X, np.float32), device) if host else X.to(torch.float32)
     if bins is not None and not isinstance(bins, torch.Tensor):
-        bins = to_device(np.asarray(bins), X.device)
+        bins = _to_device(np.asarray(bins), X.device)
     return X, bins, host
 
 

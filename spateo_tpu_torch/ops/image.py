@@ -27,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 
 
 def circle(k: int) -> np.ndarray:
@@ -63,7 +63,7 @@ def _as_tensor(X, device, dtype=None) -> torch.Tensor:
     """`X` itself if it is a tensor (cast to `dtype`), else a copy on `device`."""
     if isinstance(X, torch.Tensor):
         return X if dtype is None else X.to(dtype)
-    return to_device(np.asarray(X), device, dtype)
+    return _to_device(np.asarray(X), device, dtype)
 
 
 def _binary_row_runs(kern_np: np.ndarray):

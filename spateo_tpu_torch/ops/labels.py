@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.bridge import to_device as _to
+from ..core.bridge import _to_device as _to
 
 N4 = ((-1, 0), (1, 0), (0, -1), (0, 1))
 N8 = N4 + ((-1, -1), (-1, 1), (1, -1), (1, 1))

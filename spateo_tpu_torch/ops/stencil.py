@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from .jacobi_cuda import jacobi_block
 from .jacobi_cuda import rel_change_reference as _rel_change
 
@@ -62,9 +62,9 @@ def jacobi_solve(
     f32; the two agree within 1e-5 relative
     (tests/test_torch_kernel_plans.py), so an `err` within that margin of
     `max_err` can stop the loop one block apart on the card and in JAX."""
-    f0 = to_device(np.asarray(init_field, np.float32), device)
-    frozen = to_device(np.asarray(border) != 0, device)
-    mk = to_device(np.asarray(mask, np.float32), device)
+    f0 = _to_device(np.asarray(init_field, np.float32), device)
+    frozen = _to_device(np.asarray(border) != 0, device)
+    mk = _to_device(np.asarray(mask, np.float32), device)
     # the pixels a sweep moves: the interior window minus the Dirichlet set
     upd = torch.zeros(f0.shape, dtype=torch.uint8, device=f0.device)
     upd[1:-1, 1:-1] = 1
@@ -115,7 +115,7 @@ def graph_heat_solve(
     fixed = np.zeros(n, bool)
     fixed[np.asarray(boundary_lower, int)] = True
     fixed[np.asarray(boundary_upper, int)] = True
-    v0, idx, am, fx = (to_device(x, device) for x in (values0, adj_indices, adj_mask, fixed))
+    v0, idx, am, fx = (_to_device(x, device) for x in (values0, adj_indices, adj_mask, fixed))
     deg = torch.clamp_min(torch.sum(am, dim=1), 1.0)
 
     def block(v_old):
@@ -185,8 +185,8 @@ def jacobi_solve_sharded(
     n = int(check_every)
     h = _halo_depth(n)
     idx = sh.halo_index(h)[sh.rank]
-    upd_ext = to_device(np.ascontiguousarray(upd[idx]), sh.device)
-    w = to_device(np.ascontiguousarray(sh.take(mk)), sh.device)
+    upd_ext = _to_device(np.ascontiguousarray(upd[idx]), sh.device)
+    w = _to_device(np.ascontiguousarray(sh.take(mk)), sh.device)
 
     def block(f_own):
         f = f_own
@@ -197,5 +197,5 @@ def jacobi_solve_sharded(
         d2, n2 = sh.sum(sums)[0]
         return f, torch.sqrt(d2 / torch.clamp_min(n2, 1e-30)).to(torch.float32)
 
-    f, it, err = _heat_loop(block, to_device(np.ascontiguousarray(sh.take(f0)), sh.device), max_err, int(max_itr), n)
+    f, it, err = _heat_loop(block, _to_device(np.ascontiguousarray(sh.take(f0)), sh.device), max_err, int(max_itr), n)
     return sh.gather_rows(f * w).numpy(force=True), int(it), float(err)

@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 
 #: EM iterations between two host reads of the fields' stop mask.
 CHECK_EVERY = 10
@@ -366,12 +366,12 @@ def SparseVFC_batch(
     if Xs.ndim != 3 or Xs.shape != Ys.shape:
         raise ValueError(f"Xs/Ys must be matching [F, N, D] stacks, got {Xs.shape} / {Ys.shape}")
     F, N, D = Xs.shape
-    Xj = to_device(Xs, device)
-    Yj = to_device(Ys, device)
+    Xj = _to_device(Xs, device)
+    Yj = _to_device(Ys, device)
     ctrl_idx, ctrls, subs = _batch_ctrl_draws(Xs, M, seed, beta is None)
-    ctrl_j = to_device(ctrls, device)
+    ctrl_j = _to_device(ctrls, device)
     if beta is None:
-        betas = _beta_from_h2(_median_positive_sqdist(to_device(subs, device)))
+        betas = _beta_from_h2(_median_positive_sqdist(_to_device(subs, device)))
     else:
         betas = torch.full((F,), float(beta), dtype=torch.float32, device=Xj.device)
     out = _sparsevfc_em_batch(Xj, Yj, ctrl_j, betas, gamma, a, lambda_, ecr, minP, MaxIter,
@@ -471,18 +471,18 @@ def SparseVFC(
         check_device(mesh, device)
         sh = RowShard(mesh, N)
         device = sh.device
-    Xj = to_device(Xv, device)
-    Yj = to_device(Yv, device)
+    Xj = _to_device(Xv, device)
+    Yj = _to_device(Yv, device)
 
     rng = np.random.default_rng(seed)
     ctrl_idx = _select_ctrl(Xv, M, rng)
     ctrl = Xv[ctrl_idx]
     if beta is None:
         sub = Xv[rng.choice(N, min(N, 2000), replace=False)]
-        beta_t = _beta_from_h2(_median_positive_sqdist(to_device(sub, device)))
+        beta_t = _beta_from_h2(_median_positive_sqdist(_to_device(sub, device)))
     else:
         beta_t = torch.tensor(beta, dtype=torch.float32, device=Xj.device)
-    ctrl_j = to_device(ctrl, device)
+    ctrl_j = _to_device(ctrl, device)
 
     if sh is None:
         s, y_scale_t, y_mult = _sparsevfc_em(Xj, Yj, ctrl_j, beta_t, gamma, a, lambda_, ecr, minP, MaxIter,
@@ -497,7 +497,7 @@ def SparseVFC(
                 rescale=rescale_t, beta=beta_t, gamma=s["gamma"])
     if Grid is not None:
         Grid = np.asarray(Grid, dtype=np.float32)
-        pull["grid_V"] = con_K(to_device(Grid, device), ctrl_j, beta_t) @ s["C"]
+        pull["grid_V"] = con_K(_to_device(Grid, device), ctrl_j, beta_t) @ s["C"]
 
     # the cosine-correlation gate that `_morphofield_sparsevfc` restarts on, kept on the device
     # (the positive rescale cancels in the row-wise cosine)
@@ -532,9 +532,9 @@ def SparseVFC(
 
 def vector_field_function(x: np.ndarray, vf_dict: dict, device="cuda") -> np.ndarray:
     """Evaluate a learned SparseVFC field at arbitrary points."""
-    x = to_device(np.atleast_2d(np.asarray(x, dtype=np.float32)), device)
-    ctrl = to_device(np.asarray(vf_dict["X_ctrl"], dtype=np.float32), device)
-    C = to_device(np.asarray(vf_dict["C"], dtype=np.float32), device)
+    x = _to_device(np.atleast_2d(np.asarray(x, dtype=np.float32)), device)
+    ctrl = _to_device(np.asarray(vf_dict["X_ctrl"], dtype=np.float32), device)
+    C = _to_device(np.asarray(vf_dict["C"], dtype=np.float32), device)
     return (con_K(x, ctrl, float(vf_dict["beta"])) @ C).cpu().numpy()
 
 

@@ -9,6 +9,9 @@ Usage:
     with stt.profiler.trace("traces/run"):
         jacobi_block(f, upd, 100)        # Chrome trace JSON, CPU and CUDA activity
 
+    with stt.profiler.trace("traces/run", create_perfetto_link=True):
+        ...                              # also serves it to ui.perfetto.dev, as JAX does
+
     stt.profiler.report()                # table of accumulated timings
 
 `timer(block=True)` waits for the card (`torch.cuda.synchronize()`) before it
@@ -54,8 +57,15 @@ def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
     """Capture a `torch.profiler` trace of the CPU and, where CUDA is
     available, the card into `log_dir`, as a Chrome trace JSON file (open in
     Perfetto or chrome://tracing). The card's queued work ends before the
-    capture does. `create_perfetto_link=True` raises: it has no counterpart
-    in torch.
+    capture does.
+
+    `create_perfetto_link=True` does what `jax.profiler` does with it: it
+    also writes the trace gzipped as ``perfetto_trace.json.gz`` in
+    `log_dir`, serves that directory from ``127.0.0.1:9001`` (the address
+    ui.perfetto.dev fetches from), prints ``Open URL in browser: <link>``
+    and blocks until the file has been fetched. On a remote machine, forward
+    the port first (``ssh -L 9001:127.0.0.1:9001 host``), or fetch the file
+    with ``curl -O http://127.0.0.1:9001/perfetto_trace.json.gz`` there.
 
     Late in a long process, and most after large profiler sessions,
     torch.profiler has lost some or all of a short trace's kernel records
@@ -65,8 +75,6 @@ def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
 
     import torch
 
-    if create_perfetto_link:
-        raise NotImplementedError("trace(create_perfetto_link=True) has no counterpart in torch.profiler")
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -79,7 +87,67 @@ def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
         if torch.cuda.is_initialized():
             torch.cuda.synchronize()
         prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        if create_perfetto_link:
+            _serve_perfetto_trace(_write_perfetto_trace(path))
+
+
+#: the port `_serve_perfetto_trace` binds on 127.0.0.1, as `jax.profiler`'s;
+#: 0 lets the system pick a free one (the link names the port bound)
+_PERFETTO_PORT = 9001
+
+
+def _perfetto_link(port: int, filename: str = "perfetto_trace.json.gz") -> str:
+    """The line `jax.profiler` prints for a trace served on `port`."""
+    return f"Open URL in browser: https://ui.perfetto.dev/#!/?url=http://127.0.0.1:{port}/{filename}"
+
+
+def _write_perfetto_trace(path: str) -> str:
+    """The Chrome trace at `path`, gzipped beside it as
+    ``perfetto_trace.json.gz``; returns that file's path."""
+    import gzip
+    import os
+    import shutil
+
+    out = os.path.join(os.path.dirname(path), "perfetto_trace.json.gz")
+    with open(path, "rb") as src, gzip.open(out, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    return out
+
+
+def _serve_perfetto_trace(path: str) -> None:
+    """Serve `path`'s directory from 127.0.0.1 on `_PERFETTO_PORT`, with
+    ``Access-Control-Allow-Origin: *``, print the ui.perfetto.dev link to
+    the port bound, and return once the file has been fetched
+    (`jax.profiler`'s `_host_perfetto_trace_file`). The handler serves from
+    the directory itself, so the working directory never changes."""
+    import functools
+    import http.server
+    import os
+    import socketserver
+
+    directory, filename = os.path.split(os.path.abspath(path))
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def end_headers(self):
+            self.send_header("Access-Control-Allow-Origin", "*")
+            return super().end_headers()
+
+        def do_GET(self):
+            self.server.last_request = self.path
+            return super().do_GET()
+
+        def do_POST(self):
+            self.send_error(404, "File not found")
+
+    class Server(socketserver.TCPServer):
+        allow_reuse_address = True
+
+    with Server(("127.0.0.1", _PERFETTO_PORT), functools.partial(Handler, directory=directory)) as httpd:
+        print(_perfetto_link(httpd.server_address[1], filename), flush=True)
+        while getattr(httpd, "last_request", None) != "/" + filename:
+            httpd.handle_request()
 
 
 def annotate(name: str):

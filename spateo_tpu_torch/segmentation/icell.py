@@ -31,7 +31,7 @@ from scipy.sparse import issparse, spmatrix
 
 from ..configuration import SKM
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..errors import SegmentationError
 from ..logging import logger_manager as lm
 from ..ops import em
@@ -173,8 +173,8 @@ def _score_pixels(
 
     if issparse(X):
         X = X.toarray()
-    Xd = to_device(np.asarray(X, dtype=np.float32), device)
-    bins_d = None if bins is None else to_device(np.asarray(bins), device)
+    Xd = _to_device(np.asarray(X, dtype=np.float32), device)
+    bins_d = None if bins is None else _to_device(np.asarray(bins), device)
     res = conv2d(Xd, k, mode="gauss" if method in ("gauss", "moran") else "circle", bins=bins_d)
 
     if method == "gauss":
@@ -194,7 +194,7 @@ def _score_pixels(
         vi_results = vi.run_vi(res_h, bins=bins, device=device, **dict(dict(params=params), **vi_kwargs))
         cond = lambda: vi._conditionals_t(res, vi_results, bins_d)
         posterior = lambda: vi._confidence_t(res, vi_results, bins_d)
-    certain = None if certain_mask is None else to_device(np.asarray(certain_mask, bool), device)
+    certain = None if certain_mask is None else _to_device(np.asarray(certain_mask, bool), device)
 
     if "bp" in method:
         background_cond, cell_cond = cond()
@@ -291,5 +291,5 @@ def score_and_mask_pixels(
         threshold = None
     mask = _apply_threshold(scores, mk, threshold)
     if certain_layer:
-        mask = mask | to_device(certain_mask, mask.device)
+        mask = mask | _to_device(certain_mask, mask.device)
     SKM.set_layer_data(adata, mask_layer, mask.cpu().numpy())

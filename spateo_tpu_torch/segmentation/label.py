@@ -15,7 +15,7 @@ import torch
 
 from ..configuration import SKM
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..errors import SegmentationError
 from ..logging import logger_manager as lm
 from ..ops.image import conv2d
@@ -54,7 +54,7 @@ def _watershed(X: np.ndarray, mask: np.ndarray, markers: np.ndarray, k: int, dev
     if markers.dtype == np.dtype(bool):
         markers = connected_components(markers, device=device)[0]
     return _watershed_kernel(
-        blur, to_device(markers, blur.device, torch.int32), to_device(np.asarray(mask, bool), blur.device)
+        blur, _to_device(markers, blur.device, torch.int32), _to_device(np.asarray(mask, bool), blur.device)
     ).cpu().numpy()
 
 

@@ -41,7 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..ops.bp import _bp_kernel, _use_cuda_bp, create_neighbor_offsets
 from ..ops.bp_cuda import bp_kernel
 from ..ops.em import _nbn_em_batched, nb_logpmf
@@ -226,7 +226,7 @@ def _upload(X, device) -> torch.Tensor:
         X = X.astype(np.int16)
     else:
         X = X.astype(np.float32)
-    return to_device(X, device)
+    return _to_device(X, device)
 
 
 def _narrow_upload(X: np.ndarray) -> np.ndarray:
@@ -389,14 +389,14 @@ def _codec_array(a: np.ndarray, device) -> torch.Tensor:
     narrows with x64 off (float64 -> float32, int64 -> int32)."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
-        return to_device(a.view(np.int32), device).long()
+        return _to_device(a.view(np.int32), device).long()
     if a.dtype == np.uint16:
         a = a.view(np.int16)
     elif a.dtype == np.float64:
         a = a.astype(np.float32)
     elif a.dtype == np.int64:
         a = a.astype(np.int32)
-    return to_device(a, device)
+    return _to_device(a, device)
 
 
 def _decode_packed4(packed, exc_idx, exc_val, H: int, W: int) -> torch.Tensor:
@@ -602,7 +602,7 @@ def starro_em_bp_sharded(X: np.ndarray, mesh=None, mesh_axis: str = "data", **kw
     src = np.arange(int(rows[0]) - r, int(rows[-1]) + 1 + r) if len(rows) else np.zeros(0, np.int64)
     src = np.where(src < 0, -src - 1, src)
     src = np.where(src >= H, 2 * H - 1 - src, src)
-    Xr = to_device(np.ascontiguousarray(X[src]), dev)
+    Xr = _to_device(np.ascontiguousarray(X[src]), dev)
     if r:
         Xr = torch.cat([Xr[:, :r].flip(-1), Xr, Xr[:, -r:].flip(-1)], dim=-1)
     res_ext = _conv2d_rowsum(Xr, _binary_row_runs(np.asarray(circle(k), np.float32)), k, k, "VALID")

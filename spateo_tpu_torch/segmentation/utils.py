@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..configuration import SKM
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..logging import logger_manager as lm
 from ..ops.image import (
     _as_tensor,
@@ -88,7 +88,7 @@ def safe_erode(
     if is_float and (float_k is None or float_threshold is None):
         raise ValueError("`float_k` and `float_threshold` must be provided for floating point arrays.")
     mask, saved = _safe_erode_kernel(
-        to_device(X, device, torch.float32), bool(is_float), int(k), bool(square), int(min_area), int(n_iter),
+        _to_device(X, device, torch.float32), bool(is_float), int(k), bool(square), int(min_area), int(n_iter),
         int(float_k or 0), float(float_threshold if float_threshold is not None else 0.0), int(max_iter),
     )
     return (mask | saved).cpu().numpy()

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..errors import SegmentationError
 from ..ops.em import _bin_samples, _host, _tensors
 
@@ -66,12 +66,12 @@ def _fit_mixtures(xs: List[np.ndarray], inits: List[Dict[str, np.ndarray]], n_ep
     for b, x in enumerate(xs):
         Xb[b, : len(x)] = x
         maskb[b, : len(x)] = True
-    X = to_device(Xb, device)[:, :, None]
-    mask = to_device(maskb, device)
-    n_b = to_device(np.array([len(x) for x in xs], np.float32), device)
+    X = _to_device(Xb, device)[:, :, None]
+    mask = _to_device(maskb, device)
+    n_b = _to_device(np.array([len(x) for x in xs], np.float32), device)
     names = ("w", "counts", "logits", "z") if zero_inflated else ("w", "counts", "logits")
     params = {
-        k: to_device(np.stack([np.asarray(i[k], np.float32) for i in inits]), device).requires_grad_(True) for k in names
+        k: _to_device(np.stack([np.asarray(i[k], np.float32) for i in inits]), device).requires_grad_(True) for k in names
     }
     opt = torch.optim.Adam(list(params.values()), lr=lr)
 
@@ -185,7 +185,7 @@ class NegativeBinomialMixture:
     @staticmethod
     def conditionals(params, x, use_weights: bool = False, device="cuda") -> Tuple[np.ndarray, ...]:
         """Per-component pmfs sorted by component mean, host arrays."""
-        xt = x if isinstance(x, torch.Tensor) else to_device(np.asarray(x, np.float32), device)
+        xt = x if isinstance(x, torch.Tensor) else _to_device(np.asarray(x, np.float32), device)
         return tuple(c.cpu().numpy() for c in NegativeBinomialMixture._conditionals(params, xt, use_weights))
 
 

@@ -24,7 +24,7 @@ from scipy.sparse import csr_matrix, issparse
 from scipy.sparse.csgraph import floyd_warshall
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..logging import logger_manager as lm
 
 
@@ -252,14 +252,14 @@ def cal_wass_dis_batch(
     M, A, b, eps = _scan_args(M, A, b, eps)
     N, G = M.shape[0], A.shape[0]
     chunk = scan_chunk(N, G, chunk)
-    M_d, b_d = to_device(M, device), to_device(b, device)
+    M_d, b_d = _to_device(M, device), _to_device(b, device)
     out = np.zeros(G, np.float32)
     for s in range(0, G, chunk):
         block = A[s : s + chunk]
         pad = chunk - block.shape[0]
         if pad:
             block = np.concatenate([block, np.full((pad, N), 1.0 / N, np.float32)])
-        res = _sinkhorn_batch_kernel(to_device(block, device), b_d, M_d, eps, n_iter)
+        res = _sinkhorn_batch_kernel(_to_device(block, device), b_d, M_d, eps, n_iter)
         out[s : s + chunk - pad] = res.cpu().numpy()[: chunk - pad]
     return out
 
@@ -287,7 +287,7 @@ def cal_wass_dis_batch_sharded(M, A, b=None, eps=None, n_iter: int = 200, mesh=N
         A = np.concatenate([A, np.full((Gp - G, N), 1.0 / N, np.float32)])
     shard = RowShard(mesh, Gp)
     dev = shard.device
-    res, _ = _sinkhorn_batch_run(to_device(shard.take(A), dev), to_device(b, dev), to_device(M, dev), eps, n_iter,
+    res, _ = _sinkhorn_batch_run(_to_device(shard.take(A), dev), _to_device(b, dev), _to_device(M, dev), eps, n_iter,
                                  reduce_err=lambda e: torch.amax(shard.stack(e)))
     return shard.gather_rows(res).cpu().numpy()[:G]
 

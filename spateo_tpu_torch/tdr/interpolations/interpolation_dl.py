@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 
 
@@ -84,10 +84,10 @@ def siren_train(model: nn.Module, X: torch.Tensor, Y: torch.Tensor, n: int, lr: 
 
 def _fit_siren(model, Xn, Yn, max_iter, lr, batch_size, seed, device, batch_indices=None) -> np.ndarray:
     """`siren_train` on `device` from host arrays; the losses read once."""
-    Xd, Yd = to_device(Xn, device, torch.float32), to_device(Yn, device, torch.float32)
+    Xd, Yd = _to_device(Xn, device, torch.float32), _to_device(Yn, device, torch.float32)
     gen = torch.Generator(device=Xd.device)
     gen.manual_seed(int(seed))
-    bi = None if batch_indices is None else to_device(np.asarray(batch_indices, np.int64), device)
+    bi = None if batch_indices is None else _to_device(np.asarray(batch_indices, np.int64), device)
     losses = siren_train(model, Xd, Yd, max_iter, lr=lr, batch_size=batch_size, generator=gen, batch_indices=bi)
     _fit_siren.host_reads += 1
     return losses.cpu().numpy()
@@ -143,7 +143,7 @@ class DeepInterpolation:
     def predict(self, Xnew: np.ndarray) -> np.ndarray:
         x_mean, x_std, y_mean, y_std = self.norm
         Xn = (np.asarray(Xnew, np.float32) - x_mean) / x_std
-        pred = self.model(to_device(Xn, self.device)).cpu().numpy() * y_std + y_mean
+        pred = self.model(_to_device(Xn, self.device)).cpu().numpy() * y_std + y_mean
         if self.enforce_positivity:
             pred = np.maximum(pred, 0)
         return pred

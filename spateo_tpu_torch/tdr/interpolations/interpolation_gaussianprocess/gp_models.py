@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ....core.bridge import to_device
+from ....core.bridge import _to_device
 
 
 class Exact_GPModel:
@@ -51,11 +51,11 @@ class Approx_GPModel:
         self.params, _ = _fit_sgpr(np.asarray(X, np.float32), np.asarray(Y, np.float32),
                                    self.inducing_points.astype(np.float32), n_epochs=n_epochs, lr=lr,
                                    device=self.device)
-        self._XY = (to_device(np.asarray(X, np.float64), self.device), to_device(np.asarray(Y, np.float64), self.device))
+        self._XY = (_to_device(np.asarray(X, np.float64), self.device), _to_device(np.asarray(Y, np.float64), self.device))
         return self
 
     def predict(self, x):
         from ..interpolation_gp import _sgpr_predict
 
         X, Y = self._XY
-        return _sgpr_predict(self.params, X, Y, to_device(np.asarray(x, np.float64), self.device)).cpu().numpy()
+        return _sgpr_predict(self.params, X, Y, _to_device(np.asarray(x, np.float64), self.device)).cpu().numpy()

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 
 
@@ -46,7 +46,7 @@ class SGPRParams(nn.Module):
 
     def __init__(self, Z0, device="cuda"):
         super().__init__()
-        Z0 = to_device(Z0, device, torch.float64)
+        Z0 = _to_device(Z0, device, torch.float64)
         self.log_ls = nn.Parameter(torch.zeros((), dtype=torch.float64, device=Z0.device))
         self.log_noise = nn.Parameter(torch.full((), -2.0, dtype=torch.float64, device=Z0.device))
         self.log_amp = nn.Parameter(torch.zeros((), dtype=torch.float64, device=Z0.device))
@@ -95,7 +95,7 @@ def sgpr_train(params: SGPRParams, X: torch.Tensor, Y: torch.Tensor, n_epochs: i
 def _fit_sgpr(X, Y, Z0, n_epochs: int = 200, lr: float = 0.05, device="cuda"):
     """Fit the SGPR from the inducing points `Z0` on `device` in float64:
     (params, host losses), read once."""
-    Xd, Yd = to_device(X, device, torch.float64), to_device(Y, device, torch.float64)
+    Xd, Yd = _to_device(X, device, torch.float64), _to_device(Y, device, torch.float64)
     params = SGPRParams(Z0, device=device)
     losses = sgpr_train(params, Xd, Yd, n_epochs=n_epochs, lr=lr)
     _fit_sgpr.host_reads += 1
@@ -155,7 +155,7 @@ def gp_interpolation(
 
     target_points = np.asarray(target_points, dtype=np.float32)
     Tn = (target_points - x_mean) / x_std
-    pred = _sgpr_predict(params, *(to_device(a, device, torch.float64) for a in (Xn, Yn, Tn))).cpu().numpy()
+    pred = _sgpr_predict(params, *(_to_device(a, device, torch.float64) for a in (Xn, Yn, Tn))).cpu().numpy()
     pred = (pred * y_std + y_mean).astype(np.float32)
 
     interp_adata = AnnData(

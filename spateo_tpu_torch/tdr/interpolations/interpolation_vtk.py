@@ -22,7 +22,7 @@ import torch
 from scipy.sparse import issparse
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 
 
 def _interp_block(query: torch.Tensor, source: torch.Tensor, values: torch.Tensor, radius: torch.Tensor,
@@ -83,9 +83,9 @@ def vtk_interpolation(
         k_n = n_points or 8
         radius = float(np.median(tree.query(source, k=min(k_n + 1, len(source)))[0][:, -1]) * 2)
 
-    src_d = to_device(source, device)
-    val_d = to_device(values, device)
-    tgt_d = to_device(target_points, device)
+    src_d = _to_device(source, device)
+    val_d = _to_device(values, device)
+    tgt_d = _to_device(target_points, device)
     rad_d = torch.tensor(radius, dtype=torch.float32, device=src_d.device)
     out_d = torch.empty((len(target_points), values.shape[1]), dtype=torch.float32, device=src_d.device)
     for s in range(0, len(target_points), block):

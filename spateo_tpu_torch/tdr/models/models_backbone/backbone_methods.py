@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ....core.bridge import to_device
+from ....core.bridge import _to_device
 from ....logging import logger_manager as lm
 from ....ops.kmeans import MiniBatchKMeans
 
@@ -83,7 +83,7 @@ def SimplePPT_tree(
     nodes = km.cluster_centers_.astype(np.float32)
     span = float(np.linalg.norm(X.max(0) - X.min(0))) + 1e-9
     sigma_abs = (sigma * span) ** 2
-    Xd = to_device(X, device)
+    Xd = _to_device(X, device)
     for _ in range(3):  # alternate tree topology and node optimization
         edges = _mst_edges(nodes)
         n = len(nodes)
@@ -93,7 +93,7 @@ def SimplePPT_tree(
             L[b, b] += 1
             L[a, b] -= 1
             L[b, a] -= 1
-        nodes = _ppt_em(Xd, to_device(nodes, device), to_device(L, device), sigma_abs, lam, n_iter).cpu().numpy()
+        nodes = _ppt_em(Xd, _to_device(nodes, device), _to_device(L, device), sigma_abs, lam, n_iter).cpu().numpy()
     edges = _mst_edges(nodes)
     return nodes, edges
 
@@ -179,9 +179,9 @@ def _optimize_elastic_batch(
     N = X.shape[0]
     A_E, A_R = zip(*(_elastic_matrix(k, e, Lambda, Mu) for e in edges))
     dev = X.device
-    A_E, A_R = to_device(np.stack(A_E), dev), to_device(np.stack(A_R), dev)
+    A_E, A_R = _to_device(np.stack(A_E), dev), _to_device(np.stack(A_R), dev)
     reg = 1e-9 * torch.eye(k, dtype=X.dtype, device=dev)
-    nodes = to_device(nodes_h, dev)
+    nodes = _to_device(nodes_h, dev)
     active = torch.ones(B, dtype=torch.bool, device=dev)
     part = None
     info = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -200,7 +200,7 @@ def _optimize_elastic_batch(
             part = part_new
     _, counts, sums, dmin = _assign(X, nodes, need_min=True)
     u_approx = dmin.mean(1)
-    e_t = to_device(edges, dev)
+    e_t = _to_device(edges, dev)
     bidx = torch.arange(B, device=dev)[:, None]
     diffs = nodes[bidx, e_t[:, :, 0]] - nodes[bidx, e_t[:, :, 1]]
     u_e = Lambda * (diffs**2).sum((1, 2))
@@ -209,13 +209,13 @@ def _optimize_elastic_batch(
         np.add.at(adj[b], (edges[b, :, 0], edges[b, :, 1]), 1.0)
         np.add.at(adj[b], (edges[b, :, 1], edges[b, :, 0]), 1.0)
     deg = adj.sum(2)
-    adj_t, deg_t = to_device(adj, dev), to_device(deg, dev)
+    adj_t, deg_t = _to_device(adj, dev), _to_device(deg, dev)
     star = ((nodes - (adj_t @ nodes) / deg_t.clamp_min(1)[:, :, None]) ** 2).sum(2)
     u_r = Mu * torch.where(deg_t >= 2, star, 0.0).sum(1)
     energy = u_approx + u_e + u_r
     if final_energy.lower() == "penalized" and alpha > 0:
         # branching penalty: excess degree beyond 2 at each star
-        excess = to_device(np.maximum(deg - 2, 0).sum(1), dev)
+        excess = _to_device(np.maximum(deg - 2, 0).sum(1), dev)
         energy = energy + alpha * excess * (u_e / max(edges.shape[1], 1))
     return nodes, energy, counts, sums, info
 
@@ -273,7 +273,7 @@ def ElPiGraph_tree(
     else:
         nodes = np.stack([mean - pc1, mean + pc1])
         edges = np.array([[0, 1]])
-    Xd = to_device(X, device)
+    Xd = _to_device(X, device)
     fit = lambda nb, eb, it: _fit_and_read(Xd, nb, eb, Lambda, Mu, alpha, it, final_energy=FinalEnergy)
     out, _, counts, sums = fit(nodes[None], edges[None], n_iter)
     nodes, counts, sums = out[0], counts[0], sums[0]
@@ -337,7 +337,7 @@ class NLPCA(nn.Module):
         rng = np.random.default_rng(0)
 
         def init(shape, scale):
-            return nn.Parameter(to_device(rng.normal(0, scale, shape).astype(np.float32), self.device))
+            return nn.Parameter(_to_device(rng.normal(0, scale, shape).astype(np.float32), self.device))
 
         def zeros(n):
             return nn.Parameter(torch.zeros(n, dtype=torch.float32, device=self.device))
@@ -362,7 +362,7 @@ class NLPCA(nn.Module):
         return out, bottleneck
 
     def fit(self, data: np.ndarray, epochs: int = 500, nodes: int = 25, lr: float = 0.01, verbose: int = 0):
-        X = to_device(np.asarray(data, np.float32), self.device)
+        X = _to_device(np.asarray(data, np.float32), self.device)
         self.init_params(X.shape[1], nodes)
         opt = torch.optim.Adam(self.parameters(), lr=lr)
         for _ in range(epochs):
@@ -382,7 +382,7 @@ class NLPCA(nn.Module):
         [N, 1], data sorted by projection index [N, D+1])."""
         data = np.asarray(data, np.float32)
         with torch.no_grad():
-            out, bottleneck = self(to_device(data, self.device))
+            out, bottleneck = self(_to_device(data, self.device))
         pts = out.cpu().numpy()
         proj = bottleneck.cpu().numpy()
         self.fit_points = pts

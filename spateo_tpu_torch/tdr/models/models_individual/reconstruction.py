@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ....core.bridge import to_device
+from ....core.bridge import _to_device
 from ..mesh_core import Mesh
 
 __all__ = [
@@ -192,7 +192,7 @@ def _poisson_system(pts_g: np.ndarray, normals: np.ndarray, res: int, screen: fl
     pts_g = np.asarray(pts_g, np.float32)
     normals = np.asarray(normals, np.float32)
     bits = _splat_bits(len(pts_g), float(np.abs(normals).max(initial=0.0)))
-    grid = _splat(to_device(pts_g, device), to_device(normals, device), res, bits)
+    grid = _splat(_to_device(pts_g, device), _to_device(normals, device), res, bits)
     rho = _blur(grid[0])
     V = _blur(grid[1:])
     # average (not summed) normal per cell -> indicator gradient ~O(1)

@@ -13,7 +13,7 @@ import torch
 from torch.func import vmap
 
 from ....core.anndata import AnnData
-from ....core.bridge import to_device
+from ....core.bridge import _to_device
 from ....logging import logger_manager as lm
 from .primitives import LineModel, construct_arrows
 
@@ -84,7 +84,7 @@ def construct_field_streams(
         V = np.asarray(vf["V"])
         step_size = float(np.linalg.norm(X.max(0) - X.min(0)) / (np.median(np.linalg.norm(V, axis=1)) + 1e-12) / n_steps)
 
-    cur = to_device(seeds, device)
+    cur = _to_device(seeds, device)
     pts = [cur]
     for _ in range(n_steps):
         k1 = fn(cur)

@@ -17,13 +17,13 @@ import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
-from ....core.bridge import to_device
+from ....core.bridge import _to_device
 
 
 def _field_fn_from_dict(vf_dict: dict, device="cuda") -> Callable:
     """Single-point field evaluation on `device` for either field flavour
     (a SparseVFC field, or a Morpho field under ``method="gaussian_process"``)."""
-    T = lambda a: to_device(np.asarray(a, dtype=np.float32), device)
+    T = lambda a: _to_device(np.asarray(a, dtype=np.float32), device)
     method = vf_dict.get("method", "sparsevfc")
     if method == "gaussian_process":
         norm = vf_dict["norm_dict"]
@@ -59,7 +59,7 @@ def _field_fn_from_dict(vf_dict: dict, device="cuda") -> Callable:
 
 def _on_points(f, device):
     """`f` of a [n, D] point tensor, called with a host array and returning one."""
-    return lambda X: f(to_device(np.atleast_2d(np.asarray(X, dtype=np.float32)), device)).cpu().numpy()
+    return lambda X: f(_to_device(np.atleast_2d(np.asarray(X, dtype=np.float32)), device)).cpu().numpy()
 
 
 def compute_acceleration(vf, f_jac, X, Js=None, return_all: bool = False):

@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 from ..models.mesh_core import Mesh, PointCloud
 
@@ -104,7 +104,7 @@ def kde_log_density(X: np.ndarray, kernel: str = "gaussian", bandwidth: float = 
         raise ValueError(f"bandwidth must be > 0, got {bandwidth!r}")
     X = np.asarray(X, dtype=np.float64)
     N, D = X.shape
-    Xd = to_device(X, device)
+    Xd = _to_device(X, device)
     rows = max(1, KDE_ELEMS // N)
     out = []
     for Xc in Xd.split(rows):

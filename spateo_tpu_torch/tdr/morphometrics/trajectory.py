@@ -12,7 +12,7 @@ import torch
 from torch.func import vmap
 
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from .morphofield_dg.GPVectorField import _field_fn_from_dict
 
 
@@ -59,7 +59,7 @@ def morphopath(
         t_end = float(diameter / speed)
     dt = t_end / interpolation_num
     sign = -1.0 if direction == "backward" else 1.0
-    traj = _rk4_integrate(fn, to_device(X0, device), sign * dt, interpolation_num).cpu().numpy()
+    traj = _rk4_integrate(fn, _to_device(X0, device), sign * dt, interpolation_num).cpu().numpy()
     traj = np.concatenate([X0[None], traj], axis=0)  # [T+1, N, D]
     t = np.linspace(0, t_end, interpolation_num + 1)
     adata.uns[key_added] = {

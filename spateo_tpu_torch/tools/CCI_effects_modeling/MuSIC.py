@@ -48,7 +48,7 @@ from scipy.sparse import issparse
 import torch
 
 from ...core.anndata import AnnData, read_h5ad
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 from ..find_neighbors import _conditioned_kernel_weights_batch, get_wi_batch
 from .regression_utils import _family, iwls_batch_full, multicollinearity_check
@@ -1163,16 +1163,16 @@ class MuSIC:
             space = np.asarray(self.coords, np.float32)
             kernel_fn = self.kernel
         dev = self.device
-        space_d = to_device(space, dev)
-        chunk_d = to_device(np.asarray(chunk, np.int64), dev)
-        ct_d = to_device(np.asarray(ct, np.int32), dev)
+        space_d = _to_device(space, dev)
+        chunk_d = _to_device(np.asarray(chunk, np.int64), dev)
+        ct_d = _to_device(np.asarray(ct, np.int32), dev)
         W = _conditioned_kernel_weights_batch(
             space_d[chunk_d],
             space_d,
             float(bw) if self.bw_fixed else int(bw),
             ct_d[chunk_d],
             ct_d,
-            to_device(np.asarray(cond_ct, bool), dev),
+            _to_device(np.asarray(cond_ct, bool), dev),
             function=kernel_fn,
             fixed=self.bw_fixed,
             exclude_self=self.exclude_self,
@@ -1186,7 +1186,7 @@ class MuSIC:
         the device (no host round trip of the [q, n] weights)."""
         W = self._conditioned_weights(y, bw, chunk)
         if mask_indices is not None and len(mask_indices):
-            W[:, to_device(np.asarray(mask_indices, np.int64), W.device)] = 0.0
+            W[:, _to_device(np.asarray(mask_indices, np.int64), W.device)] = 0.0
         return W
 
     # -- fitting ------------------------------------------------------------

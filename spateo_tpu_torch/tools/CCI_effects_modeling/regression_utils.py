@@ -21,7 +21,7 @@ import scipy.sparse
 import torch
 from scipy import linalg, stats
 
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 from .distributions import EPS, Distribution, Gaussian, NegativeBinomial, Poisson
 
@@ -338,7 +338,7 @@ def _weights_on(W, device) -> torch.Tensor:
     on the card), else uploaded to `device`."""
     if isinstance(W, torch.Tensor):
         return W.to(torch.float32)
-    return to_device(np.asarray(W, np.float32), device)
+    return _to_device(np.asarray(W, np.float32), device)
 
 
 def iwls_batch_full(
@@ -364,12 +364,12 @@ def iwls_batch_full(
     """
     W_d = _weights_on(W, device)
     dev = W_d.device
-    y_d = to_device(np.asarray(y, np.float32).ravel(), dev)
-    X_d = to_device(np.asarray(X, np.float32), dev)
+    y_d = _to_device(np.asarray(y, np.float32).ravel(), dev)
+    X_d = _to_device(np.asarray(X, np.float32), dev)
     q = W_d.shape[0]
     k = X_d.shape[1]
     focal = np.arange(q, dtype=np.int64) if focal is None else np.asarray(focal, np.int64)
-    focal_d = to_device(focal, dev)
+    focal_d = _to_device(focal, dev)
     block = _auto_block(q, X_d.shape[0]) if block is None else block
     out = np.zeros((q, 2 * k + 2), np.float32)
     for s in range(0, q, block):
@@ -400,8 +400,8 @@ def iwls_batch(
     """
     W_d = _weights_on(W, device)
     dev = W_d.device
-    y_d = to_device(np.asarray(y, np.float32).ravel(), dev)
-    X_d = to_device(np.asarray(X, np.float32), dev)
+    y_d = _to_device(np.asarray(y, np.float32).ravel(), dev)
+    X_d = _to_device(np.asarray(X, np.float32), dev)
     k = X_d.shape[1]
     out = _iwls_rows(y_d, X_d, W_d, 0, distr, ridge_lambda, clip, n_irls_iter, block).cpu().numpy()
     return out[:, :k].copy(), out[:, k].copy()
@@ -502,8 +502,8 @@ def iwls_batch_sharded(
     mesh = mesh if mesh is not None else config.mesh
     shard = RowShard(mesh, int(W.shape[0]), "data")
     dev = shard.device
-    y_d = to_device(np.asarray(y, np.float32).ravel(), dev)
-    X_d = to_device(np.asarray(X, np.float32), dev)
+    y_d = _to_device(np.asarray(y, np.float32).ravel(), dev)
+    X_d = _to_device(np.asarray(X, np.float32), dev)
     W_d = _weights_on(shard.take(W), dev).to(dev)
     k = X_d.shape[1]
     local = _iwls_rows(y_d, X_d, W_d, shard.lo, distr, ridge_lambda, clip, n_irls_iter)

@@ -23,7 +23,7 @@ import torch
 from scipy.sparse import issparse
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..svg.utils import multipletests_bh
 
 #: The CCI databases (CSV data) shipped in the repository beside the JAX package.
@@ -168,10 +168,10 @@ def find_cci_two_group(
     rec_expr = X[:, rec_cols]
 
     # observed score per LR pair: mean over pairs of lig(sender) * rec(receiver), float32
-    lig_d = to_device(lig_expr, device, torch.float32)
-    rec_d = to_device(rec_expr, device, torch.float32)
-    s_d = to_device(s_idx.astype(np.int64), device)
-    r_d = to_device(r_idx.astype(np.int64), device)
+    lig_d = _to_device(lig_expr, device, torch.float32)
+    rec_d = _to_device(rec_expr, device, torch.float32)
+    s_d = _to_device(s_idx.astype(np.int64), device)
+    r_d = _to_device(r_idx.astype(np.int64), device)
     obs_score = (lig_d[s_d] * rec_d[r_d]).mean(0)
 
     # permutation null: permute which cells are senders/receivers (host draws, the JAX order)
@@ -181,7 +181,7 @@ def find_cci_two_group(
     for p in range(num):
         perm[0, p] = rng.choice(adata.n_obs, n_pairs, replace=True)
         perm[1, p] = rng.choice(adata.n_obs, n_pairs, replace=True)
-    perm_d = to_device(perm.astype(np.int32), device).long()
+    perm_d = _to_device(perm.astype(np.int32), device).long()
     scores = torch.cat([obs_score[None], permutation_null(lig_d, rec_d, perm_d[0], perm_d[1])]).cpu().numpy()
     obs_score, null = scores[0], scores[1:]
     pvals = ((null >= obs_score[None, :]).sum(axis=0) + 1) / (num + 1)

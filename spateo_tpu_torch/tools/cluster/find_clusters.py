@@ -23,7 +23,7 @@ import torch
 
 from ...configuration import SKM
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 from .leiden import calculate_leiden_partition, calculate_louvain_partition
 from .utils import spatial_adj
@@ -109,7 +109,7 @@ def spagcn_adjacency(coords: np.ndarray, p: float = 0.5, device="cuda"):
     steps from [1e-3, max D + 1e-6] so that the mean of exp(-D^2 / (2 l^2))
     is ~p, each step's comparison made on the device. Returns (the float32
     adjacency on `device`, l as a 0-d float64 tensor)."""
-    c = to_device(np.asarray(coords, dtype=np.float64), device)
+    c = _to_device(np.asarray(coords, dtype=np.float64), device)
     D2 = torch.cdist(c, c, compute_mode="donot_use_mm_for_euclid_dist") ** 2
     lo = torch.tensor(1e-3, dtype=torch.float64, device=c.device)
     hi = torch.sqrt(D2.max()) + 1e-6

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 
 
 def calculate_adj_matrix(x, y, x_pixel=None, y_pixel=None, image=None, beta: int = 49, alpha: int = 1, histology: bool = False) -> np.ndarray:
@@ -175,7 +175,7 @@ class GraphConvolution(nn.Module):
         rng = np.random.default_rng(seed)
         bound = 1.0 / np.sqrt(out_features)
         w = rng.uniform(-bound, bound, (in_features, out_features)).astype(np.float32)
-        self.weight = nn.Parameter(to_device(w, device))
+        self.weight = nn.Parameter(_to_device(w, device))
 
     def forward(self, x: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
         return adj @ (x @ self.weight)
@@ -231,12 +231,12 @@ class simple_GC_DEC(nn.Module):
         starts at the k-means centres of the first embedding."""
         from ...ops.kmeans import KMeans
 
-        Xd = to_device(X, self.device, torch.float32)
-        Ad = to_device(adj, self.device, torch.float32)
+        Xd = _to_device(X, self.device, torch.float32)
+        Ad = _to_device(adj, self.device, torch.float32)
         with torch.no_grad():
             emb0 = self.gc(Xd, Ad)
         km = KMeans(n_clusters=n_clusters, n_init=10, random_state=seed, device=self.device).fit(emb0.cpu().numpy())
-        self.mu = nn.Parameter(to_device(km.cluster_centers_.astype(np.float32), self.device))
+        self.mu = nn.Parameter(_to_device(km.cluster_centers_.astype(np.float32), self.device))
         y_prev = km.labels_
         opt = torch.optim.SGD(self.parameters(), lr=lr, momentum=0.9)
         with torch.no_grad():

@@ -19,7 +19,7 @@ from scipy.sparse import issparse
 
 from ...configuration import SKM
 from ...core.anndata import AnnData
-from ...core.bridge import to_device
+from ...core.bridge import _to_device
 from ...logging import logger_manager as lm
 
 #: Entries of one [rows, n] block of distances `ecp_silhouette` holds.
@@ -143,12 +143,12 @@ def ecp_silhouette(matrix, cluster_labels: np.ndarray, device="cuda") -> float:
     x.y, clipped at 0, a point's own distance 0), summed per cluster by
     `index_add_` in row chunks of `SILHOUETTE_ELEMS`; a cluster of one point
     scores 0."""
-    X = to_device(np.asarray(to_dense_matrix(matrix), dtype=np.float64), device)
+    X = _to_device(np.asarray(to_dense_matrix(matrix), dtype=np.float64), device)
     codes, labels = np.unique(np.asarray(cluster_labels), return_inverse=True)
     n = X.shape[0]
     if not 1 < len(codes) < n:
         raise ValueError(f"Number of labels is {len(codes)}. Valid values are 2 to n_samples - 1 (inclusive)")
-    lab = to_device(labels.astype(np.int64), device)
+    lab = _to_device(labels.astype(np.int64), device)
     freqs = torch.bincount(lab, minlength=len(codes)).to(torch.float64)
     sq = (X * X).sum(1)
     intra = torch.empty(n, dtype=torch.float64, device=X.device)

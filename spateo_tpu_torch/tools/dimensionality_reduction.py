@@ -30,7 +30,7 @@ import torch
 from scipy.sparse import issparse
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from .find_neighbors import knn
 
 
@@ -151,8 +151,11 @@ class PCA:
     when max(n, d) <= 500, or when n_components >= 0.8 min(n, d)),
     ``"randomized"`` (`_randomized_svd`, picked otherwise) and ``"arpack"``
     (scipy's `svds` on the host, its start vector uniform(-1, 1) from
-    `random_state`, as scikit-learn's `_init_arpack_v0` draws it). A float
-    or ``"mle"`` n_components raises. Runs in float64 on `device`, with
+    `random_state`, as scikit-learn's `_init_arpack_v0` draws it). A
+    fraction 0 < n_components < 1 keeps, on the full and covariance_eigh
+    solvers, the fewest components whose cumulative explained-variance
+    ratio exceeds it (the other two raise, as in scikit-learn);
+    ``"mle"`` raises. Runs in float64 on `device`, with
     `svd_flip`'s signs (each component's largest-magnitude entry positive).
     `fit` sets the host arrays `mean_`, `components_`,
     `explained_variance_`, `explained_variance_ratio_`, `singular_values_`,
@@ -190,8 +193,12 @@ class PCA:
             k = min(n, d) - 1 if self.svd_solver == "arpack" else min(n, d)
         else:
             k = self.n_components
-        if not isinstance(k, (int, np.integer)):
-            raise NotImplementedError(f"PCA(n_components={k!r}): only a whole number of components is ported.")
+        if isinstance(k, (float, np.floating)):
+            if not 0 < k < 1:
+                raise ValueError(f"PCA(n_components={k!r}): a float n_components must lie in (0, 1)")
+        elif not isinstance(k, (int, np.integer)):
+            raise NotImplementedError(f"PCA(n_components={k!r}): only a whole number of components or a "
+                                      f"fraction in (0, 1) is ported.")
         solver = self._solver(n, d, k)
         if solver in ("full", "covariance_eigh"):
             if not 0 <= k <= min(n, d):
@@ -204,13 +211,15 @@ class PCA:
         if solver in ("randomized", "arpack"):
             self._fit_truncated(X, Xd - mean, k, solver)
         else:
-            self._fit_full(Xd, mean, k, solver)
+            k = self._fit_full(Xd, mean, k, solver)
         self.n_samples_, self.n_components_ = n, k
         self.mean_ = mean.cpu().numpy()
         self._mean_d = mean
         return self
 
-    def _fit_full(self, Xd: torch.Tensor, mean: torch.Tensor, k: int, solver: str) -> None:
+    def _fit_full(self, Xd: torch.Tensor, mean: torch.Tensor, k, solver: str) -> int:
+        """The full or covariance_eigh fit (`_pca.py:544-694`); returns the
+        number of components kept."""
         n, d = Xd.shape
         if solver == "full":
             _, S, Vt = torch.linalg.svd(Xd - mean, full_matrices=False)
@@ -226,12 +235,18 @@ class PCA:
             Vt = evecs.flip(1).T
         Vt = _svd_flip_rows(Vt)
         ratio = explained_variance / explained_variance.sum()
+        if not isinstance(k, (int, np.integer)):
+            # side="right", as scikit-learn: the kept ratios sum to more than
+            # the fraction; only the count leaves the device.
+            fraction = torch.tensor(k, dtype=torch.float64, device=ratio.device)
+            k = int(torch.searchsorted(torch.cumsum(ratio, 0), fraction, right=True)) + 1
         self.noise_variance_ = float(explained_variance[k:].mean()) if k < min(n, d) else 0.0
         self.components_ = Vt[:k].cpu().numpy()
         self.explained_variance_ = explained_variance[:k].cpu().numpy()
         self.explained_variance_ratio_ = ratio[:k].cpu().numpy()
         self.singular_values_ = S[:k].cpu().numpy()
         self._components_d = Vt[:k].contiguous()
+        return k
 
     def _fit_truncated(self, X: np.ndarray, Xc: torch.Tensor, k: int, solver: str) -> None:
         """scikit-learn's `_fit_truncated` for dense X (`_pca.py:697-790`)."""
@@ -473,7 +488,9 @@ def umap_conn_indices_dist_embedding(
     n = X.shape[0]
     k = min(n_neighbors, n - 1)
     tree = cKDTree(X)
-    knn_dists, knn_indices = tree.query(X, k=k + 1)
+    # on every host core (the same neighbours as on one): at 30 dimensions
+    # this query is the graph's largest host cost
+    knn_dists, knn_indices = tree.query(X, k=k + 1, workers=-1)
     knn_dists, knn_indices = knn_dists[:, 1:], knn_indices[:, 1:]
 
     sigma, rho = _smooth_knn(knn_dists, k)
@@ -499,13 +516,13 @@ def umap_conn_indices_dist_embedding(
         init = (init - init.mean(0)) / (init.std(0) + 1e-9) * 10.0
 
     coo = graph.tocoo()
-    heads = to_device(coo.row.astype(np.int64), device)
-    tails = to_device(coo.col.astype(np.int64), device)
-    weights = to_device(coo.data.astype(np.float32), device)
+    heads = _to_device(coo.row.astype(np.int64), device)
+    tails = _to_device(coo.col.astype(np.int64), device)
+    weights = _to_device(coo.data.astype(np.float32), device)
     n_epochs = max_iter or (500 if n <= 10000 else 200)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(random_state))
-    emb_d = umap_layout(to_device(np.asarray(init, np.float32), device), heads, tails, weights, float(a_fit),
+    emb_d = umap_layout(_to_device(np.asarray(init, np.float32), device), heads, tails, weights, float(a_fit),
                         float(b_fit), int(n_epochs), alpha=alpha, negatives=negatives, generator=gen)
     emb = emb_d.cpu().numpy()
     umap_conn_indices_dist_embedding.host_reads += 1

@@ -36,7 +36,7 @@ import torch
 from scipy.sparse import csr_matrix
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..logging import logger_manager as lm
 
 #: Entries of one [rows, n] block of distances `knn` sorts at a time.
@@ -108,8 +108,8 @@ def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean",
     Y = X if Y is None else np.asarray(Y, dtype=np.float64).reshape(-1, X.shape[1])
     n = len(X)
     k = min(int(k), n)
-    Xd = to_device(X, device)
-    Yd = Xd if Y is X else to_device(Y, device)
+    Xd = _to_device(X, device)
+    Yd = Xd if Y is X else _to_device(Y, device)
     idx = torch.empty((len(Y), k), dtype=torch.int64, device=Xd.device)
     dist = torch.empty((len(Y), k), dtype=torch.float64, device=Xd.device)
     rows = max(1, KNN_ELEMS // max(n, 1))
@@ -119,7 +119,7 @@ def knn(X: np.ndarray, k: int, device="cuda", metric: str = "euclidean",
         else:
             from scipy.spatial.distance import cdist
 
-            D = to_device(cdist(Y[s : s + rows], X, metric=metric), device)
+            D = _to_device(cdist(Y[s : s + rows], X, metric=metric), device)
         D, order = torch.sort(D, dim=1, stable=True)
         idx[s : s + rows] = order[:, :k]
         dist[s : s + rows] = D[:, :k]
@@ -138,7 +138,7 @@ def radius_neighbors(X: np.ndarray, radius: float, device="cuda") -> Tuple[np.nd
     a block. The distance is the square root of that sum."""
     X = np.asarray(X, dtype=np.float64)
     X = X[:, None] if X.ndim == 1 else X
-    Xd = to_device(X, device)
+    Xd = _to_device(X, device)
     r2 = float(radius) * float(radius)
     rows = max(1, KNN_ELEMS // max(len(X), 1))
     counts, cols, dists = [], [], []
@@ -390,7 +390,7 @@ def get_wi(
 def _wi_blocks(coords, bw, fixed_bw, exclude_self, kernel, normalize_weights, block, device):
     """The rows of `get_wi_batch`'s weights, `block` query rows at a time:
     (first row, [rows, N] float32 tensor on `device`)."""
-    coords_d = to_device(np.asarray(coords, np.float32), device)
+    coords_d = _to_device(np.asarray(coords, np.float32), device)
     for s in range(0, coords_d.shape[0], block):
         q = coords_d[s : s + block]
         yield s, _kernel_weights_batch(
@@ -592,8 +592,8 @@ def calculate_distances_chunk(
     if metric == "euclidean":
         from ..alignment.methods.math import euc_dist
 
-        distances_chunk = euc_dist(to_device(np.asarray(coords_chunk, np.float32), device),
-                                   to_device(np.asarray(coords, np.float32), device), squared=False).cpu().numpy()
+        distances_chunk = euc_dist(_to_device(np.asarray(coords_chunk, np.float32), device),
+                                   _to_device(np.asarray(coords, np.float32), device), squared=False).cpu().numpy()
     else:
         from scipy.spatial.distance import cdist
 

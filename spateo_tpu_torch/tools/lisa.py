@@ -40,7 +40,7 @@ from scipy.sparse import issparse
 
 from ..configuration import SKM
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 
 #: Entries of one [genes, permutations, cells] block of permuted lags.
 LISA_CHUNK_ELEMS = 1 << 26
@@ -52,7 +52,7 @@ def _row_std_knn_w(coords: np.ndarray, k: int, device="cuda") -> Tuple[torch.Ten
     from .find_neighbors import knn
 
     idx, _ = knn(coords, min(k + 1, len(coords)), device=device)
-    nbr = to_device(idx, device)
+    nbr = _to_device(idx, device)
     not_self = nbr != torch.arange(len(idx), device=nbr.device)[:, None]
     count = not_self.sum(1, keepdim=True).to(torch.float64)
     w = not_self.to(torch.float64) / torch.clamp_min(count, 1e-12)
@@ -97,14 +97,14 @@ def _local_moran(X: np.ndarray, nbr: torch.Tensor, w: torch.Tensor, permutations
     n, G = X.shape
     dev = nbr.device
     Zh, m2h = _zscores(X)
-    Z = to_device(Zh, dev)
-    m2 = to_device(m2h, dev)[:, None]
+    Z = _to_device(Zh, dev)
+    m2 = _to_device(m2h, dev)[:, None]
     lag = _lag(nbr, w, Z)
     Is = Z * lag / m2
     # quadrants: 1=HH, 2=LH, 3=LL, 4=HL
     q = torch.where(Z > 0, torch.where(lag > 0, 1, 4), torch.where(lag > 0, 2, 3))
     rng = np.random.default_rng(seed)
-    perms = to_device(np.stack([rng.permutation(n) for _ in range(permutations)]), dev)
+    perms = _to_device(np.stack([rng.permutation(n) for _ in range(permutations)]), dev)
     pn = perms[:, nbr]  # [P, n, m]: the permuted position of each neighbour
     larger = torch.zeros((G, n), dtype=torch.int64, device=dev)
     low = torch.zeros_like(larger)
@@ -148,7 +148,7 @@ def lisa_geo_df(
     if layer is not None:
         vals = np.log1p(vals)
     df["exp"] = vals
-    df["w_exp"] = _lag(nbr, w, to_device(vals[None], nbr.device))[0].cpu().numpy()
+    df["w_exp"] = _lag(nbr, w, _to_device(vals[None], nbr.device))[0].cpu().numpy()
     df["exp_zscore"] = (df["exp"] - df["exp"].mean()) / df["exp"].std()
     df["w_exp_zscore"] = (df["w_exp"] - df["w_exp"].mean()) / df["w_exp"].std()
     Is, q, p_sim, _, _ = (a[0] for a in _local_moran(vals[:, None], nbr, w))
@@ -298,13 +298,13 @@ def GM_lag_model(
         adata.var[f"{cat}_GM_lag_zstat"] = np.nan
         adata.var[f"{cat}_GM_lag_pval"] = np.nan
 
-    Xd = to_device(np.asarray(dummies.values, np.float64), nbr.device)  # [n, K]
+    Xd = _to_device(np.asarray(dummies.values, np.float64), nbr.device)  # [n, K]
     ones = torch.ones((n, 1), dtype=torch.float64, device=nbr.device)
     Xbase = torch.cat([ones, Xd], dim=1)
     WX = _lag(nbr, w, Xd.T).T
     WWX = _lag(nbr, w, WX.T).T
     H = torch.cat([ones, Xd, WX, WWX], dim=1)  # instruments
-    Y = torch.log1p(to_device(np.asarray(expr, np.float64), nbr.device))
+    Y = torch.log1p(_to_device(np.asarray(expr, np.float64), nbr.device))
     Wy = _lag(nbr, w, Y.T).T
     beta, zstat = _gm_lag_fits(H, Xbase, Y, Wy)
     pvals = 2 * stats.norm.sf(np.abs(zstat))

@@ -39,7 +39,7 @@ from scipy import stats
 from scipy.sparse import csr_matrix, issparse
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from .lisa import _neighbour_sum
 
 #: Permutations of one block of `spatial_bv_local_moran`'s null.
@@ -92,14 +92,14 @@ def _csr_table(W: csr_matrix, device):
     pos = np.arange(W.nnz) - np.repeat(W.indptr[:-1], counts)
     idx, w = np.zeros((n, m), np.int64), np.zeros((n, m))
     idx[rows, pos], w[rows, pos] = W.indices, W.data
-    return to_device(idx, device), to_device(w, device)
+    return _to_device(idx, device), _to_device(w, device)
 
 
 def _permutations(n: int, permutations: int, seed: int, device) -> torch.Tensor:
     """[permutations, n] draws of `default_rng(seed).permutation(n)`, in
     order, on `device`."""
     rng = np.random.default_rng(seed)
-    return to_device(np.stack([rng.permutation(n) for _ in range(permutations)]), device)
+    return _to_device(np.stack([rng.permutation(n) for _ in range(permutations)]), device)
 
 
 def _feature_values(adata: AnnData, key: str) -> np.ndarray:
@@ -133,8 +133,8 @@ def _moran_bv(X: np.ndarray, y: np.ndarray, W: csr_matrix, permutations: Optiona
     den = n - 1.0
     zy = (y - y.mean()) / y.std(ddof=1)
     ZX = np.stack([(x - x.mean()) / x.std(ddof=1) for x in (np.ascontiguousarray(c) for c in X.T)], axis=1)
-    zxd = to_device(ZX, device)
-    zyd = to_device(zy, device)
+    zxd = _to_device(ZX, device)
+    zyd = _to_device(zy, device)
     idx, w = _csr_table(W, device)
     I = ((zxd * _neighbour_sum(zyd[None], idx, w)[0][:, None]).sum(0) / den).cpu().numpy()
     if not permutations:
@@ -246,7 +246,7 @@ def spatial_bv_local_moran(
     zy = (y - y.mean()) / y.std()
     den = float((zx * zx).sum())
     idx, w = _csr_table(W, device)
-    zxd, zyd = to_device(zx, device), to_device(zy, device)
+    zxd, zyd = _to_device(zx, device), _to_device(zy, device)
     # a tensor divisor: the card divides by a scalar through its reciprocal
     den_d = torch.tensor(den, dtype=torch.float64, device=zxd.device)
     lag_d = _neighbour_sum(zyd[None], idx, w)[0]

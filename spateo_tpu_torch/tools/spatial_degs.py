@@ -20,7 +20,7 @@ import torch
 from scipy.sparse import issparse
 
 from ..core.anndata import AnnData
-from ..core.bridge import to_device
+from ..core.bridge import _to_device
 from ..logging import logger_manager as lm
 from ..svg.utils import multipletests_bh
 
@@ -116,9 +116,9 @@ def moran_i(
     rng = np.random.default_rng(seed)
     perm_idx = np.stack([rng.permutation(adata.n_obs) for _ in range(permutations)])
     I_obs, p_sim, z_sim = _moran_batch_kernel(
-        to_device(np.asarray(Z, np.float32), device),
-        to_device(np.asarray(W, np.float32), device),
-        to_device(perm_idx.astype(np.int64), device),
+        _to_device(np.asarray(Z, np.float32), device),
+        _to_device(np.asarray(W, np.float32), device),
+        _to_device(perm_idx.astype(np.int64), device),
         permutations,
     )
     host = torch.stack([I_obs, p_sim.to(I_obs.dtype), z_sim]).cpu().numpy()

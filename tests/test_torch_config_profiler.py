@@ -183,9 +183,94 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert len(files) == 1
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
     assert "my_range" in names and any("mm" in str(n) for n in names)
-    with pytest.raises(NotImplementedError, match="perfetto"):
-        with TProf.trace(str(tmp_path / "x"), create_perfetto_link=True):
-            pass
+
+
+#: `trace(create_perfetto_link=True)` in a process of its own: it blocks
+#: until the served file is fetched, and the repo has no pytest-timeout. It
+#: serves on a port the system picks, so that two runs on one machine, or
+#: anything else holding 9001, do not meet
+PERFETTO_CHILD = """
+import json, os, sys
+import torch
+import spateo_tpu_torch.profiler as profiler  # the module itself: the package binds a lazy proxy
+
+profiler._PERFETTO_PORT = 0
+cwd = os.getcwd()
+with profiler.trace(sys.argv[1], create_perfetto_link=True):
+    with torch.profiler.record_function("my_range"):
+        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+print(json.dumps({"cwd_kept": os.getcwd() == cwd, "files": sorted(os.listdir(sys.argv[1]))}), flush=True)
+"""
+
+
+def test_perfetto_link_is_jaxs():
+    """By default the trace is served on JAX's port 9001, and the printed
+    line is the one `jax.profiler` prints."""
+    import inspect
+
+    from jax._src import profiler as jax_profiler
+
+    src = inspect.getsource(jax_profiler._host_perfetto_trace_file)
+    assert "port = 9001" in src and 'print(f"Open URL in browser: {url}")' in src
+    assert 'url = f"https://ui.perfetto.dev/#!/?url=http://127.0.0.1:{port}/{filename}"' in src
+    assert TProf._PERFETTO_PORT == 9001
+    assert TProf._perfetto_link(9001) == (
+        "Open URL in browser: https://ui.perfetto.dev/#!/?url=http://127.0.0.1:9001/perfetto_trace.json.gz")
+
+
+def test_trace_serves_a_perfetto_link_as_jax_does(tmp_path):
+    """`trace(create_perfetto_link=True)` writes the Chrome trace and
+    ``perfetto_trace.json.gz`` beside it, prints JAX's ``Open URL in
+    browser: https://ui.perfetto.dev/#!/?url=http://127.0.0.1:<port>/...``
+    line for the port it bound, serves the file from 127.0.0.1 with
+    ``Access-Control-Allow-Origin: *``, returns once it has been fetched,
+    and leaves the working directory as it was. The parent fetches the
+    printed URL and reads the events."""
+    import gzip
+    import os
+    import pathlib
+    import queue
+    import subprocess
+    import sys
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    log_dir = tmp_path / "tr"
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([root, os.environ.get("PYTHONPATH", "")])}
+    child = subprocess.Popen([sys.executable, "-c", PERFETTO_CHILD, str(log_dir)], cwd=str(tmp_path), env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in child.stdout] + [lines.put("")], daemon=True).start()
+    try:
+        line = lines.get(timeout=60)
+        if not line:
+            child.wait(timeout=60)
+            pytest.fail(f"the tracing process printed no link: {child.stderr.read()[-3000:]}")
+        prefix = "Open URL in browser: https://ui.perfetto.dev/#!/?url="
+        assert line.startswith(prefix), line
+        url = line[len(prefix):].strip()
+        parts = urllib.parse.urlsplit(url)
+        assert (parts.scheme, parts.hostname, parts.path) == ("http", "127.0.0.1", "/perfetto_trace.json.gz")
+        assert parts.port not in (None, 9001) and line.strip() == TProf._perfetto_link(parts.port)
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            assert resp.headers["Access-Control-Allow-Origin"] == "*"
+            body = resp.read()
+        _, err = child.communicate(timeout=60)
+        assert child.returncode == 0, err
+        done = json.loads(lines.get(timeout=10))
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert done["cwd_kept"] and "perfetto_trace.json.gz" in done["files"] and len(done["files"]) == 2
+    assert body == (log_dir / "perfetto_trace.json.gz").read_bytes()
+    (chrome,) = [f for f in done["files"] if f.endswith(".json")]
+    events = json.loads(gzip.decompress(body))["traceEvents"]
+    assert events == json.loads((log_dir / chrome).read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "my_range" in names and any("mm" in str(n) for n in names)
 
 
 # -- configuration ---------------------------------------------------------------------------------------------

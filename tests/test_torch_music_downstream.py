@@ -548,8 +548,8 @@ def test_pca_fit_matches_sklearn():
     """`pca_fit` and `PCA` against `sklearn.decomposition.PCA` for the
     solvers `auto` picks (covariance_eigh, full, and randomized at 2,000 x
     1,500) and the first two by name: components, projections and variances
-    within `PCA_TOL` of scale, the same signs; a float n_components
-    raises."""
+    within `PCA_TOL` of scale, the same signs; a fraction of the variance
+    with the randomized or ARPACK solver raises, as in scikit-learn."""
     from sklearn.decomposition import PCA as SkPCA
 
     from spateo_tpu_torch.tools.dimensionality_reduction import PCA, pca_fit
@@ -574,8 +574,46 @@ def test_pca_fit_matches_sklearn():
     assert a._fit_svd_solver == "randomized"
     assert _scaled(b.components_, a.components_) <= PCA_TOL
     assert _scaled(b.explained_variance_, a.explained_variance_) <= PCA_TOL
-    with pytest.raises(NotImplementedError, match="whole number"):
-        PCA(n_components=0.9, device="cpu").fit(X)
+    for solver in ("randomized", "arpack"):
+        with pytest.raises(ValueError, match="must be between 1 and"):
+            SkPCA(n_components=0.9, svd_solver=solver).fit(X[:200, :50])
+        with pytest.raises(ValueError, match="must be between 1 and"):
+            PCA(n_components=0.9, svd_solver=solver, device="cpu").fit(X[:200, :50])
+    for bad in (0.0, 1.5):
+        with pytest.raises(ValueError):
+            PCA(n_components=bad, device="cpu").fit(X[:200, :50])
+
+
+@pytest.mark.parametrize("fraction", [0.5, 0.9, 0.99])
+@pytest.mark.parametrize("n,d,solver", [(400, 12, "auto"), (300, 40, "auto"), (200, 30, "full"),
+                                        (200, 30, "covariance_eigh")])
+def test_pca_fraction_matches_sklearn(fraction, n, d, solver):
+    """0 < n_components < 1 keeps the fewest components whose cumulative
+    explained-variance ratio exceeds it, as scikit-learn 1.9's `PCA` (which
+    the JAX package's `pca_fit` calls): the same `n_components_`, exactly,
+    and components, projections and variances within `PCA_TOL` of scale;
+    "auto" picks covariance_eigh at 400 x 12 and full at 300 x 40."""
+    from sklearn.decomposition import PCA as SkPCA
+
+    from spateo_tpu.tools.dimensionality_reduction import pca_fit as jax_pca_fit
+    from spateo_tpu_torch.tools.dimensionality_reduction import PCA, pca_fit
+
+    rng = np.random.default_rng(int(fraction * 100) + n)
+    X = rng.normal(size=(n, d)) @ rng.normal(size=(d, d))
+    a = SkPCA(n_components=fraction, svd_solver=solver).fit(X)
+    b = PCA(n_components=fraction, svd_solver=solver, device="cpu").fit(X)
+    assert a._fit_svd_solver == {"auto": "covariance_eigh" if n >= 10 * d else "full"}.get(solver, solver)
+    assert b.n_components_ == a.n_components_ and 1 <= b.n_components_ < d
+    assert b.explained_variance_ratio_.sum() > fraction
+    assert _scaled(b.components_, a.components_) <= PCA_TOL
+    assert _scaled(b.transform(X), a.transform(X)) <= PCA_TOL
+    for attr in ("explained_variance_", "explained_variance_ratio_", "singular_values_"):
+        assert _scaled(getattr(b, attr), getattr(a, attr)) <= PCA_TOL
+    assert abs(b.noise_variance_ - a.noise_variance_) <= PCA_TOL * a.explained_variance_[0]
+    if solver == "auto":
+        fa, Pa = jax_pca_fit(X, n_components=fraction)
+        fb, Pb = pca_fit(X, n_components=fraction, device="cpu")
+        assert fb.n_components_ == fa.n_components_ and _scaled(Pb, Pa) <= PCA_TOL
 
 
 # ---------------------------------------------------------------------------

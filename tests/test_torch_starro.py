@@ -24,7 +24,7 @@ import spateo_tpu_torch as stt
 from spateo_tpu.ops import bp_pallas as jpal
 from spateo_tpu.ops import em as jem
 from spateo_tpu.segmentation import starro as js
-from spateo_tpu_torch.core.bridge import adata_from_reference, to_device
+from spateo_tpu_torch.core.bridge import adata_from_reference, _to_device
 from spateo_tpu_torch.ops import bp_cuda as tcu
 from spateo_tpu_torch.segmentation import starro as ts
 
@@ -226,7 +226,7 @@ def test_upload_is_lossless():
     frac = ints + 0.5
     t = ts._upload(frac, "cpu")
     assert t.dtype == torch.float32 and np.array_equal(t.numpy(), frac)
-    assert to_device(ints, "cpu", torch.float32).dtype == torch.float32
+    assert _to_device(ints, "cpu", torch.float32).dtype == torch.float32
     from scipy import sparse
 
     t = ts._upload(sparse.csr_matrix(ints), "cpu")

@@ -1,9 +1,12 @@
 """Public names that ported modules took from the JAX package late: point
 cloud sampling (`alignment.methods.sample` and its helpers),
-`segmentation.moran.binary_morani_result`, the logging helpers, the `core`
-device helpers and PCA's randomized and ARPACK solvers, each against the JAX
-package (or, for PCA, the scikit-learn it calls) on the CPU; and the diff of
-top-level public names between every ported module and its JAX counterpart.
+`segmentation.moran.binary_morani_result`, the logging helpers and the
+logging classes' methods, the `core` device helpers and `core.to_device`,
+and PCA's randomized and ARPACK solvers, each against the JAX package (or,
+for PCA, the scikit-learn it calls) on the CPU; and the diff between every
+ported module and its JAX counterpart: top-level public names, every public
+class's public attributes, and every public function's and method's
+parameters and defaults.
 
 Bars:
 
@@ -19,8 +22,11 @@ Bars:
 """
 
 import ast
+import importlib
+import inspect
 import logging
 import pathlib
+import re
 
 import numpy as np
 import pandas as pd
@@ -54,6 +60,49 @@ RENAMED = {"ops/vfc.py": {"vector_field_function_jax": "vector_field_function_to
 #: Names that a JAX package's ``__init__.py`` binds and its port's does not,
 #: each with where it stands.
 LEFT_OUT_EXPORTS = {}
+#: The settled kinds of signature difference, each with the phrase of
+#: ROADMAP.md ("Settled divergences", **Signatures**) that settles it.
+SIGNATURE_RULES = {
+    "device": '`device` defaults to `"cuda"`',
+    "dtype": "a dtype default is torch's dtype of the same name",
+    "random": "a JAX random key is the port's random source",
+    "gate": "`estep_reduced` drops `use_pallas`",
+    "staticmethod": "`simple_GC_DEC.loss_function` is a staticmethod",
+}
+#: Every public function or method whose parameters differ from its JAX
+#: counterpart's other than by added keyword parameters with defaults, with
+#: its rule: "random" names the JAX parameter and the port's in its place,
+#: "gate" and "staticmethod" the JAX parameters the port drops.
+SETTLED_SIGNATURES = {
+    **{f"{rel}::{name}": ("device",) for rel, names in {
+        "alignment/deformation.py": ["grid_deformation"],
+        "alignment/methods/__init__.py": ["empty_cache"],
+        "alignment/methods/deprecated_morpho.py": ["BA_align"],
+        "alignment/methods/morpho.py": ["Morpho_pairwise.__init__"],
+        "alignment/methods/paste.py": ["paste_pairwise_align", "paste_center_align"],
+        "alignment/morpho_alignment.py": ["morpho_align", "morpho_align_ref", "morpho_align_transformation"],
+        "alignment/paste_alignment.py": ["paste_align", "paste_align_ref"],
+        "alignment/transform.py": ["BA_transform", "BA_transform_and_assignment"],
+        "svg/get_svg.py": ["smoothing_and_sampling"],
+        "tdr/interpolations/interpolation_gaussianprocess/gp_train.py": ["gp_train"],
+        "tdr/interpolations/interpolation_gp.py": ["gp_interpolation"],
+        "tdr/morphometrics/morphofield/sparsevfc.py": ["cell_directions"],
+        "tools/cluster/_stagate.py": ["pySTAGATE.__init__"],
+    }.items() for name in names},
+    **{f"core/bridge.py::{name}": ("dtype",) for name in ("csr_to_dense_device", "layer_to_device",
+                                                          "points_to_raster")},
+    **{f"external/cast.py::{name}": ("random", "key", "generator") for name in ("drop_feature", "mask_edge",
+                                                                                 "random_aug")},
+    **{f"external/cast_model.py::{name}.__init__": ("random", "key", "seed") for name in ("Encoder", "GCNII", "GCN",
+                                                                                           "CCA_SSG")},
+    **{f"external/merfishvi_modules.py::{name}": ("random", "key", "rng") for name in (
+        "VAE.inference", "VAE.loss", "LDVAE.inference", "LDVAE.loss", "SpatialVAE.inference", "SpatialVAE.loss",
+        "MultiModalSpatialVAE.inference", "MultiModalSpatialVAE.inference_nonspatial",
+        "MultiModalSpatialVAE.inference_spatial", "MultiModalSpatialVAE.loss")},
+    "external/merfishvi_modules.py::SpatialEncoder.init_params": ("random", "rng", "gen"),
+    "alignment/methods/math.py::estep_reduced": ("gate", "use_pallas"),
+    "tools/cluster/spagcn_utils.py::simple_GC_DEC.loss_function": ("staticmethod", "self"),
+}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -129,6 +178,145 @@ def test_every_ported_package_exports_its_counterparts_names():
     for rel in packages:
         missing = _exported_names(ROOT / "spateo_tpu" / rel) - _exported_names(ROOT / "spateo_tpu_torch" / rel)
         assert missing == LEFT_OUT_EXPORTS.get(rel, set()), (rel, sorted(missing))
+
+
+def _module(package, rel):
+    name = rel[: -len("/__init__.py")] if rel.endswith("/__init__.py") else rel[: -len(".py")]
+    return importlib.import_module(f"{package}.{name.replace('/', '.')}")
+
+
+def _same_default(a, b):
+    if a is b:
+        return True
+    if inspect.isfunction(a) and inspect.isfunction(b):  # two lambdas, say
+        return a.__code__.co_code == b.__code__.co_code and a.__code__.co_consts == b.__code__.co_consts
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.dtype == b.dtype and np.array_equal(a, b)
+    try:
+        return type(a) is type(b) and bool(a == b)
+    except (TypeError, ValueError):
+        return False
+
+
+def _expected_parameters(params, rule):
+    """The JAX parameters as the port must take them under `rule`: [(name,
+    kind, default or `inspect.Parameter.empty`, whether to compare the
+    default)]."""
+    kind = rule[0] if rule else None
+    out = []
+    for p in params:
+        if kind in ("gate", "staticmethod") and p.name in rule[1:]:
+            continue
+        name, default, compare = p.name, p.default, True
+        if kind == "device" and name == "device":
+            default = "cuda"
+        elif kind == "dtype" and name == "dtype":
+            default = getattr(torch, np.dtype(p.default).name)
+        elif kind == "random" and name == rule[1]:
+            name, compare = rule[2], False
+        out.append((name, p.kind, default, compare))
+    return out
+
+
+def _signature_problems(jax_fn, port_fn, rule):
+    """Why `port_fn` does not take `jax_fn`'s parameters (under `rule`): in
+    their order, of their kind, with their defaults; parameters the port
+    adds have defaults and follow every JAX parameter that binds by
+    position. An empty list where it does."""
+    jp = list(inspect.signature(jax_fn).parameters.values())
+    tp = list(inspect.signature(port_fn).parameters.values())
+    want = _expected_parameters(jp, rule)
+    names = [w[0] for w in want]
+    by_name = {p.name: p for p in tp}
+    problems = []
+    if [p.name for p in tp if p.name in names] != names:
+        problems.append(f"parameters {[p.name for p in tp]}, expected {names} in this order")
+    for name, kind, default, compare in want:
+        q = by_name.get(name)
+        if q is not None and (q.kind != kind or compare and not _same_default(default, q.default)):
+            problems.append(f"{name}: {q.kind.name} = {q.default!r}, expected {kind.name} = {default!r}")
+    positional = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    last = max((i for i, p in enumerate(tp) if p.name in names and p.kind in positional), default=-1)
+    for i, q in enumerate(tp):
+        if q.name in names or q.kind in (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD):
+            continue
+        if q.default is inspect.Parameter.empty or (q.kind in positional and i < last):
+            problems.append(f"added parameter {q.name} has no default or comes before a JAX positional one")
+    return problems
+
+
+def _own_attributes(cls):
+    """Public attributes a JAX class defines in its own module tree (not
+    those of flax, equinox or `object`)."""
+    own = [c for c in cls.__mro__ if c.__module__.startswith("spateo_tpu.")]
+    return sorted({k for c in own for k in vars(c) if not k.startswith("_")}), own
+
+
+def _surface_diff():
+    """{"missing": [...], "signatures": {key: problems}} over every ported
+    module's public functions, and every public class's public attributes,
+    methods and ``__init__``; keys are ``"rel::name"``."""
+    missing, signatures, checked = [], {}, 0
+
+    def compare(key, a, b):
+        nonlocal checked
+        checked += 1
+        problems = _signature_problems(a, b, SETTLED_SIGNATURES.get(key))
+        if problems or key in SETTLED_SIGNATURES:
+            signatures[key] = problems
+
+    for rel in _ported_modules():
+        J, T = _module("spateo_tpu", rel), _module("spateo_tpu_torch", rel)
+        for name in sorted(_public_names(ROOT / "spateo_tpu" / rel) - LEFT_OUT.get(rel, set())):
+            a, b = getattr(J, name), getattr(T, RENAMED.get(rel, {}).get(name, name))
+            if not inspect.isclass(a):
+                compare(f"{rel}::{name}", a, b)
+                continue
+            attrs, own = _own_attributes(a)
+            missing += [f"{rel}::{name}.{k}" for k in attrs if not hasattr(b, k)]
+            for k in attrs:
+                if hasattr(b, k) and inspect.isroutine(getattr(a, k)):
+                    compare(f"{rel}::{name}.{k}", getattr(a, k), getattr(b, k))
+            if any("__init__" in vars(c) for c in own):
+                compare(f"{rel}::{name}.__init__", a.__init__, b.__init__)
+    return missing, signatures, checked
+
+
+@pytest.fixture(scope="module")
+def surface_diff():
+    return _surface_diff()
+
+
+def test_every_public_class_has_its_counterparts_attributes(surface_diff):
+    """`hasattr` on the port's class for every public attribute a JAX class
+    defines: methods, properties and class attributes (several of which are
+    None, so no `getattr(..., None)`)."""
+    missing, _, _ = surface_diff
+    assert missing == []
+
+
+def test_every_public_signature_matches_or_is_settled(surface_diff):
+    """Every public function's and method's parameters (names in order,
+    kinds, defaults) equal the JAX counterpart's, but for keyword
+    parameters with defaults that the port adds; the only other differences
+    are `SETTLED_SIGNATURES`, each explained by its rule, and every entry of
+    that table is still needed."""
+    _, signatures, checked = surface_diff
+    assert checked > 900
+    assert {k: v for k, v in signatures.items() if v} == {}
+    assert set(signatures) == set(SETTLED_SIGNATURES)
+    for key in SETTLED_SIGNATURES:  # each entry differs from JAX's without its rule
+        rel, name = key.split("::")
+        a, b = _module("spateo_tpu", rel), _module("spateo_tpu_torch", rel)
+        for part in name.split("."):
+            a, b = getattr(a, part), getattr(b, part)
+        assert _signature_problems(a, b, None), key
+
+
+@pytest.mark.parametrize("rule", sorted(SIGNATURE_RULES))
+def test_each_settled_signature_rule_is_recorded_in_the_roadmap(rule):
+    assert SIGNATURE_RULES[rule] in (ROOT / "ROADMAP.md").read_text()
+    assert any(v[0] == rule for v in SETTLED_SIGNATURES.values())
 
 
 # -- sampling ----------------------------------------------------------------------------------------
@@ -251,7 +439,174 @@ def test_logging_helpers_match_jax():
     assert twice(4) == 8 and twice.__name__ == "twice" and twice.__doc__ == "doc"
 
 
+def _records(mod, namespace, call, caplog):
+    """(level, message) of each record that `call(mod)` logs, with the
+    logger at DEBUG; the package's loggers do not propagate, so caplog's
+    handler goes on them directly."""
+    lg = logging.getLogger(namespace)
+    saved = lg.level
+    lg.addHandler(caplog.handler)
+    lg.setLevel(logging.DEBUG)
+    caplog.clear()
+    try:
+        call(mod)
+    finally:
+        lg.removeHandler(caplog.handler)
+        lg.setLevel(saved)
+    return [(r.levelno, r.getMessage()) for r in caplog.records]
+
+
+def _raise_and_log(lm):
+    try:
+        raise ValueError("boom")
+    except ValueError:
+        lm.main_exception("caught")
+
+
+def _insert_notices(lm):
+    lm.main_set_level(lm.DEBUG)  # the notices log at DEBUG
+    for attr in ("var", "obs", "obsm", "uns", "layer"):
+        getattr(lm, f"main_info_insert_adata_{attr}")(f"key_{attr}")
+
+
+LOGGER_CALLS = {
+    "main_error": lambda m: m.LoggerManager("spateo_lm_test").main_error("e", indent_level=2),
+    "main_critical": lambda m: m.LoggerManager("spateo_lm_test").main_critical("c"),
+    "main_exception": lambda m: _raise_and_log(m.LoggerManager("spateo_lm_test")),
+    "main_info_insert_adata": lambda m: _insert_notices(m.LoggerManager("spateo_lm_test")),
+    "gen_logger": lambda m: m.LoggerManager("spateo_lm_test").gen_logger("spateo_lm_test.gen").warning("w"),
+    "temp_timer_logger": lambda m: m.LoggerManager("spateo_lm_test").temp_timer_logger.info("t"),
+    "Logger.error, critical": lambda m: (m.Logger("spateo_lm_test").error("e %d", 1),
+                                         m.Logger("spateo_lm_test").critical("c")),
+    "Logger.namespaced": lambda m: m.Logger("spateo_lm_test", logging.DEBUG).namespaced("sub").info("n"),
+    "Logger.report_progress": lambda m: (m.Logger("spateo_lm_test").report_progress(count=3, total=8,
+                                                                                   progress_name="p"),
+                                         m.Logger("spateo_lm_test").report_progress(12.5)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOGGER_CALLS))
+def test_logger_methods_log_what_jax_logs(name, caplog):
+    """Each method of `Logger` and `LoggerManager` that the port took late
+    logs the same records (level and message) as the JAX package's, on the
+    logger it logs to."""
+    namespace = {"gen_logger": "spateo_lm_test.gen", "temp_timer_logger": "spateo_lm_test-temp-timer-logger",
+                 "Logger.namespaced": "spateo_lm_test.sub"}.get(name, "spateo_lm_test")
+    want = _records(JLg, namespace, LOGGER_CALLS[name], caplog)
+    got = _records(TLg, namespace, LOGGER_CALLS[name], caplog)
+    assert got == want and len(want) > 0
+
+
+def test_logger_attributes_match_jax():
+    """The level constants, `Logger.level`, `namespaced`'s name and level,
+    `gen_logger`'s level, and `log_time` / `finish_progress`, which read the
+    host clock since the previous call."""
+    for name in ("DEBUG", "INFO", "WARNING", "ERROR", "CRITICAL"):
+        assert getattr(TLg.LoggerManager, name) == getattr(JLg.LoggerManager, name) == getattr(logging, name)
+    for mod in (JLg, TLg):
+        lg = mod.Logger("spateo_attr_test", level=logging.WARNING)
+        assert lg.level == logging.WARNING
+        sub = lg.namespaced("x")
+        assert sub.namespace == "spateo_attr_test.x" and sub.level == logging.WARNING
+        lm = mod.LoggerManager("spateo_attr_test")
+        lm.main_set_level(logging.ERROR)
+        assert lm.gen_logger("spateo_attr_test.g").level == logging.ERROR
+        assert lm.temp_timer_logger.namespace == "spateo_attr_test-temp-timer-logger"
+    lg = TLg.Logger("spateo_attr_test")
+    t0 = lg.previous_timestamp
+    assert lg.time_passed == 0.0 and lg.log_time() >= 0.0 and lg.previous_timestamp >= t0
+    assert lg.time_passed == lg.previous_timestamp - t0
+
+
+@pytest.mark.parametrize("finish", [("s", r"p finished \[\d+\.\d{4}s\]"), ("ms", r"p finished \[\d+\.\d{4}ms\]")])
+def test_finish_progress_logs_as_jax_does(finish, caplog):
+    unit, pattern = finish
+    recs = [_records(m, "spateo_lm_test", lambda m: m.Logger("spateo_lm_test").finish_progress("p", unit), caplog)
+            for m in (JLg, TLg)]
+    for (level, msg), in recs:
+        assert level == logging.INFO and re.fullmatch(pattern, msg), msg
+
+
+@pytest.mark.parametrize("n,use_iterable", [(7, False), (40, False), (45, True)])
+def test_main_tqdm_yields_and_logs_as_jax_does(n, use_iterable, caplog):
+    """`main_tqdm` yields every item and logs `desc [i/total] (s)` every
+    twentieth of the total, as the JAX package's does (the seconds, which
+    read the host clock, are left out of the comparison)."""
+    def run(mod):
+        lm = mod.LoggerManager("spateo_lm_test")
+        kw = {"iterable": range(n)} if use_iterable else {"generator": list(range(n))}
+        return list(lm.main_tqdm(desc="loop", **kw))
+
+    out = {}
+    for mod in (JLg, TLg):
+        recs = _records(mod, "spateo_lm_test", lambda m: out.__setitem__(m, run(m)), caplog)
+        out[mod, "lines"] = [(lvl, re.sub(r"\(\d+\.\ds\)$", "(s)", msg)) for lvl, msg in recs]
+    assert out[TLg] == out[JLg] == list(range(n))
+    assert out[TLg, "lines"] == out[JLg, "lines"] and len(out[JLg, "lines"]) >= 7
+
+
 # -- the core device helpers ----------------------------------------------------------------------------------
+
+
+TO_DEVICE_CASES = {
+    "float64": (np.linspace(-1.5, 2.5, 7), None),
+    "int64": (np.arange(-3, 5, dtype=np.int64), None),
+    "uint8": (np.arange(250, 256, dtype=np.uint8), None),
+    "uint64": (np.array([0, 7, 2**31 + 5], dtype=np.uint64), None),
+    "bool": (np.array([True, False, True]), None),
+    "complex128": (np.array([1 + 2j, -0.5j]), None),
+    "explicit float64": (np.arange(6, dtype=np.int64).reshape(2, 3), np.float64),
+    "float32 of float64": (np.array([1 / 3, 2 / 3]), np.float32),
+    "scalar": (2.5, None),
+    "list": ([1, 2, 3], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TO_DEVICE_CASES))
+def test_to_device_matches_jax(case):
+    """`to_device(x, dtype)` gives the JAX package's dtype (x64 off: 64-bit
+    types narrow, also when asked for) and values; a torch dtype does too."""
+    x, dtype = TO_DEVICE_CASES[case]
+    a = np.asarray(JB.to_device(x, dtype))
+    b = TB.to_device(x, dtype, device="cpu")
+    assert b.device.type == "cpu" and str(b.dtype) == f"torch.{a.dtype.name}"
+    assert b.shape == a.shape and np.array_equal(b.numpy(), a)
+    if dtype is not None:
+        assert torch.equal(TB.to_device(x, getattr(torch, np.dtype(dtype).name), device="cpu"), b)
+    assert stt.core.to_device is TB.to_device
+
+
+def test_to_device_sharding_matches_jax():
+    """`to_device(x, dtype, sharding=...)` on a one-rank gloo mesh: the
+    placements over `config.mesh`, or a (mesh, placements) pair, give a
+    DTensor whose full tensor is the JAX package's array on its 8-device
+    mesh; a missing mesh or placements of another length raise MeshError."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from spateo_tpu.parallel import mesh as jmesh
+
+    x = np.random.default_rng(3).normal(size=(16, 3))
+    jm = jmesh.create_mesh()
+    want = {"row": np.asarray(JB.to_device(x, np.float32, sharding=jmesh.row_sharding(jm))),
+            "replicated": np.asarray(JB.to_device(x, sharding=jmesh.replicated(jm)))}
+    cfg = stt.config
+    saved = cfg.mesh_device
+    cfg.mesh_device = "cpu"
+    try:
+        mesh = cfg.mesh
+        got = {"row": TB.to_device(x, np.float32, sharding=stt.parallel.row_sharding(mesh)),
+               "replicated": TB.to_device(x, sharding=(mesh, stt.parallel.replicated(mesh)))}
+        for k, t in got.items():
+            assert isinstance(t, DTensor) and t.dtype == torch.float32
+            assert np.array_equal(t.full_tensor().numpy(), want[k]), k
+        assert got["row"].placements[0] == Shard(0)
+        with pytest.raises(stt.MeshError, match="DeviceMesh"):
+            TB.to_device(x, sharding=(None, stt.parallel.replicated(mesh)))
+        with pytest.raises(stt.MeshError, match="placements"):
+            TB.to_device(x, sharding=[Shard(0)])
+    finally:
+        torch.distributed.destroy_process_group()
+        cfg.mesh_device = saved
 
 
 @pytest.mark.parametrize("pads", [(1, 1), (8, 128)])
@@ -272,7 +627,7 @@ def test_csr_and_layer_to_device_match_jax(pads):
         assert sa == sb and np.array_equal(np.asarray(a), b.numpy())
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.int64, np.float32])
+@pytest.mark.parametrize("dtype", [np.float64, np.int64, np.float32, np.complex128])
 def test_segment_sum_device_matches_jax(dtype):
     rng = np.random.default_rng(1)
     values = rng.integers(0, 50, (400, 3)).astype(dtype)

@@ -33,7 +33,11 @@ final ``ok`` line:
    (k=5, BP 50 iterations, bf16 messages), then four tiles through
    `starro_em_bp_stream`; the launch counts of that run prove the kernel and
    the fused delta's reduction ran.
-   A per-stage breakdown of one tile is timed first. Then the upload A/B
+   A per-stage breakdown of one tile is timed first. Then the same stream
+   under torch.profiler, the process's first trace: of the rasters' copies
+   to the card and the packed masks' copies back (the side streams), how
+   many overlap a kernel on the compute stream (each count must be above
+   0), and their ms under kernels. Then the upload A/B
    (`upload_codec_ab`): `upload_tile` (the codec) against the stream's
    pinned int16 copy on the four rasters and a sparse tile, each equal bit
    for bit, and each route's ms a 2048² tile.
@@ -136,9 +140,10 @@ final ``ok`` line:
    the same tile and bins (each warmed up on a 512² corner),
    `mask_nuclei_from_stain` on a stain of the disks, the staged scoring and
    the VI fit under the profiler (idle share, launches, top device ops),
-   `starro_em_bp_stream` of four 2048² tiles with `em_batch` 1 and
-   4 (identical outputs; Mpixels/s; the EM's launches an iteration under
-   the profiler), and a GEM round trip of a 512² tile (`read_bgi_agg`,
+   per-tile `starro_em_bp` calls on four 2048² tiles against the pipelined
+   `starro_em_bp_stream` with `em_batch` 1 and 4 (outputs equal bit for
+   bit; Mpixels/s of each and the ms the pipeline hid; the EM's launches an
+   iteration under the profiler), and a GEM round trip of a 512² tile (`read_bgi_agg`,
    segmentation, `read_bgi` to cells x genes).
 17. The rest of Starro, card against CPU at 512² with two bins, a band
    outside them and a certain mask: `_score_pixels` for EM+BP, VI+BP (from
@@ -2091,15 +2096,19 @@ def phase_starro_tutorial():
           f"{n_bins - (0 in bins)} bins, 500 Adam steps ({vwall!r}, {vbusy!r}, {1 - vbusy / vwall!r}, {vnl}), top ops "
           f"{top(vops)}")
 
-    # the stream, per-tile fits against fits of 4 tiles at once
+    # the pipelined stream, per-tile fits and fits of 4 tiles at once, against
+    # per-tile `starro_em_bp` calls (each a stream of one tile: nothing of a
+    # tile overlaps another's compute)
     tiles = [make_raster(TILE, TILE, seed=s) for s in range(4)]
     kw = dict(k=5, seed=0, bp_max_iter=50, mask_only=True)
     for b in (1, 4):  # warm-up: one tile per batch shape
         list(stt.cs.starro_em_bp_stream(tiles[:b], em_batch=b, **kw))
+    t0, out0 = host_ms(lambda: [ts.starro_em_bp(t, **kw) for t in tiles])
     t1, out1 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=1, **kw)))
     t4, out4 = host_ms(lambda: list(stt.cs.starro_em_bp_stream(tiles, em_batch=4, **kw)))
-    same = all(np.array_equal(m1, m4) and torch.equal(s1, s4) for (s1, m1), (s4, m4) in zip(out1, out4))
-    check(same, "em_batch=4 stream differs from the per-tile stream")
+    for name, out in (("em_batch=1", out1), ("em_batch=4", out4)):
+        check(all(np.array_equal(m, m0) and torch.equal(s, s0) for (s, m), (s0, m0) in zip(out, out0)),
+              f"the {name} stream differs from per-tile starro_em_bp calls")
     n_samples = ts._n_samples(TILE * TILE, 0.001)
     phase_a = [ts._starro_density_init_sample(ts._upload(t, "cuda"), 5, n_samples, 0) for t in tiles]
     per_iter = {}
@@ -2111,9 +2120,11 @@ def phase_starro_tutorial():
                                                                          stats=stats, rowwise=True))
         per_iter[b] = (nl / stats["n_iter"], stats["n_iter"], wall)
     mpx = 4 * TILE * TILE / 1e3
-    print(f"phase 16: stream of 4 tiles {TILE}x{TILE}: em_batch=1 {t1!r} ms ({mpx / t1!r} Mpixels/s), em_batch=4 "
-          f"{t4!r} ms ({mpx / t4!r} Mpixels/s), masks and scores identical {same}; the EM's launches an iteration "
-          f"(iterations, wall ms under the profiler): B=1 {per_iter[1]}, B=4 {per_iter[4]}")
+    print(f"phase 16: 4 tiles {TILE}x{TILE} (mask only): per-tile starro_em_bp calls {t0!r} ms ({mpx / t0!r} "
+          f"Mpixels/s), the pipelined stream em_batch=1 {t1!r} ms ({mpx / t1!r} Mpixels/s; hid {t0 - t1!r} ms, "
+          f"{(t0 - t1) / 4!r} a tile), em_batch=4 {t4!r} ms ({mpx / t4!r} Mpixels/s); both streams' masks and "
+          f"scores equal to the per-tile calls'; the EM's launches an iteration (iterations, wall ms under the "
+          f"profiler): B=1 {per_iter[1]}, B=4 {per_iter[4]}")
 
     # the GEM round trip
     Xg = make_raster(512, 512, seed=5)
@@ -3628,7 +3639,66 @@ def phase_starro_main(stt, bp_cuda, em, ts, make_raster):
         f"peak device memory {peak_gb!r} GB; bp_step launches in the main path {launches}, fused delta launches "
         f"{delta_launches}"
     )
+
+    # the pipeline's copies under the profiler, the process's first trace
+    # (a later one may lose kernel records, PERF.md section 7)
+    ov = stream_overlaps(lambda: list(stt.cs.starro_em_bp_stream(tiles, k=5, seed=0, bp_max_iter=50,
+                                                                    mask_only=True)))
+    print(f"phase 3: the stream's copies under torch.profiler ({ov['wall_ms']!r} ms; copies, those overlapping a "
+          f"kernel on the compute stream, their ms, their ms under kernels): rasters up {ov['h2d']}, packed masks "
+          f"down {ov['d2h']}; {ov['kernels']} kernels on streams {ov['streams']}")
+    check(all(np.array_equal(m, m0) for (_, m), (_, m0) in zip(ov["out"], streamed)), "profiled stream differs")
+    check(ov["h2d"][0] == 4 and ov["d2h"][0] == 4, f"copies on the side streams: {ov['h2d'][0]} rasters up, "
+          f"{ov['d2h'][0]} packed masks down, 4 each expected")
+    check(ov["h2d"][1] > 0 and ov["d2h"][1] > 0, "no raster or no mask copy overlapped a kernel")
     return launches, delta_launches, mask
+
+
+def stream_overlaps(run):
+    """`run` (a Starro stream of tiles) under torch.profiler: its result, its
+    wall ms, and, of the copies on the side streams (those on which no kernel
+    runs: the rasters to the card, the packed masks back), the count, how
+    many overlap a kernel on another stream, their ms and their ms under a
+    kernel (the union of the kernels' intervals), for each direction."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, copies = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        span, sid, name = (e.start_ns(), e.end_ns()), e.device_resource_id(), e.name()
+        if name.startswith("Memcpy"):
+            copies.append((name, sid, span))
+        elif not name.startswith("Memset"):
+            kernels.setdefault(sid, []).append(span)
+    result = {"out": out, "wall_ms": wall, "kernels": sum(map(len, kernels.values())), "streams": sorted(kernels)}
+    for key, tag in (("h2d", "HtoD"), ("d2h", "DtoH")):
+        side = [c for c in copies if tag in c[0] and c[1] not in kernels]
+        n_over, ms, ms_under = 0, 0.0, 0.0
+        for _, sid, (c0, c1) in side:
+            under = _covered(c0, c1, [k for s, ks in kernels.items() if s != sid for k in ks])
+            n_over += under > 0
+            ms += (c1 - c0) / 1e6
+            ms_under += under / 1e6
+        result[key] = (len(side), n_over, ms, ms_under)
+    return result
+
+
+def _covered(c0, c1, spans):
+    """The length of [c0, c1) covered by the union of `spans`."""
+    total, end = 0, c0
+    for k0, k1 in sorted(s for s in spans if s[0] < c1 and s[1] > c0):
+        k0, k1 = max(k0, end), min(k1, c1)
+        if k1 > k0:
+            total, end = total + (k1 - k0), k1
+    return total
 
 
 def upload_codec_ab(ts, make_raster, reps=5):

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -260,10 +260,15 @@ def bp_kernel(
     check_every: int = 1,
     msg_dtype: str = "float32",
     stats: Optional[dict] = None,
+    queued: Optional[Callable[[], None]] = None,
 ) -> torch.Tensor:
     """Loopy-BP marginals P(cell) [H, W] with the fused iteration in the
     loop; the counterpart of `bp_kernel_pallas`, step for step. If `stats`
-    is given, it receives ``n_iter``, the iterations run.
+    is given, it receives ``n_iter``, the iterations run. `queued`, if given,
+    is called once the first block of iterations is enqueued, before the
+    host waits for the card: the card then has that block queued (the
+    longest run of work the Starro stream enqueues without waiting), under
+    which the caller's copies on other streams run.
 
     The L2 delta between successive messages is measured only on the last
     iteration of each block of `check_every`, by `bp_step(..., delta=True)`
@@ -295,8 +300,13 @@ def bp_kernel(
             for _ in range(n_free):
                 M = bp_step(phi_pl, M, p, q)
             M, delta_t = bp_step(phi_pl, M, p, q, delta=True)
+            if queued is not None:
+                queued()
+                queued = None
             delta = float(delta_t)
             i += n_free + 1
+    if queued is not None:
+        queued()
     if stats is not None:
         stats["n_iter"] = i
     M = M.to(torch.float32)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bridge import _to_device as _to
+from .bits import unpackbits
 
 N4 = ((-1, 0), (1, 0), (0, -1), (0, 1))
 N8 = N4 + ((-1, -1), (-1, 1), (1, -1), (1, 1))
@@ -163,14 +164,23 @@ def _watershed_kernel(
     return labels
 
 
-def _label_cells_fused_kernel(mask: torch.Tensor, min_distance: int, max_labels: int, n_levels: int = 64):
-    """The whole labeling chain on the device: chamfer distance transform ->
-    local-max peak markers -> connected components of the peak plateaus ->
-    distance-based watershed -> per-cell centroids from the peak plateaus.
-    Returns (labels [H, W] int32, cnt, sy, sx [max_labels + 1] float32)."""
-    H, W = mask.shape
+def _label_cells_fused_kernel(
+    mask_bits: torch.Tensor,  # the packed bits of the boolean mask (uint8)
+    shape_rows: int,
+    shape_cols: int,
+    min_distance: int,
+    max_labels: int,
+    n_levels: int = 64,
+):
+    """The whole labeling chain on the device: unpack the mask -> chamfer
+    distance transform -> local-max peak markers -> connected components of
+    the peak plateaus -> distance-based watershed -> per-cell centroids from
+    the peak plateaus. Returns (labels [H, W] int32, cnt, sy, sx
+    [max_labels + 1] float32)."""
+    H, W = shape_rows, shape_cols
     HW = H * W
-    dev = mask.device
+    dev = mask_bits.device
+    mask = unpackbits(mask_bits, HW).reshape(H, W)
     d = _chamfer_kernel(mask)
     peaks = _local_max_kernel(d, min_distance) & mask
     roots = _cc_kernel(peaks, 8)  # root = min flat index of plateau (+1)
@@ -205,20 +215,30 @@ def label_cells_from_mask(
     min_distance: int = 3,
     max_labels: Optional[int] = None,
     n_levels: int = 64,
+    shape: Optional[Tuple[int, int]] = None,
     device="cuda",
 ):
     """Fused labeling: boolean mask -> watershed labels (a device tensor) +
     per-cell centroids (host [L, 2]).
 
+    The mask goes to `device` bit-packed (an eighth of its bytes) and is
+    unpacked there. With `shape` = (H, W), `mask` is already packed: the
+    bytes of ``np.packbits(m.ravel())`` (`ops.bits.packbits` of a tensor),
+    a host array or a tensor, e.g. left on the card by the Starro stream.
+
     Returns (labels, centroids): `labels` is the int32 label raster left on
     `device` for downstream chaining (pull it with ``.cpu().numpy()`` when the
     pixel assignment is needed); `centroids` are the peak-plateau means."""
-    mask = np.asarray(mask).astype(bool)
-    H, W = mask.shape
+    if shape is None:
+        mask = np.asarray(mask).astype(bool)
+        (H, W), bits = mask.shape, np.packbits(mask.reshape(-1))
+    else:
+        (H, W), bits = (int(shape[0]), int(shape[1])), mask
     if max_labels is None:
         # ceil of the densest packing of min_distance-separated peaks
         max_labels = max(int(H * W / max(min_distance, 1) ** 2), 1024)
-    labels, cnt, sy, sx = _label_cells_fused_kernel(_to(mask, device), int(min_distance), int(max_labels), n_levels)
+    labels, cnt, sy, sx = _label_cells_fused_kernel(_to(bits, device), H, W, int(min_distance), int(max_labels),
+                                                    n_levels)
     cnt, sy, sx = cnt.cpu().numpy(), sy.cpu().numpy(), sx.cpu().numpy()
     nz = cnt[1:] > 0
     cents = np.stack([sy[1:][nz] / cnt[1:][nz], sx[1:][nz] / cnt[1:][nz]], axis=1).astype(np.float32)

@@ -14,16 +14,25 @@ Differences from the JAX package, by design:
   the tile's device (a different stream from `jax.random`), or from the
   caller through `uniform`. The top-k is exact `torch.topk`, as XLA's CPU
   lowering of `approx_max_k` is.
-- The stream's raster uploads from pinned memory with ``non_blocking=True``
-  as int16 when it holds integers that fit, else float32. The JAX package's
-  lossless upload codec (`encode_tile`, `upload_tile`) is here too, decoded
-  by torch ops on the target device. On the card's A/B (PERF.md) the codec
-  lost on dense rasters (its host encoding costs more than the copy it
-  saves) and won on sparse ones (it never densifies), so the stream sends
-  a scipy sparse tile that the codec would send as COO through the codec,
-  and every other tile through the pinned copy. The JAX package's
-  bit-packed mask is not ported: ``mask_only=True`` returns the mask as a
-  host array.
+- The stream's raster uploads as int16 when it holds integers that fit,
+  else float32. The JAX package's lossless upload codec (`encode_tile`,
+  `upload_tile`) is here too, decoded by torch ops on the target device. On
+  the card's A/B (PERF.md) the codec lost on dense rasters (its host
+  encoding costs more than the copy it saves) and won on sparse ones (it
+  never densifies), so the stream sends a scipy sparse tile that the codec
+  would send as COO through the codec, and every other tile as the narrowed
+  raster. With ``mask_only=True`` the mask is bit-packed on the device
+  (`ops.bits.packbits`, the bytes of `jnp.packbits`) and unpacked on the
+  host, as there.
+- The stream is the JAX package's four-stage pipeline: while the card
+  computes tile i, a worker thread stages tile i+2 on the host (the route
+  above, into a reused page-locked buffer), tile i+1 goes to the card on a
+  side stream and tile i-1's packed mask comes back on a second one; each
+  tile is yielded once the next one has been computed. PyTorch dispatches
+  eagerly and the EM and BP loops read the card, so the card keeps up with
+  the host and idles between launches: both copies are enqueued once the
+  tile's first block of BP iterations is, when the card has the most work
+  queued.
 - One path runs every tile: `starro_em_bp` is a stream of one tile, and
   `starro_em_bp_stream(em_batch=n)` fits up to n consecutive same-shape
   tiles' NB mixtures in one batched EM, each tile frozen at its own
@@ -36,12 +45,16 @@ Differences from the JAX package, by design:
 
 from __future__ import annotations
 
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.bridge import _to_device
+from ..core.bridge import _to_device, _torch_dtype
+from ..ops.bits import packbits
 from ..ops.bp import _bp_kernel, _use_cuda_bp, create_neighbor_offsets
 from ..ops.bp_cuda import bp_kernel
 from ..ops.em import _nbn_em_batched, nb_logpmf
@@ -118,11 +131,12 @@ def _starro_score_mask(
     use_cuda_bp: bool = False,
     bp_msg_dtype: str = "float32",
     bp_check_every: int = 10,
+    pack_mask: bool = False,
 ):
     """Steps 5-7: per-pixel NB conditionals, loopy-BP marginals, Otsu
     threshold and close/open morphology. Returns (scores, mask) on res's
-    device. The NB mixture may come as numpy arrays, e.g. fitted by the JAX
-    package.
+    device, the mask bit-packed (`ops.bits.packbits`) with `pack_mask`. The
+    NB mixture may come as numpy arrays, e.g. fitted by the JAX package.
 
     ``use_cuda_bp`` selects the fused 4-neighbour iteration (`bp_kernel`,
     delta checked every `bp_check_every` iterations, messages stored in
@@ -130,15 +144,24 @@ def _starro_score_mask(
     the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor.
     Otherwise the generic `_bp_kernel` runs."""
     del w_  # the conditional stack is normalised, so the weights cancel
-    phi = _starro_conditionals(res, r_, p_)
+    return _starro_bp_mask(_starro_conditionals(res, r_, p_), mk, offsets, bp_p, bp_q, bp_precision, bp_max_iter,
+                           use_cuda_bp, bp_msg_dtype, bp_check_every, pack_mask)
 
+
+def _starro_bp_mask(phi, mk, offsets, bp_p, bp_q, bp_precision, bp_max_iter, use_cuda_bp, bp_msg_dtype,
+                    bp_check_every, pack_mask, queued=None):
+    """Steps 6-7 of `_starro_score_mask` on the conditionals `phi`;
+    `queued` as `bp_kernel` takes it (called before the generic loop)."""
     # 6. loopy-BP marginals
     if use_cuda_bp:
         scores = bp_kernel(phi, bp_p, bp_q, bp_precision, bp_max_iter, check_every=bp_check_every,
-                           msg_dtype=bp_msg_dtype)
+                           msg_dtype=bp_msg_dtype, queued=queued)
     else:
+        if queued is not None:
+            queued()
         scores = _bp_kernel(phi, offsets, bp_p, bp_q, bp_precision, bp_max_iter)
-    return scores, _starro_threshold_mask(scores, mk)
+    mask = _starro_threshold_mask(scores, mk)
+    return scores, packbits(mask) if pack_mask else mask
 
 
 def _starro_conditionals(res: torch.Tensor, r_, p_) -> torch.Tensor:
@@ -181,13 +204,18 @@ def _starro_em_bp_fused(
     seed: int = 0,
     uniforms=None,
     bp_check_every: int = 10,
+    pack_mask: bool = False,
+    queued=None,
 ):
     """The whole pipeline for tiles `Xs`: steps 1-3 per tile, one NB-mixture
     EM for all of them (step 4), steps 5-7 per tile. The EM sums each tile's
     samples on their own (`rowwise`), so a tile's fit is exactly the one it
     gets alone. `uniforms` (one per tile) replaces the draws made from
     `seed`. Yields (scores [H, W] f32, mask [H, W] bool) per tile, on its
-    device."""
+    device; with `pack_mask` the mask's bits ([ceil(H W / 8)] uint8).
+    `queued`, if given, goes to the first tile's BP (`bp_kernel`): it is
+    called once that tile's first block of iterations is enqueued, when the
+    card has the most work queued that the host enqueues without waiting."""
     uniforms = [None] * len(Xs) if uniforms is None else uniforms
     steps = [_starro_density_init_sample(X, k, n_samples, seed, u) for X, u in zip(Xs, uniforms)]
 
@@ -201,32 +229,129 @@ def _starro_em_bp_fused(
         rowwise=True,
     )
     for j, s in enumerate(steps):
-        yield _starro_score_mask(
-            s[0], w_[j], r_[j], p_[j], mk, offsets, bp_p, bp_q, bp_precision, bp_max_iter, use_cuda_bp, bp_msg_dtype,
-            bp_check_every,
-        )
+        yield _starro_bp_mask(_starro_conditionals(s[0], r_[j], p_[j]), mk, offsets, bp_p, bp_q, bp_precision,
+                              bp_max_iter, use_cuda_bp, bp_msg_dtype, bp_check_every, pack_mask,
+                              queued if j == 0 else None)
 
 
-def _upload(X, device) -> torch.Tensor:
-    """The raster on `device`: int16 when it holds integers in [-32767,
-    32767] (exact, half the bytes of f32), else float32. A scipy sparse
-    raster that `encode_tile` sends as COO goes as its nonzeros, scattered
-    on the device; any other is copied dense from pinned memory."""
+class _HostBuffers:
+    """Host staging buffers reused from tile to tile, page-locked when the
+    tiles go to a card (so that their copies run asynchronously). `take`
+    hands out a buffer of at least n bytes, the smallest free one that fits;
+    `give` takes one back with the event of the last copy that reads or
+    writes it, and the buffer is handed out again only once that event has
+    completed. The stream's worker and its main thread share it, hence the
+    lock."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self._free = []  # (uint8 tensor, event or None)
+        self._lock = threading.Lock()
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        with self._lock:
+            fits = [i for i, (buf, _) in enumerate(self._free) if buf.numel() >= nbytes]
+            buf, event = self._free.pop(min(fits, key=lambda i: self._free[i][0].numel())) if fits else (None, None)
+        if buf is None:
+            return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self.pinned)
+        if event is not None:
+            event.synchronize()
+        return buf
+
+    def give(self, buf: torch.Tensor, event=None):
+        with self._lock:
+            self._free.append((buf, event))
+
+
+def _stage(X, buffers: _HostBuffers):
+    """The host half of a tile's upload, written into a buffer from
+    `buffers`: a scipy sparse raster that `encode_tile` sends as COO as its
+    flat indices (int32) and values, anything else dense, as int16 when it
+    holds integers in [-32767, 32767] (exact, half the bytes of f32), else
+    float32. Returns (kind "coo" or "dense", buffer, parts, shape), a part
+    (byte offset, numpy dtype, number of values) for each array in the
+    buffer, at offsets aligned to 8 bytes."""
     from scipy import sparse as _sp
 
     if _sp.issparse(X):
         enc = encode_tile(X)
         if enc[0] == "coo":
-            return _upload_encoded(enc, device)
+            _, idx, val, shape = enc
+            return ("coo", *_write(buffers, [(idx, np.int32), (val, np.int16 if val.dtype == np.uint16 else val.dtype)]),
+                    shape)
         X = X.toarray()
     X = np.asarray(X)
-    if X.size and np.issubdtype(X.dtype, np.integer) and np.abs(X).max() < 32767:
-        X = X.astype(np.int16)
-    elif X.size and np.issubdtype(X.dtype, np.floating) and np.abs(X).max() < 32767 and np.all(X == np.round(X)):
-        X = X.astype(np.int16)
-    else:
-        X = X.astype(np.float32)
-    return _to_device(X, device)
+    # the range in two passes and integrality in one comparison (a byte a
+    # pixel), no float temporaries: this runs on the stream's worker, beside
+    # the main thread's launches
+    if X.size and (np.issubdtype(X.dtype, np.integer) or np.issubdtype(X.dtype, np.floating)) \
+            and -32767 < X.min() and X.max() < 32767:  # NaN fails both
+        buf, parts = _write(buffers, [(X, np.int16)])
+        if np.issubdtype(X.dtype, np.integer) or np.array_equal(buf.numpy()[: 2 * X.size].view(np.int16), X.ravel()):
+            return ("dense", buf, parts, X.shape)
+        buffers.give(buf)  # non-integral values
+    return ("dense", *_write(buffers, [(X, np.float32)]), X.shape)
+
+
+def _write(buffers: _HostBuffers, arrays):
+    """Each (array, numpy dtype) of `arrays` cast into one buffer from
+    `buffers`; returns (buffer, parts) as `_stage` describes them."""
+    parts, end = [], 0
+    for a, dt in arrays:
+        dt = np.dtype(dt)
+        parts.append((end, dt, a.size))
+        end += -(-a.size * dt.itemsize // 8) * 8
+    buf = buffers.take(end)
+    host = buf.numpy()
+    for (off, dt, n), (a, _) in zip(parts, arrays):
+        np.copyto(host[off : off + n * dt.itemsize].view(dt).reshape(a.shape), a, casting="unsafe")
+    return buf, parts
+
+
+def _send(staged, device: torch.device, stream, buffers: _HostBuffers):
+    """Enqueue the copy of a staged tile's bytes to `device` on `stream` (the
+    current stream when None), and give its buffer back to `buffers` with
+    the copy's event. Returns (device bytes, event); to the CPU, a copy of
+    the bytes and no event."""
+    _, buf, parts, _ = staged
+    off, dt, n = parts[-1]
+    host = buf[: off + n * dt.itemsize]
+    if device.type != "cuda":
+        data = host.clone()
+        buffers.give(buf)
+        return data, None
+    with torch.cuda.stream(stream):
+        data = torch.empty(host.numel(), dtype=torch.uint8, device=device)
+        data.copy_(host, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+    buffers.give(buf, event)
+    return data, event
+
+
+def _land(staged, sent) -> torch.Tensor:
+    """The raster of a sent tile on the current stream: the stream waits for
+    the copy's event (and keeps the bytes from reuse until it is done with
+    them), then decodes a COO tile."""
+    kind, _, parts, (H, W) = staged
+    data, event = sent
+    if event is not None:
+        current = torch.cuda.current_stream(data.device)
+        current.wait_event(event)
+        data.record_stream(current)
+    views = [data[off : off + n * dt.itemsize].view(_torch_dtype(dt)) for off, dt, n in parts]
+    if kind == "dense":
+        return views[0].reshape(int(H), int(W))
+    return _decode_coo(views[0].long(), views[1], int(H), int(W))
+
+
+def _upload(X, device) -> torch.Tensor:
+    """The raster on `device` by the stream's route (`_stage`), copied on the
+    current stream."""
+    device = torch.device(device)
+    buffers = _HostBuffers(pinned=device.type == "cuda")
+    staged = _stage(X, buffers)
+    return _land(staged, _send(staged, device, None, buffers))
 
 
 def _narrow_upload(X: np.ndarray) -> np.ndarray:
@@ -514,28 +639,167 @@ def starro_em_bp_stream(
 
     Up to `em_batch` consecutive same-shape tiles make a chunk that shares
     one batched NB-mixture EM (the launch-bound stage); each then gets its
-    own conditionals, BP and mask. Overlapping one chunk's copies with the
-    next one's compute is not ported."""
+    own conditionals, BP and mask. Around the chunks runs the JAX package's
+    four-stage pipeline:
+
+    - a one-thread worker stages each tile on the host as soon as it is
+      pulled from `tiles` (`_stage`, into a reused buffer of
+      `_HostBuffers`);
+    - while a chunk computes, the tile pulled after it is copied to the card
+      on a side stream (`_send`); the compute stream waits for a copy's
+      event where it first uses the tile (`_land`);
+    - with ``mask_only=True`` each mask is bit-packed on the card, and the
+      previous chunk's masks are copied back on a second side stream that
+      waits for each mask's event;
+    - a chunk is yielded only after the next one has been computed; then
+      the host waits for each mask's copy and unpacks it.
+
+    PyTorch dispatches eagerly and the EM and BP loops read the card, so the
+    card keeps up with the host and idles between its launches: a copy
+    enqueued at an arbitrary point runs in such a gap. Both copies are
+    therefore enqueued once the chunk's first block of BP iterations is
+    (`queued` of `_starro_em_bp_fused`), when the card has the most work
+    queued. Tiles are pulled from `tiles`, and yielded, in the order of the
+    JAX package's `starro_em_bp_stream`: with ``em_batch=1`` tile i is
+    yielded once tile i+3 has been pulled; with chunks, a chunk is yielded
+    once the chunk after the next one has begun to be pulled (or `tiles` has
+    ended). On the CPU the worker and that order are the same, with no
+    streams. An error on the worker is raised here."""
+    from scipy import sparse as _sp
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    em_batch = max(int(em_batch), 1)
+    mk = mk or k + 2
     offsets = _offsets(bp_k, bp_square)
+    buffers = _HostBuffers(pinned=on_card)
+    h2d = torch.cuda.Stream(device) if on_card else None
+    d2h = torch.cuda.Stream(device) if on_card else None
+    it = iter(tiles)
+    pulled = deque()  # _Tile records pulled from `tiles`, not yet in a chunk
+    ended = False
+    worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="starro-stream")
 
-    def run(chunk):
-        devs = [_upload(X, device) for X in chunk]
-        H, W = int(devs[0].shape[0]), int(devs[0].shape[1])
-        for scores, mask in _starro_em_bp_fused(
-            devs, k, mk or k + 2, _n_samples(H * W, downsample), int(em_max_iter), float(em_precision), offsets,
-            float(bp_p), float(bp_q), float(bp_precision), int(bp_max_iter), _use_cuda_bp(offsets, devs[0]),
-            str(bp_msg_dtype), 0 if seed is None else int(seed),
-        ):
-            yield scores, (mask.cpu().numpy() if mask_only else mask)
+    def pull() -> bool:
+        nonlocal ended
+        X = _END if ended else next(it, _END)
+        if X is _END:
+            ended = True
+            return False
+        X = X if _sp.issparse(X) else np.asarray(X)
+        pulled.append(_Tile(X.shape, worker.submit(_stage, X, buffers)))
+        return True
 
-    chunk = []
-    for X in tiles:
-        if chunk and (np.shape(X) != np.shape(chunk[0]) or len(chunk) == em_batch):
-            yield from run(chunk)
-            chunk = []
-        chunk.append(X)
-    if chunk:
-        yield from run(chunk)
+    def form() -> list:
+        """The next chunk: up to `em_batch` same-shape tiles from the head of
+        `pulled`, closed (as the JAX package closes it) by a tile pulled
+        after it, or by the end of `tiles`."""
+        while True:
+            n = 0
+            while n < min(len(pulled), em_batch) and pulled[n].shape == pulled[0].shape:
+                n += 1
+            if len(pulled) > n or not pull():
+                return [pulled.popleft() for _ in range(n)]
+
+    def send(tile):
+        if tile.sent is None:
+            staged = tile.staged.result()
+            tile.sent = staged, _send(staged, device, h2d, buffers)
+
+    def copy_back(outs):
+        """Enqueue the copies of these tiles' packed masks to host buffers."""
+        for out in outs:
+            if out.host is None:
+                n = out.mask.numel()
+                out.host = buffers.take(n)
+                if on_card:
+                    with torch.cuda.stream(d2h):
+                        d2h.wait_event(out.made)
+                        out.host[:n].copy_(out.mask, non_blocking=True)
+                        out.mask.record_stream(d2h)
+                        out.copied = torch.cuda.Event()
+                        out.copied.record()
+                else:
+                    out.host[:n].copy_(out.mask)
+
+    def queued(after, prev):
+        if after is not None:
+            send(after)
+        copy_back(prev)
+
+    def compute(chunk, after, prev):
+        """Steps 1-7 of a chunk; `after` (the next tile pulled, or None)
+        goes to the card and `prev`'s masks come back while it computes."""
+        for tile in chunk:
+            send(tile)
+        H, W = chunk[0].shape
+        Xs = [_land(*tile.sent) for tile in chunk]
+        outs = []
+        for tile, (scores, mask) in zip(chunk, _starro_em_bp_fused(
+            Xs, k, mk, _n_samples(H * W, downsample), int(em_max_iter), float(em_precision), offsets, float(bp_p),
+            float(bp_q), float(bp_precision), int(bp_max_iter), _use_cuda_bp(offsets, Xs[0]), str(bp_msg_dtype),
+            0 if seed is None else int(seed), pack_mask=bool(mask_only), queued=lambda: queued(after, prev),
+        )):
+            made = None
+            if on_card and mask_only:
+                made = torch.cuda.Event()
+                made.record()
+            outs.append(_Out(tile.shape, scores, mask, made))
+        return outs
+
+    def finish(out):
+        if not mask_only:
+            return out.scores, out.mask
+        if out.copied is not None:
+            out.copied.synchronize()
+        n = out.mask.numel()
+        mask = np.unpackbits(out.host[:n].numpy())[: out.shape[0] * out.shape[1]].reshape(out.shape).view(bool)
+        buffers.give(out.host)
+        return out.scores, mask
+
+    try:
+        chunk, prev = form(), []
+        while chunk:
+            # the JAX package's per-tile pipeline pulls the tile after next
+            # before it computes a tile; its chunked one pulls the next chunk
+            # only once it has yielded the last
+            nxt = form() if em_batch == 1 else None
+            after = nxt[0] if nxt else (pulled[0] if pulled else None)
+            outs = compute(chunk, after, prev if mask_only else [])
+            for out in prev:
+                yield finish(out)
+            chunk, prev = (nxt if em_batch == 1 else form()), outs
+        if mask_only:
+            copy_back(prev)
+        for out in prev:
+            yield finish(out)
+    finally:
+        worker.shutdown(wait=False, cancel_futures=True)
+
+
+class _Tile:
+    """A tile of the stream: its shape, the future of its staging (`_stage`)
+    and, once its copy is enqueued, the staging and `_send`'s result."""
+
+    __slots__ = ("shape", "staged", "sent")
+
+    def __init__(self, shape, staged):
+        self.shape, self.staged, self.sent = tuple(shape), staged, None
+
+
+class _Out:
+    """A computed tile of the stream: its scores and mask on the device, the
+    event after which the mask is made, and, once its copy back is
+    enqueued, the host buffer and the copy's event."""
+
+    __slots__ = ("shape", "scores", "mask", "made", "host", "copied")
+
+    def __init__(self, shape, scores, mask, made):
+        self.shape, self.scores, self.mask, self.made = shape, scores, mask, made
+        self.host = self.copied = None
+
+
+_END = object()
 
 
 #: Keyword arguments of `starro_em_bp_sharded` and their defaults (the JAX

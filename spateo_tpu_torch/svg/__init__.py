@@ -1,9 +1,9 @@
 """SVG layer (`stt.svg`): spatially-variable-gene detection via OT distances,
 ported from `spateo_tpu.svg`. The per-gene Wasserstein scan is a batched
 log-domain Sinkhorn on the device, the between-slice scan entropic GW on the
-device; graphs, loess and statistics stay on the host. Only
-`cal_wass_dis_batch_sharded` (multi-device) is not ported: it raises
-(ROADMAP Queue 1 item 13)."""
+device; graphs, loess and statistics stay on the host.
+`cal_wass_dis_batch_sharded` splits the scan's genes over the ranks of a
+`torch.distributed` mesh."""
 
 from .get_svg import (
     bin_scale_adata_get_distance,

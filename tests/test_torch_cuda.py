@@ -756,6 +756,44 @@ def test_stream_em_batch_matches_per_tile_on_card(cuda):
         assert torch.equal(s1, s4)
 
 
+def test_pipelined_stream_matches_per_tile_calls_on_card(cuda):
+    """The pipelined stream of three 512² tiles (the second scipy sparse,
+    sent as COO) yields on the card, bit for bit, what per-tile
+    `starro_em_bp` calls give, with either `mask_only`; a mask packed on the
+    card comes back to the host as `np.packbits` of it, unpacks to it on the
+    card, and labels as the bool mask does."""
+    from scipy import sparse
+
+    from spateo_tpu_torch.ops import bits
+
+    rng = np.random.default_rng(4)
+    tiles = [rng.negative_binomial(1, 0.5, (512, 512)).astype(np.float32) for _ in range(3)]
+    for t in tiles:
+        t[100:180, 200:300] += rng.negative_binomial(8, 0.35, (80, 100))
+    tiles[1] = tiles[1] * (rng.random((512, 512)) < 0.05)
+    tiles[1][100:180, 200:300] += 1
+    tiles[1] = sparse.csr_matrix(tiles[1])
+    assert starro.encode_tile(tiles[1])[0] == "coo"
+    kw = dict(k=5, seed=0, bp_max_iter=30, device="cuda")
+    for mask_only in (True, False):
+        out = list(starro.starro_em_bp_stream(tiles, mask_only=mask_only, **kw))
+        assert len(out) == 3
+        for X, (s, m) in zip(tiles, out):
+            s0, m0 = starro.starro_em_bp(X, mask_only=mask_only, **kw)
+            assert torch.equal(s, s0)
+            if mask_only:
+                assert isinstance(m, np.ndarray) and np.array_equal(m, m0)
+            else:
+                assert m.is_cuda and torch.equal(m, m0)
+    m = out[0][1]
+    packed = bits.packbits(m)
+    assert packed.is_cuda and np.array_equal(packed.cpu().numpy(), np.packbits(m.cpu().numpy().ravel()))
+    assert torch.equal(bits.unpackbits(packed, m.numel()).reshape(m.shape), m)
+    lp, cp = labels.label_cells_from_mask(packed, 3, shape=tuple(m.shape), device="cuda")
+    lb, cb = labels.label_cells_from_mask(m.cpu().numpy(), 3, device="cuda")
+    assert torch.equal(lp, lb) and np.array_equal(cp, cb)
+
+
 def test_safe_erode_and_labels_cuda_match_cpu(cuda):
     """safe_erode's bools and label_connected_components' labels: equal on
     the card and on the CPU."""
